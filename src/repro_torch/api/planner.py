@@ -7,6 +7,10 @@ instance identity and horizon), the engine, the device and the
 local-search configuration — and serves every request shape through ONE
 code path (:func:`repro_torch.core.portfolio.schedule_portfolio_grid`):
 ``1 x 1 x 1``, ``1 x 1 x 17``, ``1 x P x 17`` and ``I x P x 17`` grids.
+The ``solver=`` request axis picks which backend serves the grid: the
+heuristic portfolio (default), the exact DP/ILP dispatch
+(``solver="exact"``), the raw ``"ilp"``/``"dp"`` oracles, or the
+``"asap"`` baseline; :meth:`Planner.session` replans a rolling horizon.
 
 ``engine="auto"`` resolves per request through
 :func:`repro_torch.kernels.backend.resolve_engine`: the device engine
@@ -150,3 +154,10 @@ class Planner:
                           mip_gap=out.mip_gap,
                           mapping_mode=request.mapping,
                           phase_seconds={"graphs": t_graph, **out.timings})
+
+    def session(self, instances, window_profiles, **kw):
+        """An async rolling-horizon :class:`~repro_torch.api.session
+        .PlanningSession` over this planner; see its docstring."""
+        from repro_torch.api.session import PlanningSession
+
+        return PlanningSession(self, instances, window_profiles, **kw)

@@ -7,7 +7,10 @@ portfolio, a forecast ensemble, or an instance suite against a profile grid
 x variants) grid that
 :func:`repro_torch.core.portfolio.schedule_portfolio_grid` evaluates in one
 pass. :func:`crop_profile` restricts a long forecast to a deadline window
-(``PlanRequest.deadline_scale``).
+(``PlanRequest.deadline_scale``), and :func:`window_profile` slices the
+``[t0, t0+T)`` window out of a long forecast — the rolling-horizon overlay
+the async :class:`~repro_torch.api.session.PlanningSession` replans
+against.
 
 This slice serves the fixed-mapping setting on one device: ``mapping``
 other than ``"fixed"`` and ``devices`` above 1 raise ``ValueError``.
@@ -69,6 +72,29 @@ def crop_profile(profile: PowerProfile, T: int) -> PowerProfile:
                         scenario=profile.scenario)
 
 
+def window_profile(profile: PowerProfile, t0: int, T: int) -> PowerProfile:
+    """Slice the ``[t0, t0+T)`` window of a long forecast.
+
+    Returns a T-horizon profile whose unit budget equals the forecast's on
+    the window (``out.unit_budget(x) == profile.unit_budget(x)[t0:t0+T]``
+    for every idle draw x) — the rolling-horizon overlay a
+    :class:`~repro_torch.api.session.PlanningSession` replans each
+    execution window against. Raises outside the forecast.
+    """
+    t0, T = int(t0), int(T)
+    if t0 < 0 or T < 1:
+        raise ValueError("need t0 >= 0 and T >= 1")
+    if t0 + T > profile.T:
+        raise ValueError(
+            f"window [{t0}, {t0 + T}) exceeds forecast horizon {profile.T}")
+    b = profile.bounds
+    j0 = int(np.searchsorted(b, t0, side="right")) - 1
+    j1 = int(np.searchsorted(b, t0 + T, side="left"))
+    bounds = np.clip(b[j0:j1 + 1] - t0, 0, T).astype(np.int64)
+    return PowerProfile(bounds=bounds, budget=profile.budget[j0:j1].copy(),
+                        scenario=profile.scenario)
+
+
 def _as_instances(instances) -> list[Instance]:
     if isinstance(instances, Instance):
         return [instances]
@@ -112,8 +138,15 @@ class PlanRequest:
     * ``deadline_scale`` — optional: crop every profile to the owning
       instance's deadline ``deadline_scale x ASAP-makespan``.
     * ``robust`` — plan for the min-max pick across the profile axis.
-    * ``solver`` — ``"heuristic"`` (default) or ``"asap"``.
-    * ``solver_options`` — solver-specific knobs (none used yet).
+    * ``solver`` — which registered backend serves the grid
+      (:mod:`repro_torch.core.solvers`): ``"heuristic"`` (default, the
+      portfolio engine; the only solver with a variant axis), ``"exact"``
+      (§4.1 DP on uniprocessor chains, time-indexed ILP otherwise),
+      ``"ilp"``, ``"dp"``, or ``"asap"``. Non-heuristic solvers serve one
+      variant column named after the solver.
+    * ``solver_options`` — solver-specific knobs: ``time_limit`` /
+      ``mip_gap`` (ilp, exact), ``check`` (dp: cross-validate against the
+      pseudo-polynomial oracle).
     * ``mapping`` — ``"fixed"`` only in this port so far; ``"heft"`` and
       ``"search"`` raise ``ValueError``.
     * ``mapping_options`` — must be None (mapping search is not ported).

@@ -11,6 +11,7 @@ from repro_torch.core.carbon import (  # noqa: F401
     SCENARIOS,
     generate_profile,
     schedule_cost,
+    schedule_cost_torch,
     validate_schedule,
 )
 from repro_torch.core.cancel import Cancelled, CancelToken  # noqa: F401
@@ -24,6 +25,7 @@ from repro_torch.core.estlst import (  # noqa: F401
     asap_schedule,
     compute_est,
     compute_lst,
+    est_lst_torch,
     makespan,
 )
 from repro_torch.core.greedy_torch import (  # noqa: F401
@@ -47,6 +49,11 @@ from repro_torch.core.portfolio import (  # noqa: F401
     schedule_portfolio_grid,
 )
 from repro_torch.core.solvers import (  # noqa: F401
+    AsapSolver,
+    DpUniprocSolver,
+    ExactSolver,
+    HeuristicSolver,
+    IlpSolver,
     SolveOutput,
     Solver,
     get_solver,

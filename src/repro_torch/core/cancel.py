@@ -3,6 +3,12 @@
 A :class:`CancelToken` is threaded from the caller down into every solver
 layer, and the layers poll it at their natural chunk boundaries:
 
+* :mod:`repro_torch.core.solvers` — between grid cells (every per-cell
+  solver) and between the exact solver's per-instance dispatches;
+* :mod:`repro_torch.core.ilp` — before each HiGHS solve and between its
+  row families; the solve itself is bounded by the token's deadline
+  (scipy's ``milp`` exposes no interrupt callback, so the deadline-clamped
+  ``time_limit`` is the interrupt surface for one in-flight MILP);
 * :mod:`repro_torch.core.portfolio` — between greedy cells / device bucket
   launches and before each local-search climb;
 * :mod:`repro_torch.core.local_search_torch` — before the device climb and

@@ -6,15 +6,19 @@ a constant green budget per time unit. The schedule-independent idle draw
 profile generation guarantees ``G_j >= idle`` (paper §6.1), so
 ``cost_t = max(work_power(t) - g_eff(t), 0)``.
 
-Two cost oracles, both exact and mutually validated:
-  * :func:`schedule_cost`      -- numpy, subinterval sweep of Appendix A.1;
-  * :func:`cost_timeline`      -- numpy, per-time-unit (pseudo-polynomial).
+Three cost oracles, all exact and mutually validated:
+  * :func:`schedule_cost`        -- numpy, subinterval sweep of Appendix A.1;
+  * :func:`cost_timeline`        -- numpy, per-time-unit (pseudo-polynomial);
+  * :func:`schedule_cost_torch`  -- torch breakpoint formulation, on any
+                                    device (the counterpart of the
+                                    reference's ``schedule_cost_jnp``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.dag import Instance
 
@@ -144,3 +148,58 @@ def validate_schedule(inst: Instance, profile: PowerProfile,
     v = inst.succ_idx
     assert (start[v] >= end[u]).all(), "precedence violated"
 
+
+
+# ---------------------------------------------------------------------------
+# torch breakpoint oracle (fixed shapes; device path + kernel oracle)
+# ---------------------------------------------------------------------------
+
+def schedule_cost_torch(start, dur, work, bounds, g_eff, T, *, device=None):
+    """Exact carbon cost on a device (same math as :func:`schedule_cost`).
+
+    The port of the reference's ``schedule_cost_jnp``: the breakpoints keep
+    their duplicates, the work-power deltas accumulate repeated indices,
+    and power, lengths and budgets are f32, so an int32 schedule whose
+    partial sums stay below 2^24 costs exactly its integer cost.
+
+    Args:
+      start, dur: [N] integer start times and durations (int32 on device).
+      work: [N] work power per task (f32 on device).
+      bounds: [J+1] profile interval boundaries; g_eff: [J] effective
+        budget per interval; T: the horizon.
+      device: where arrays that are not tensors go (None = the device of
+        ``start`` if it is a tensor, else the card).
+    Returns:
+      a 0-dim f32 tensor.
+    """
+    from repro_torch.kernels.backend import resolve_device
+
+    if device is None and isinstance(start, torch.Tensor):
+        dev = start.device
+    else:
+        dev = resolve_device(device)
+
+    def i32(x):
+        return torch.as_tensor(x, device=dev).to(torch.int32)
+
+    def f32(x):
+        return torch.as_tensor(x, device=dev).to(torch.float32)
+
+    start, dur, bounds = i32(start), i32(dur), i32(bounds)
+    end = torch.clamp(start + dur, 0, T)
+    s = torch.clamp(start, 0, T)
+    pts = torch.sort(torch.cat([bounds, s, end])).values  # [K], duplicates ok
+    deltas = torch.zeros(pts.shape[0] + 1, dtype=torch.float32, device=dev)
+    si = torch.searchsorted(pts, s, right=False)
+    ei = torch.searchsorted(pts, end, right=False)
+    w = f32(work)
+    deltas.index_add_(0, si, w)          # repeated indices accumulate
+    deltas.index_add_(0, ei, -w)
+    power = torch.cumsum(deltas[:-1], 0)[:-1]            # per segment [K-1]
+    seg_len = torch.diff(pts).to(torch.float32)
+    g = f32(g_eff)
+    idx = torch.clamp(
+        torch.searchsorted(bounds, pts[:-1].contiguous(), right=True) - 1,
+        0, g.shape[0] - 1)
+    seg_budget = g[idx]
+    return (seg_len * torch.clamp(power - seg_budget, min=0.0)).sum()

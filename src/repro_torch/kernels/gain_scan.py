@@ -33,6 +33,7 @@ there):
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -43,6 +44,7 @@ MU_MAX = W // 2 - 22   # 42, the reference's limit for W = 128
 NEG = -1e30
 
 LAUNCHES = 0     # CUDA kernel launches made by gain_sweep (only there)
+_COUNT_LOCK = threading.Lock()   # launches may come from several threads
 
 
 def _check_mu(mu: int) -> None:
@@ -188,7 +190,8 @@ def _sweep_kernel(rem, start, dur, work, lo_rel, hi_rel, mu):
                      out.data_ptr(), R, N, rem.shape[1], mu, stream)
     if err != 0:
         raise RuntimeError(f"gain_scan kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.carbon_cost import deficit_timeline
 from repro_torch.kernels.gain_scan import gain_scan, gain_scan_batched
 
 
@@ -20,6 +21,17 @@ def _f32(device, *arrays):
         dev = resolve_device(device)
     return [torch.as_tensor(a, dtype=torch.float32, device=dev)
             for a in arrays]
+
+
+def carbon_cost(starts, durs, works, g_eff, *, device=None):
+    """Total carbon cost of a schedule (0-dim f32 tensor).
+
+    ``ends = starts + durs`` is formed after casting both to f32, as the
+    reference does; the cost is the sum of
+    :func:`repro_torch.kernels.carbon_cost.deficit_timeline`.
+    """
+    starts, durs, works, g_eff = _f32(device, starts, durs, works, g_eff)
+    return deficit_timeline(starts, starts + durs, works, g_eff).sum()
 
 
 def ls_gains(rem, start, dur, work, lo, hi, *, mu: int = 10, device=None):

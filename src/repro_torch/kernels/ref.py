@@ -3,6 +3,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.carbon_cost import timeline_plain
+
+# O(N*T) dense oracle for :func:`repro_torch.kernels.carbon_cost
+# .deficit_timeline`: the port has one plain dense form, chunked over tasks.
+deficit_timeline_ref = timeline_plain
+
 
 def gain_scan_ref(rem, start, dur, work, lo, hi, *, mu: int = 10):
     """Oracle for :func:`repro_torch.kernels.gain_scan.gain_scan`, by the

@@ -123,10 +123,10 @@ def test_request_surface_limits_of_this_slice():
     with pytest.raises(ValueError, match="devices=2 is not yet ported"):
         planner.plan(PlanRequest(instances=tinsts, profiles=tgrid,
                                  devices=2))
-    for solver in ("exact", "ilp", "dp"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            planner.plan(PlanRequest(instances=tinsts, profiles=tgrid,
-                                     solver=solver))
+    for solver in ("exact", "ilp", "dp"):       # ported: they resolve
+        _, _, names = PlanRequest(instances=tinsts, profiles=tgrid,
+                                  solver=solver).resolve()
+        assert names == (solver,)
     with pytest.raises(ValueError, match="unknown variant"):
         planner.plan(PlanRequest(instances=tinsts, profiles=tgrid,
                                  variants=("nope",)))
