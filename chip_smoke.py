@@ -39,16 +39,37 @@ reference package ``repro``. Phases, each fatal on failure:
    ``eager`` instance against ``window_profile`` slices of the S1-S4
    forecasts: every window equals an eager plan of it bitwise, the
    session's gain-kernel launches equal those eager plans', and every
-   schedule costs the same through the kernel.
+   schedule costs the same through the kernel;
+10. the flash-attention kernel against its plain version on the card at
+   the reference sweep's five shapes, at the model's shape (B=4, S=2048,
+   H=16, hd=64, causal) in bf16 and f32, and on strided views; at the
+   model's shape the kernel's, the plain version's and PyTorch's
+   ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
+11. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
+   bf16 activations, f32 master parameters from a seed) on the card: the
+   loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
+   per forward, finite and within 0.5 of ln V; the final hidden states
+   against plain-attention forwards of the same parameters (f32:
+   elementwise within 1e-4; bf16: within 2e-2 in relative norm, and no
+   further from the f32 forward than the plain bf16 forward is); forward
+   seconds cold and warm (``[model]``);
+12. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
+   requests on 4 slots, 32 new tokens, max_len 512, every request finished;
+   then the forward's logits against step-by-step decode logits at full
+   width in f32, B=2, S=8, within 2e-2 (``[serve]``).
 
-Each path (4, 5, 8, 9) is driven with the kernels' launch counts set to 0
-just before it and read just after; a kernel the path runs that was never
-launched fails the run. The line before the last is a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero before either is printed.
+Each path (4, 5, 8, 9, 11, 12) is driven with the kernels' launch counts set
+to 0 just before it and read just after; a kernel the path runs that was
+never launched fails the run. f32 matrix products on the card run in full
+f32: TF32 is switched off for matmuls and cuDNN before any phase. The line
+before the last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before either
+is printed.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -69,6 +90,32 @@ PROFILE_SEED = 17
 PROFILE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM published f32 rate (no tensor cores)
+BF16_OPS_PER_S = 989e12      # H100 SXM published dense bf16 tensor-core rate
+
+ARCH = "qwen1.5-0.5b"        # the serve CLI's default arch, at full width
+MODEL_B, MODEL_S = 4, 2048   # the forward's batch: f32 logits take 5 GB
+FLASH_SWEEP = [              # tests/test_kernels.py's flash sweep
+    (2, 128, 2, 64, True, "float32"),
+    (1, 256, 4, 128, True, "float32"),
+    (2, 200, 2, 64, False, "float32"),
+    (1, 384, 1, 128, True, "bfloat16"),
+    (1, 130, 3, 64, True, "float32"),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the sweep's tolerances
+# kernel vs plain forward of the whole model. In f32 the two attentions
+# differ only in the order of their f32 sums, which 24 layers keep near 1e-5:
+# elementwise allclose at F32_MODEL_TOL. In bf16 an attention output rounds
+# to another bf16 value now and then and the difference spreads through the
+# bf16 residual stream like any other bf16 rounding, so elementwise bounds
+# do not hold (a bf16 forward is ~2e-2 from the f32 one in relative norm
+# and up to ~0.14 in one element of ~5): the kernel's bf16 forward must stay
+# within the sweep's bf16 tolerance of the plain one in relative Frobenius
+# norm, and be no further from the f32 forward than the plain bf16 forward
+# is, within BF16_MODEL_SLACK
+F32_MODEL_TOL = 1e-4
+BF16_MODEL_TOL = 2e-2
+BF16_MODEL_SLACK = 1.1
+DECODE_TOL = 2e-2            # tests/test_model_equivalence.py's tolerance
 
 
 class SmokeFailure(Exception):
@@ -174,6 +221,64 @@ def profiled_ms(fn, reps: int, kernel: str, out_path: str, tries: int = 2):
                        f"expected {reps}, in each of {tries} traces")
 
 
+def device_breakdown(fn, reps: int, out_path: str) -> dict:
+    """Where ``reps`` warm calls of ``fn`` spend the card's time, from
+    ``torch.profiler``: host wall ms per call (ending in a synchronize),
+    device busy ms per call (the sum of the kernels' device times; one
+    stream, so they do not overlap), the idle share, and the kernels'
+    device ms per call grouped as flash, matrix products and the rest.
+    Busy is None when the profiler records no device time. The profiler's
+    table goes to ``out_path``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "a") as f:
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=25)
+                + "\n")
+    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    for ev in avgs:
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total", 0.0)
+                   or getattr(ev, "self_cuda_time_total", 0.0))
+        name = ev.key.lower()
+        if "flash_fwd_kernel" in name:
+            groups["flash"] += us
+        elif any(k in name for k in ("gemm", "xmma", "cutlass", "gemv",
+                                     "nvjet")):
+            groups["matmul"] += us
+        else:
+            groups["other"] += us
+    busy_us = sum(groups.values())
+    wall_ms = 1e3 * wall / reps
+    if busy_us <= 0.0:
+        return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None}
+    busy_ms = busy_us / 1e3 / reps
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            **{f"{k}_ms": v / 1e3 / reps for k, v in groups.items()}}
+
+
+def breakdown_text(b: dict) -> str:
+    if b["busy_ms"] is None:
+        return (f"{b['wall_ms']:.3f} ms wall; device time not measured (the "
+                f"profiler recorded none)")
+    return (f"{b['wall_ms']:.3f} ms wall, device busy {b['busy_ms']:.3f} ms "
+            f"(flash {b['flash_ms']:.3f}, matmul {b['matmul_ms']:.3f}, other "
+            f"{b['other_ms']:.3f}), idle share {b['idle_share']:.3f}")
+
+
 def gain_inputs(R, N, T, mu, seed, dev):
     """Random gain-sweep inputs at the climb's shapes and dtypes."""
     import torch
@@ -226,7 +331,7 @@ def build_kernels():
 
     from repro_torch.kernels import _build
 
-    names = ("gain_scan", "carbon_cost")
+    names = ("gain_scan", "carbon_cost", "flash_attention")
 
     def build(name):
         t0 = time.perf_counter()
@@ -475,14 +580,19 @@ def build_matrix():
     return plat, insts, grid
 
 
-def timed_plan(planner, request):
+def timed(fn):
+    """``fn()`` and its host wall seconds, between two synchronizes."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = planner.plan(request)
+    out = fn()
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def timed_plan(planner, request):
+    return timed(lambda: planner.plan(request))
 
 
 def phase_plan(plat, insts, grid):
@@ -844,6 +954,320 @@ def phase_session(plat, inst):
     return launches
 
 
+def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
+    """Least time for one attention pass: q, k, v read once and the output
+    written once, against the flops of QK^T and PV over the keys each query
+    sees (the lower triangle when causal), at the card's peak for the input
+    type (bf16: the tensor cores; f32: the CUDA cores, since TF32 is not
+    f32)."""
+    esize = 2 if dtype == "bfloat16" else 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * hd * pairs
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes = 4 * B * S * H * hd * esize / HBM_BYTES_PER_S
+    t_ops = flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_inputs(B, S, H, hd, dtype, seed, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, S, H, hd), generator=g, device=dev)
+            .to(getattr(torch, dtype)) for _ in range(3)]
+
+
+def close_err(got, want, tol) -> float:
+    """Largest |got - want| - tol |want| (allclose with rtol = atol = tol
+    holds when it is <= tol)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - tol * w.abs()).max())
+
+
+def phase_flash(dev):
+    """The flash-attention kernel against its plain version on the card;
+    times at the model's shape."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = [(f"sweep {c}", c) for c in FLASH_SWEEP]
+    cases += [(f"model {dt}", (MODEL_B, MODEL_S, 16, 64, True, dt))
+              for dt in ("bfloat16", "float32")]
+    errs = {}
+    for label, (B, S, H, hd, causal, dt) in cases:
+        q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention(q, k, v, causal=causal, mode="plain")
+        torch.cuda.synchronize()
+        check(got.dtype == q.dtype and got.shape == q.shape,
+              f"flash kernel output {got.dtype} {tuple(got.shape)} ({label})")
+        check(bool(torch.isfinite(got).all()), f"non-finite flash output "
+              f"({label})")
+        err = close_err(got, want, FLASH_TOL[dt])
+        check(err <= FLASH_TOL[dt], f"flash kernel != plain ({label}): "
+              f"|got - want| - tol |want| reaches {err} > {FLASH_TOL[dt]}")
+        errs[label] = float((got.float() - want.float()).abs().max())
+    # strided views: q, k, v as slices of one [B, S, 3, H, hd] projection
+    # (rows 3 H hd apart) and a non-causal pass over them
+    for dt in ("bfloat16", "float32"):
+        B, S, H, hd = 2, 300, 4, 128
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        qkv = torch.randn((B, S, 3, H, hd), generator=g, device=dev)
+        q, k, v = qkv.to(getattr(torch, dt)).unbind(2)
+        check(not q.is_contiguous() and fa._rows_aligned(q),
+              "the strided case must reach the kernel without a copy")
+        for causal in (True, False):
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=causal,
+                                      mode="plain")
+            err = close_err(got, want, FLASH_TOL[dt])
+            check(err <= FLASH_TOL[dt], f"flash kernel != plain on strided "
+                  f"{dt} views (causal={causal}): {err}")
+    log("[flash] kernel == plain within tolerance (f32 2e-5, bf16 2e-2) on "
+        "the five sweep shapes, the model's shape in bf16 and f32, and "
+        "strided views; max |kernel - plain|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+    rows = {}
+    for dt in ("bfloat16", "float32"):
+        B, S, H, hd = MODEL_B, MODEL_S, 16, 64
+        q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
+
+        def kernel():
+            fa.flash_attention(q, k, v, causal=True)
+
+        reps = 50
+        event_ms = cuda_ms(kernel, reps=reps)
+        replay_ms = graph_ms(kernel, reps=reps)
+        device_ms = profiled_ms(kernel, reps, "flash_fwd_kernel", PROFILE_OUT)
+        plain_ms = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, mode="plain"), reps=5, warm=2)
+        # yardstick, not used by the port: PyTorch's fused attention on the
+        # [B, H, S, hd] layout it takes
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+
+        sdpa_diff = float((sdpa().transpose(1, 2).float()
+                           - fa.flash_attention(q, k, v).float()).abs().max())
+        sdpa_ms = cuda_ms(sdpa, reps=reps)
+        bound, by = flash_bound_ms(B, S, H, hd, True, dt)
+        ms, ms_from = ((device_ms, "profiler") if device_ms is not None
+                       else (replay_ms, "graph"))
+        rows[dt] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
+                    "max_abs_err": errs[f"model {dt}"], "ms": ms,
+                    "ms_from": ms_from, "profiler_ms": device_ms,
+                    "graph_ms": replay_ms, "event_ms": event_ms,
+                    "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                    "bound_ms": bound, "bound_by": by}
+        log(f"[flash] B={B} S={S} H={H} hd={hd} causal {dt}: kernel "
+            f"{ms:.4f} ms ({ms_from}; profiler {device_ms}, graph replay "
+            f"{replay_ms:.4f}, eager events {event_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} "
+            f"ms (max |sdpa - kernel| {sdpa_diff:.3g}), bound {bound:.4f} ms "
+            f"({by}), {100 * bound / ms:.2f}% of bound, {ms / sdpa_ms:.2f}x "
+            f"the PyTorch call")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model forward's attention through the plain version (the
+    comparison forward)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    layers.flash_attention = functools.partial(fa.flash_attention,
+                                               mode="plain")
+    try:
+        yield
+    finally:
+        layers.flash_attention = fa.flash_attention
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| (Frobenius, in f32)."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm())
+
+
+def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
+    """The full-width model's forward on the card through the kernel: the
+    bf16 loss, and the final hidden states in bf16 and f32 against
+    plain-attention forwards of the same parameters."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, param_count
+
+    cfg = cfg or ARCHS[ARCH]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    batch = SyntheticTokens(cfg, ShapeConfig("serve_prefill", "prefill", S,
+                                             B), seed=SEED).batch(0)
+    L = cfg.num_layers
+
+    def through_kernel(fn, what):
+        before = fa.LAUNCHES
+        out, secs = timed(fn)
+        check(fa.LAUNCHES - before == L, f"{what} launched the flash kernel "
+              f"{fa.LAUNCHES - before} times, not {L}")
+        return out, secs
+
+    def plain(fn, what):
+        before = fa.LAUNCHES
+        with plain_attention():
+            out, secs = timed(fn)
+        check(fa.LAUNCHES == before, f"{what} launched the flash kernel")
+        return out, secs
+
+    fa.LAUNCHES = 0
+    loss_cold, cold_s = through_kernel(lambda: float(model.loss(batch)),
+                                       "the cold loss")
+    loss_warm, warm_s = through_kernel(lambda: float(model.loss(batch)),
+                                       "the warm loss")
+    ln_v = math.log(cfg.vocab)
+    for tag, val in (("cold", loss_cold), ("warm", loss_warm)):
+        check(math.isfinite(val) and abs(val - ln_v) < 0.5,
+              f"{tag} loss {val} is not finite or not within 0.5 of ln V = "
+              f"{ln_v:.4f}")
+    h16, apply_s = through_kernel(lambda: model.apply(batch),
+                                  "the bf16 forward")
+    check(h16.shape == (B, S, cfg.d_model) and h16.dtype == torch.bfloat16
+          and bool(torch.isfinite(h16).all()),
+          f"hidden states {h16.dtype} {tuple(h16.shape)} not finite bf16")
+    h16p, plain_s = plain(lambda: model.apply(batch), "the plain forward")
+    # where a warm loss forward and a serving decode step (4 slots, a
+    # 512-position cache) spend the card's time
+    fwd = device_breakdown(lambda: model.loss(batch), 2, PROFILE_OUT)
+    cache = model.init_cache(4, 512)
+    tokens = torch.as_tensor(batch["tokens"][0, :4], device=dev)
+    for _ in range(16):
+        model.decode_step(cache, tokens)
+    step = device_breakdown(lambda: model.decode_step(cache, tokens), 16,
+                            PROFILE_OUT)
+    log(f"[model] warm loss forward: {breakdown_text(fwd)}")
+    log(f"[model] decode step (B=4, cache 512): {breakdown_text(step)}")
+    del model, cache
+    model = build_model(dataclasses.replace(cfg, dtype="float32"),
+                        device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    h32, apply32_s = through_kernel(lambda: model.apply(batch),
+                                    "the f32 forward")
+    h32p, _ = plain(lambda: model.apply(batch), "the plain f32 forward")
+    launches = fa.LAUNCHES
+    del model
+
+    err32 = close_err(h32, h32p, F32_MODEL_TOL)
+    check(err32 <= F32_MODEL_TOL, f"f32 kernel forward != plain forward: "
+          f"|h - h_plain| - tol |h_plain| reaches {err32} > {F32_MODEL_TOL}")
+    rel16 = rel_err(h16, h16p)
+    check(rel16 <= BF16_MODEL_TOL, f"bf16 kernel forward != plain forward: "
+          f"relative error {rel16} > {BF16_MODEL_TOL}")
+    to_f32, plain_to_f32 = rel_err(h16, h32p), rel_err(h16p, h32p)
+    check(to_f32 <= BF16_MODEL_SLACK * plain_to_f32, f"the bf16 kernel "
+          f"forward is {to_f32} from the f32 forward, the plain bf16 "
+          f"forward {plain_to_f32}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    max32 = float((h32 - h32p).abs().max())
+    max16 = float((h16.float() - h16p.float()).abs().max())
+    log(f"[model] {cfg.name}: {n_params / 1e6:.3f}M params (f32 master, "
+        f"{cfg.dtype} activations), init {init_s:.3f} s; loss on B={B} "
+        f"S={S}: cold {cold_s:.3f} s, warm {warm_s:.3f} s, loss "
+        f"{loss_cold:.6f} / {loss_warm:.6f} (ln V = {ln_v:.6f}); forward to "
+        f"hidden states {apply_s:.3f} s through the kernel, {plain_s:.3f} s "
+        f"plain (f32: {apply32_s:.3f} s); kernel vs plain: f32 max "
+        f"{max32:.4g} (allclose {F32_MODEL_TOL}), bf16 relative "
+        f"{rel16:.4g} (<= {BF16_MODEL_TOL}; max {max16:.4g} on |h| up to "
+        f"{float(h32p.abs().max()):.4g}), bf16 to f32 {to_f32:.4g} "
+        f"(plain bf16 {plain_to_f32:.4g}); flash launches {launches} ({L} "
+        f"per forward); peak memory {peak_gb:.2f} GiB")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "loss": loss_warm, "cold_s": cold_s,
+            "warm_s": warm_s, "apply_s": apply_s, "plain_s": plain_s,
+            "f32_max_abs_diff": max32, "bf16_rel_err": rel16,
+            "forward": fwd, "decode_step": step}
+
+
+def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
+                max_len=512):
+    """The serve entry point at full width, then forward == decode in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    cfg = cfg or ARCHS[ARCH]
+    fa.LAUNCHES = 0
+    out = serve(cfg, requests, slots, max_new, max_len, device=dev)
+    serve_launches = fa.LAUNCHES
+    reqs = out["requests"]
+    check(len(reqs) == requests and all(r.done and r.out for r in reqs),
+          f"{sum(r.done for r in reqs)} of {requests} requests finished")
+    check(out["steps"] < max_len, f"{out['steps']} decode steps overran the "
+          f"cache of {max_len}")
+    n_tokens = sum(len(r.out) for r in reqs)
+    log(f"[serve] {cfg.name} ({out['params'] / 1e6:.3f}M params, "
+        f"{cfg.dtype}): {requests} requests on {slots} slots, max_new "
+        f"{max_new}, max_len {max_len}: all finished in {out['steps']} "
+        f"decode steps, {out['seconds']:.3f} s "
+        f"({out['tokens'] / out['seconds']:.1f} slot tokens/s, {n_tokens} "
+        f"request tokens, "
+        f"{1e3 * out['seconds'] / out['steps']:.3f} ms per step); flash "
+        f"launches {serve_launches} (decode attention is plain torch)")
+
+    # forward == step-by-step decode (tests/test_model_equivalence.py) at
+    # full width in f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    B, S = 2, 8
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)}
+    fa.LAUNCHES = 0
+    full = L.unembed(model.apply(batch), model.embed)          # [B,S,V]
+    eq_launches = fa.LAUNCHES
+    check(eq_launches == cfg.num_layers, f"the f32 forward launched the "
+          f"flash kernel {eq_launches} times")
+    cache = model.init_cache(B, S + 2)
+    dec = []
+    for t in range(S):
+        logits, cache = model.decode_step(cache, batch["tokens"][:, t])
+        dec.append(logits)
+    dec = torch.stack(dec, dim=1)
+    err = close_err(dec, full, DECODE_TOL)
+    diff = float((dec - full).abs().max())
+    check(err <= DECODE_TOL, f"decode logits != forward logits: {err}")
+    log(f"[serve] forward == decode at full width in f32 (B={B}, S={S}): "
+        f"max |decode - forward| {diff:.4g} (tolerance {DECODE_TOL}); flash "
+        f"launches {eq_launches}")
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"steps": out["steps"], "seconds": out["seconds"],
+            "launches": serve_launches, "eq_launches": eq_launches,
+            "decode_diff": diff}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -859,6 +1283,9 @@ def main() -> int:
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     dev = torch.device("cuda")
+    # f32 matrix products in full f32, so the plain versions are true f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if os.path.exists(PROFILE_OUT):
         os.remove(PROFILE_OUT)
 
@@ -876,6 +1303,9 @@ def main() -> int:
     phase_blocked(plat, insts, grid, card, eager)
     exact_launches = phase_exact()
     session_launches = phase_session(plat, insts[eager])
+    flash_rows = phase_flash(dev)
+    model_run = phase_model(dev)
+    serve_run = phase_serve(dev)
 
     main_mu = gain_rows[0]
     plan_row, large_row = deficit_rows
@@ -923,6 +1353,21 @@ def main() -> int:
         "bitwise_vs_plain": True,
         "shape": plan_row["shape"],
         "large": large_row,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": model_run["launches"] + serve_run["launches"]
+        + serve_run["eq_launches"],
+        "launches_by_path": {"model": model_run["launches"],
+                             "serve": serve_run["launches"],
+                             "forward_vs_decode": serve_run["eq_launches"]},
+        **{k: flash_rows["bfloat16"][k] for k in (
+            "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "float32": flash_rows["float32"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

@@ -1,11 +1,15 @@
-"""State carried across from ``repro``: its objects, as plain fields.
+"""State carried across from ``repro``: its objects as plain fields, and
+its model weights as numpy arrays.
 
-The system has no weights; its state is the instance, the platform and
-the forecast. This module turns an object of the reference package — given
-as its fields in numpy, the dict :func:`dataclasses.asdict` or
-:func:`fields` returns — into the port's own dataclass of the same name,
-so both packages can schedule the identical instance. It imports nothing of
-``repro``: :func:`port` reads any dataclass by its name and fields.
+The scheduler's state is the instance, the platform and the forecast. This
+module turns an object of the reference package — given as its fields in
+numpy, the dict :func:`dataclasses.asdict` or :func:`fields` returns — into
+the port's own dataclass of the same name, so both packages can schedule the
+identical instance. The LLM substrate's state is a model's parameter tree:
+:func:`load_params` copies the reference's tree, given as nested dicts of
+numpy arrays, into the port's model, leaf for leaf. The module imports
+nothing of ``repro``: :func:`port` reads any dataclass by its name and
+fields, and :func:`load_params` reads plain dicts.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import copy
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.cluster import Platform
 from repro_torch.core.carbon import PowerProfile
@@ -57,3 +62,43 @@ def port(obj):
     """The port's counterpart of a reference dataclass object (matched by
     class name and fields)."""
     return from_fields(type(obj).__name__, fields(obj))
+
+
+def flatten_params(tree, prefix: str = "") -> dict:
+    """A nested parameter dict as ``{"attn.wq": leaf, ...}`` (the dotted
+    names of the port's ``state_dict``)."""
+    flat = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            flat.update(flatten_params(value, name + "."))
+        else:
+            flat[name] = value
+    return flat
+
+
+def check_params(model, flat: dict) -> None:
+    """Raise unless ``flat`` (dotted name -> leaf with a ``.shape``) holds
+    exactly the model's parameters, each of the model's shape."""
+    want = {n: tuple(p.shape) for n, p in model.state_dict().items()}
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, "
+                         f"extra {extra}")
+    bad = {n: (tuple(np.shape(flat[n])), want[n]) for n in want
+           if tuple(np.shape(flat[n])) != want[n]}
+    if bad:
+        raise ValueError(f"parameter shapes differ (given, model): {bad}")
+
+
+def load_params(model, tree):
+    """Copy the reference's parameter tree (nested dicts of numpy arrays)
+    into ``model`` as f32, checked by :func:`check_params`; returns the
+    model."""
+    flat = flatten_params(tree)
+    check_params(model, flat)
+    with torch.no_grad():
+        for name, p in model.state_dict().items():
+            p.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
+    return model

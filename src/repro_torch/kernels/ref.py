@@ -4,10 +4,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.carbon_cost import timeline_plain
+from repro_torch.kernels.flash_attention import attention_plain
 
 # O(N*T) dense oracle for :func:`repro_torch.kernels.carbon_cost
 # .deficit_timeline`: the port has one plain dense form, chunked over tasks.
 deficit_timeline_ref = timeline_plain
+
+# Dense-softmax oracle for :func:`repro_torch.kernels.flash_attention
+# .flash_attention` (f32 scores, masked to -1e30, output in q's dtype): the
+# port's plain version, chunked over queries.
+flash_attention_ref = attention_plain
 
 
 def gain_scan_ref(rem, start, dur, work, lo, hi, *, mu: int = 10):

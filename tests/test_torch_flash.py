@@ -1,0 +1,152 @@
+"""Port parity, flash attention: repro_torch's plain attention against
+repro's Pallas flash_attention (run in interpret mode on the CPU, as
+tests/test_kernels.py runs it) and its dense jnp oracle, at the reference
+sweep's five shapes and tolerances (2e-5 for f32, 2e-2 for bf16); the
+wrapper's dispatch and checks; and the hand-written CUDA kernel against the
+plain version on the card."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tf
+from repro_torch.kernels.ref import flash_attention_ref as t_ref
+
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import flash_attention as r_flash
+    from repro.kernels.ref import flash_attention_ref as r_ref
+except ImportError:
+    # the GPU host has no JAX; there `-m cuda` selects only the kernel
+    # tests below, which need neither jax nor repro
+    jnp = None
+
+SWEEP = [                      # tests/test_kernels.py's flash sweep
+    (2, 128, 2, 64, True, "float32"),
+    (1, 256, 4, 128, True, "float32"),
+    (2, 200, 2, 64, False, "float32"),     # non-multiple S (padding path)
+    (1, 384, 1, 128, True, "bfloat16"),
+    (1, 130, 3, 64, True, "float32"),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(B, S, H, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, H, hd)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _torch(xs, dtype):
+    return [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs]
+
+
+def _jax(xs, dtype):
+    return [jnp.asarray(x, getattr(jnp, dtype)) for x in xs]
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal,dtype", SWEEP)
+def test_plain_matches_pallas_interpreter(B, S, H, hd, causal, dtype):
+    xs = _inputs(B, S, H, hd, seed=B * S + H)
+    got = tf.flash_attention(*_torch(xs, dtype), causal=causal)
+    assert got.shape == (B, S, H, hd)
+    assert got.dtype == getattr(torch, dtype)
+    want = r_flash(*_jax(xs, dtype), causal=causal, interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal,dtype", SWEEP)
+def test_plain_matches_jnp_oracle(B, S, H, hd, causal, dtype):
+    xs = _inputs(B, S, H, hd, seed=B * S + H + 1)
+    got = t_ref(*_torch(xs, dtype), causal=causal)
+    want = r_ref(*_jax(xs, dtype), causal=causal)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_query_chunks_change_nothing(causal, monkeypatch):
+    """The plain version's query chunking (forced to 7 rows) gives the
+    unchunked result bit for bit: each query row is computed alone."""
+    q, k, v = _torch(_inputs(2, 45, 3, 16, seed=5), "float32")
+    whole = tf.attention_plain(q, k, v, causal=causal)
+    monkeypatch.setattr(tf, "PLAIN_ELEMS", 2 * 3 * 45 * 7)
+    chunked = tf.attention_plain(q, k, v, causal=causal)
+    assert torch.equal(whole, chunked)
+
+
+def test_plain_is_causal():
+    """Keys after a query do not move its output."""
+    q, k, v = _torch(_inputs(1, 40, 2, 16, seed=9), "float32")
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 20:] = 3.0
+    v2[:, 20:] = -7.0
+    a = tf.flash_attention(q, k, v, causal=True)
+    b = tf.flash_attention(q, k2, v2, causal=True)
+    assert torch.equal(a[:, :20], b[:, :20])
+    assert not torch.equal(a[:, 20:], b[:, 20:])
+
+
+def test_dispatch_and_checks():
+    q, k, v = _torch(_inputs(1, 8, 2, 64, seed=1), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.flash_attention(q, k, v, mode="kernel")
+    with pytest.raises(ValueError, match="unknown kernel mode"):
+        tf.flash_attention(q, k, v, mode="fast")
+    with pytest.raises(ValueError, match="one shape"):
+        tf.flash_attention(q, k[:, :4], v)
+    before = tf.LAUNCHES
+    out = tf.flash_attention(q, k, v, mode="plain")
+    assert torch.equal(out, tf.flash_attention(q, k, v))   # CPU = plain
+    assert tf.LAUNCHES == before                            # no kernel
+
+
+def test_rows_aligned():
+    """What the kernel may read through its strides without a copy."""
+    x = torch.zeros(2, 16, 3, 4, 64)
+    q = x[:, :, 0]                              # rows 3 * 4 * 64 apart
+    assert not q.is_contiguous() and tf._rows_aligned(q)
+    assert not tf._rows_aligned(x.flatten()[1:1 + 2 * 16 * 4 * 64]
+                                .view(2, 16, 4, 64))
+    assert not tf._rows_aligned(x[..., 0, :].transpose(-1, -2)
+                                .contiguous().transpose(-1, -2))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    """The CUDA kernel against the plain version on the card: the sweep's
+    shapes and tolerances, the model's shape in bf16 and f32, strided views,
+    and one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the GPU host)")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = SWEEP + [(4, 2048, 16, 64, True, dt)
+                     for dt in ("bfloat16", "float32")]
+    before = tf.LAUNCHES
+    for B, S, H, hd, causal, dtype in cases:
+        q, k, v = (x.to(dev) for x in _torch(_inputs(B, S, H, hd, seed=S),
+                                               dtype))
+        got = tf.flash_attention(q, k, v, causal=causal)
+        want = tf.flash_attention(q, k, v, causal=causal, mode="plain")
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                                   rtol=tol, atol=tol)
+    qkv = torch.randn(2, 300, 3, 4, 128, device=dev)
+    q, k, v = qkv.unbind(2)
+    got = tf.flash_attention(q, k, v, causal=False)
+    want = tf.flash_attention(q, k, v, causal=False, mode="plain")
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                               rtol=2e-5, atol=2e-5)
+    assert tf.LAUNCHES - before == len(cases) + 1
+    with pytest.raises(ValueError, match="head_dim"):
+        tf.flash_attention(*[x[..., :32].contiguous() for x in (q, k, v)])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tf.flash_attention(*[x.half() for x in (q, k, v)])
