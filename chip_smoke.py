@@ -40,10 +40,12 @@ reference package ``repro``. Phases, each fatal on failure:
    forecasts: every window equals an eager plan of it bitwise, the
    session's gain-kernel launches equal those eager plans', and every
    schedule costs the same through the kernel;
-10. the flash-attention kernel against its plain version on the card at
-   the reference sweep's five shapes, at the model's shape (B=4, S=2048,
-   H=16, hd=64, causal) in bf16 and f32, and on strided views; at the
-   model's shape the kernel's, the plain version's and PyTorch's
+10. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
+   the CUDA cores) against their plain version on the card at the
+   reference sweep's five shapes and the bf16 twins of its four f32 shapes,
+   at the model's shape (B=4, S=2048, H=16, hd=64, causal) in bf16 and f32,
+   and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
+   S=2048, H=8), the kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
 11. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
@@ -102,6 +104,13 @@ FLASH_SWEEP = [              # tests/test_kernels.py's flash sweep
     (1, 130, 3, 64, True, "float32"),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the sweep's tolerances
+FLASH_BF16_TWINS = [c[:5] + ("bfloat16",) for c in FLASH_SWEEP
+                    if c[5] == "float32"]
+# timed shapes (B, S, H, hd, dtype): the model's in bf16 and f32, and bf16
+# at hd=128
+FLASH_TIMED = {"bfloat16": (MODEL_B, MODEL_S, 16, 64, "bfloat16"),
+               "float32": (MODEL_B, MODEL_S, 16, 64, "float32"),
+               "bfloat16_hd128": (MODEL_B, MODEL_S, 8, 128, "bfloat16")}
 # kernel vs plain forward of the whole model. In f32 the two attentions
 # differ only in the order of their f32 sums, which 24 layers keep near 1e-5:
 # elementwise allclose at F32_MODEL_TOL. In bf16 an attention output rounds
@@ -986,15 +995,14 @@ def close_err(got, want, tol) -> float:
 
 
 def phase_flash(dev):
-    """The flash-attention kernel against its plain version on the card;
-    times at the model's shape."""
+    """The flash-attention kernels against their plain version on the card;
+    times at the shapes of ``FLASH_TIMED``."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     cases = [(f"sweep {c}", c) for c in FLASH_SWEEP]
-    cases += [(f"model {dt}", (MODEL_B, MODEL_S, 16, 64, True, dt))
-              for dt in ("bfloat16", "float32")]
+    cases += [(f"bf16 twin {c[:5]}", c) for c in FLASH_BF16_TWINS]
     errs = {}
     for label, (B, S, H, hd, causal, dt) in cases:
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
@@ -1027,14 +1035,19 @@ def phase_flash(dev):
             check(err <= FLASH_TOL[dt], f"flash kernel != plain on strided "
                   f"{dt} views (causal={causal}): {err}")
     log("[flash] kernel == plain within tolerance (f32 2e-5, bf16 2e-2) on "
-        "the five sweep shapes, the model's shape in bf16 and f32, and "
-        "strided views; max |kernel - plain|: "
+        "the five sweep shapes, their bf16 twins and strided views; max "
+        "|kernel - plain|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
     rows = {}
-    for dt in ("bfloat16", "float32"):
-        B, S, H, hd = MODEL_B, MODEL_S, 16, 64
+    for key, (B, S, H, hd, dt) in FLASH_TIMED.items():
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention(q, k, v, causal=True, mode="plain")
+        err = close_err(got, want, FLASH_TOL[dt])
+        check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dt],
+              f"flash kernel != plain ({key}): {err} > {FLASH_TOL[dt]}")
+        max_err = float((got.float() - want.float()).abs().max())
 
         def kernel():
             fa.flash_attention(q, k, v, causal=True)
@@ -1059,12 +1072,12 @@ def phase_flash(dev):
         bound, by = flash_bound_ms(B, S, H, hd, True, dt)
         ms, ms_from = ((device_ms, "profiler") if device_ms is not None
                        else (replay_ms, "graph"))
-        rows[dt] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
-                    "max_abs_err": errs[f"model {dt}"], "ms": ms,
-                    "ms_from": ms_from, "profiler_ms": device_ms,
-                    "graph_ms": replay_ms, "event_ms": event_ms,
-                    "plain_ms": plain_ms, "library_ms": sdpa_ms,
-                    "bound_ms": bound, "bound_by": by}
+        rows[key] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
+                     "max_abs_err": max_err, "ms": ms,
+                     "ms_from": ms_from, "profiler_ms": device_ms,
+                     "graph_ms": replay_ms, "event_ms": event_ms,
+                     "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                     "bound_ms": bound, "bound_by": by}
         log(f"[flash] B={B} S={S} H={H} hd={hd} causal {dt}: kernel "
             f"{ms:.4f} ms ({ms_from}; profiler {device_ms}, graph replay "
             f"{replay_ms:.4f}, eager events {event_ms:.4f}), plain "
@@ -1368,6 +1381,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "float32": flash_rows["float32"],
+        "bfloat16_hd128": flash_rows["bfloat16_hd128"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

@@ -1,44 +1,79 @@
 // Fused forward attention (online softmax) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_kernel
-// (launched by flash_attention). It computes what repro's flash_attention
-// computes: for q, k, v of shape [B, S, H, hd] (kv heads already expanded),
+// (line 33, launched by flash_attention). It computes what repro's
+// flash_attention computes: for q, k, v of shape [B, S, H, hd] (kv heads
+// already expanded),
 //
 //   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h]) v[b, j, h]
 //
 // over the keys j < S (and j <= i when causal), with scale = hd^-0.5 (in
 // f32) applied after the dot, the running max starting at -1e30, f32
-// running max, sum and output accumulator, and the result divided by
-// max(l, 1e-30) and written in the input type. Inputs are f32 or bf16, hd
-// is 64 or 128.
+// running max, sum and output accumulator, masked scores contributing an
+// explicit 0, and the result acc / max(l, 1e-30) rounded once to the input
+// type. hd is 64 or 128. Two kernels compute it, one per input type:
+//
+// * bf16: flash_fwd_kernel_wgmma, on the tensor cores.
+// * f32: flash_fwd_kernel, on the CUDA cores (TF32 would keep about three
+//   decimal digits and break the 2e-5 f32 tolerance).
 //
 // Bound on this card: operations. A causal pass does about 2 B H S^2 hd
 // flops (QK^T and PV over the lower triangle): 34.4 GFLOP at B = 4, S =
-// 2048, H = 16, hd = 64, some 0.035 ms at the bf16 tensor-core peak, while
-// it must move only 4 B S H hd * 2 bytes (67 MB, 0.020 ms at 3.35 TB/s).
-// This kernel does not reach the tensor cores: it runs the products on the
-// CUDA cores in f32, whose peak (67 TFLOP/s) puts the same work at about
-// 0.5 ms, and issue slots, not bytes, set its time: 1.57 ms in bf16 at that
-// shape on an H100 80GB HBM3 at 700 W, where PyTorch's
-// scaled_dot_product_attention takes 0.10 ms.
+// 2048, H = 16, hd = 64, some 0.035 ms at the bf16 tensor-core peak (989
+// TFLOP/s), while it must move only 4 B S H hd * 2 bytes (67 MB, 0.020 ms at
+// 3.35 TB/s). In f32 the same flops take 0.51 ms at the CUDA cores' 67
+// TFLOP/s.
 //
-// Design: simple and exact first. The TPU kernel walked the key blocks as a
-// sequential grid axis with the accumulators in VMEM scratch; here blocks run
-// in parallel in no order, so one CTA owns a tile of kBQ = 64 queries of one
-// (b, h) and walks the key tiles itself. Each thread owns one query row's
-// kDT = 64 head dims (hd = 128 takes two threads per row, which combine
-// their partial dots with one shuffle), with its q slice and its output
-// accumulator in registers. Key and value tiles of kBK = 64 rows are staged
-// through shared memory as f32 (padded rows, so two threads of one query row
-// read different banks), and every thread reads each staged row as a
-// broadcast. The online-softmax update runs once per kChunk = 8 keys. The
-// kernel reads [B, S, H, hd] through its strides (so the reference's moveaxis
-// and pad copies are gone), zero-fills and masks keys at the ragged S edge,
-// stops each warp at the last key any of its rows can see when causal (so
-// k-tiles wholly above the diagonal are never loaded), and launches the
-// longest query tiles first. The wgmma/TMA form with bf16 tensor-core
-// products is the redesign that closes the gap to the bound.
+// The bf16 kernel is the Hopper flash form. One CTA per (128-query tile,
+// b·h) of three warpgroups: two consumers own 64 query rows each, and one
+// thread of the producer warpgroup issues every load. The producer gives
+// its registers up (setmaxnreg, 24 a thread) so the consumers may hold 240:
+// with 9 warps or more one SM sub-partition hosts three, which caps a kernel
+// without setmaxnreg at 168 registers, and the hd = 64 consumer spills
+// there. Q arrives once by TMA; K and V tiles of kBK keys (128 for hd 64, 64
+// for hd 128, whose O fragment is twice as large) go through a kStages-deep
+// ring in shared memory, fed by cp.async.bulk.tensor under a full and an
+// empty mbarrier per stage. The tensor maps are 4-D over (hd, H, S, B) with
+// the tensors' own byte strides, so q, k, v unbound from one
+// [B, S, 3, H, hd] projection reach the kernel with no copy, and use the
+// 128-byte swizzle (hd 128 is two 64-column panels). S = Q K^T is wgmma
+// m64n{kBK}k16 with Q and K read through shared-memory descriptors; the
+// online softmax runs on the accumulator fragment (row max and sum over the
+// four threads of a row by shuffles, one FFMA and one ex2 a score, with
+// scale * log2(e) folded in); O += P V is wgmma m64n{hd}k16 with P in
+// registers as the A operand and V read through a descriptor with the
+// transpose bit (V is hd-contiguous, MN-major), so V needs no transpose
+// pass. Within a warpgroup, QK^T of tile t and PV of tile t - 1 are issued
+// together and the softmax of t runs while the PV product does (P is
+// double-buffered). Key tiles wholly above the diagonal are never loaded,
+// and only tiles on the diagonal or the ragged S edge run the masked
+// softmax; TMA zero-fills rows past S. The epilogue stages the bf16 tile in
+// the warpgroup's own Q rows (consumed by then) and writes it with one TMA
+// store per panel, which clips rows past S. The grid launches the longest
+// query tiles first. At hd = 64 the exponentials (16 a clock per SM) take
+// about as long as the products; scheduling the two consumer warpgroups in
+// turn and a persistent grid are the next steps.
+//
+// One numerical choice differs from the reference kernel: P is rounded to
+// bf16 before the PV product (f32 accumulation), as the tensor cores take
+// it. The reference's own model attention does the same
+// (src/repro/models/layers.py:134, softmax(...).astype(v.dtype)); the sum l
+// stays the f32 sum of the unrounded P. The kernel stays within the
+// reference sweep's 2e-2 bf16 tolerance of the f32 definition.
+//
+// The f32 kernel is the simple form: one CTA per (64-query tile, b·h) walks
+// its key tiles; each thread owns one query row's kDT = 64 head dims (hd =
+// 128 takes two threads per row, which combine their partial dots with one
+// shuffle), with its q slice and output accumulator in registers. K and V
+// tiles of 64 rows are staged through shared memory as f32 (padded rows, so
+// two threads of one query row read different banks), every thread reads
+// each staged row as a broadcast, and the online-softmax update runs once
+// per kChunk = 8 keys. It reads [B, S, H, hd] through its strides,
+// zero-fills and masks keys at the ragged S edge, stops each warp at the
+// last key any of its rows can see when causal, and launches the longest
+// query tiles first. Issue slots, not bytes, set its time.
 
+#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,29 +102,6 @@ struct Vec<float> {           // 16 bytes = 4 f32
   }
   __device__ static void store(float* p, const float* in) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {   // 16 bytes = 8 bf16
-  static constexpr int kN = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 
@@ -274,36 +286,619 @@ int launch_causal(const void* q, const void* k, const void* v, void* o,
              : launch<T, HD, false>(q, k, v, o, B, S, H, st, scale, stream);
 }
 
+// ---- bf16: wgmma products fed by a TMA ring ----------------------------
+
+constexpr int kWgBQ = 128;            // queries per CTA (two warpgroups of 64)
+constexpr int kStages = 3;            // depth of the K/V ring
+constexpr int kConsumers = 256;       // threads of the consumer warpgroups
+constexpr int kWgThreads = kConsumers + 128;  // and a producer warpgroup
+// registers a thread after the split: the producer gives most of its share
+// to the consumers (24 + 2 x 240 of 512 a warp triple on each SMSP)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+template <int HD>
+struct Layout {                       // shared memory, in bytes from a
+  static constexpr int kBK = HD == 64 ? 128 : 64;   // 1024-aligned base
+  static constexpr int kPanels = HD / 64;           // 64-column panels
+  static constexpr int kQPanel = kWgBQ * 128;       // one panel of Q
+  static constexpr int kKVPanel = kBK * 128;        // one panel of K or V
+  static constexpr int kTile = kPanels * kKVPanel;  // one K or V tile
+  static constexpr int kK = kPanels * kQPanel;      // the K ring
+  static constexpr int kV = kK + kStages * kTile;   // the V ring
+  static constexpr int kBar = kV + kStages * kTile; // full[], empty[], q
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of the 4-D map at (hd, h, s, b) into shared memory, completing
+// its bytes on `bar`; rows past S arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box from shared memory to the 4-D map at (hd, h, s, b); rows past S
+// are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading byte offset `lbo` (ignored for K-major operands; for the
+// MN-major V the distance between 64-column panels) and a stride of 1024
+// bytes between groups of 8 rows, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups are in flight (they complete in
+// the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// wgmma m64nNk16, f32 accumulators, bf16 operands. Fragment of d in each
+// thread (warp w of the warpgroup, lane = 4 g + t): d[4 j + e] is row
+// 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2.
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<64> {
+  // d (+)= a b^T: a, b K-major in shared memory (descriptors)
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d += a b: a in registers (bf16 pairs), b MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<128> {
+  // d (+)= a b^T: a, b K-major in shared memory (descriptors)
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d += a b: a in registers (bf16 pairs), b MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One online-softmax step, in base 2, on the raw scores sc (q . k) of the
+// key tile at k0 in this thread's fragment (rows row0 and row0 + 8):
+// updates the running max m (of score * scale * log2 e) and this thread's
+// shares l of the row sums, sets corr to the factor that rescales O, and
+// leaves P rounded to bf16 in pa, the A fragments of the PV product (their
+// layout is the accumulator's, 16 keys a k-step). MASK: the tile holds
+// keys past S or above the diagonal; they contribute an explicit 0.
+template <int BK, bool MASK, bool CAUSAL>
+__device__ __forceinline__ void softmax_step(
+    float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4], float (&m)[2],
+    float (&l)[2], float (&corr)[2], float sl2, int k0, int S, int row0,
+    int t4) {
+  auto visible = [&](int i) {   // key and row of sc[i]
+    const int key = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+    return key < S && (!CAUSAL || key <= row0 + 8 * ((i / 2) & 1));
+  };
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    if (MASK && !visible(i)) sc[i] = kNeg;
+    mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // the four threads of a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * sl2);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) & 1;
+    float p = ex2(fmaf(sc[i], sl2, -m[r]));
+    if (MASK && !visible(i)) p = 0.0f;
+    psum[r] += p;
+    sc[i] = p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_kernel_wgmma(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap omap, int S, int H, float scale) {
+  using L = Layout<HD>;
+  constexpr int BK = L::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t full = base + L::kBar;
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;  // longest first
+  const int q_last = min(q0 + kWgBQ, S) - 1;
+  // key tiles wholly above the diagonal are never loaded
+  const int n_tiles = CAUSAL ? q_last / BK + 1 : (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers / 32);   // one arrival a warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {    // the producer: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, kWgBQ * HD * 2);
+      for (int p = 0; p < L::kPanels; ++p)
+        for (int half = 0; half < 2; ++half)
+          tma_load(sq + p * L::kQPanel + half * 64 * 128, &qmap, qbar,
+                   64 * p, h, q0 + 64 * half, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * L::kTile);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(sk + st * L::kTile + p * L::kKVPanel, &kmap, full + 8 * st,
+                   64 * p, h, t * BK, b);
+          tma_load(sv + st * L::kTile + p * L::kKVPanel, &vmap, full + 8 * st,
+                   64 * p, h, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128;   // consumer warpgroup: 64 query rows
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int wg_first = q0 + 64 * wg;
+  const int wg_last = wg_first + 63;
+  const int row0 = wg_first + 16 * warp + g;   // rows row0 and row0 + 8
+  const float sl2 = scale * 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
+  const uint32_t qa = sq + wg * 64 * 128;      // this warpgroup's Q rows
+  // when causal, tiles wholly above this warpgroup's rows are consumed
+  // without a product
+  const int n_mine = CAUSAL ? min(n_tiles, wg_last / BK + 1) : n_tiles;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+  uint32_t pa[2][BK / 16][4];   // P of two consecutive tiles
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.0f, 0.0f};    // this thread's share of the row sums
+  float corr[2];
+
+  // S = Q K^T of the tile in stage st, issued and committed, not waited for
+  auto issue_qk = [&](int st) {
+    const uint32_t ka = sk + st * L::kTile;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {   // 16 head dims a k-step
+      const uint32_t col = (kk % 4) * 32;     // within a 64-column panel
+      Mma<BK>::ss(s, sw128_desc(qa + (kk / 4) * L::kQPanel + col, 16),
+                  sw128_desc(ka + (kk / 4) * L::kKVPanel + col, 16), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // the softmax of the key tile at k0 into P fragments p; edge tiles (keys
+  // past S or above a row of this warpgroup) are masked
+  auto softmax = [&](uint32_t (&p)[BK / 16][4], int k0) {
+    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > wg_first))
+      softmax_step<BK, true, CAUSAL>(s, p, m, l, corr, sl2, k0, S, row0, t4);
+    else
+      softmax_step<BK, false, CAUSAL>(s, p, m, l, corr, sl2, k0, S, row0, t4);
+  };
+  // O += P V of the tile in stage st, committed, not waited for
+  auto issue_pv = [&](const uint32_t (&p)[BK / 16][4], int st) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)     // 16 keys a k-step
+      Mma<HD>::rs(o, p[kk], sw128_desc(sv + st * L::kTile + kk * 16 * 128,
+                                       L::kKVPanel));
+    wgmma_commit();
+  };
+  // tile t: QK^T of t and PV of t - 1 go in flight together, and the
+  // softmax of t runs while the PV product does
+  auto step = [&](int t, const uint32_t (&prev)[BK / 16][4],
+                  uint32_t (&cur)[BK / 16][4]) {
+    const int st = t % kStages;
+    const int sp = (t - 1) % kStages;
+    mbar_wait(full + 8 * st, (t / kStages) & 1);
+    fence_regs(o);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk(st);
+    issue_pv(prev, sp);
+    wgmma_wait<1>();                         // QK^T is done
+    fence_regs(s);
+    softmax(cur, t * BK);
+    wgmma_wait<0>();                         // and PV
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * sp);   // tile t - 1 is consumed
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j + 0] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  };
+
+  mbar_wait(qbar, 0);
+  mbar_wait(full, 0);
+  fence_regs(s);
+  wgmma_fence();
+  issue_qk(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(pa[0], 0);
+  for (int t = 1; t < n_mine; t += 2) {   // two steps: the P buffers swap
+    step(t, pa[0], pa[1]);
+    if (t + 1 < n_mine) step(t + 1, pa[1], pa[0]);
+  }
+  {
+    const int st = (n_mine - 1) % kStages;   // the last tile's PV
+    fence_regs(o);
+    wgmma_fence();
+    if ((n_mine - 1) & 1)
+      issue_pv(pa[1], st);
+    else
+      issue_pv(pa[0], st);
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+  for (int t = n_mine; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(full + 8 * st, (t / kStages) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+
+  // epilogue: acc / max(l, 1e-30) in bf16, staged in this warpgroup's Q
+  // rows in the TMA's 128-byte swizzle, then one TMA store per panel
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      const uint32_t addr = qa + (j / 8) * L::kQPanel + r * 128 +
+                            (((j % 8) ^ (r & 7)) << 4) + 4 * t4;
+      const uint32_t val = pack_bf16(o[4 * j + 2 * half] / den[half],
+                                     o[4 * j + 2 * half + 1] / den[half]);
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(val)
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (tid == 0) {
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_store(&omap, qa + p * L::kQPanel, 64 * p, h, wg_first, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime, so the library
+// needs no -lcuda
+cudaError_t tensor_map_encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// the map of one [B, S, H, hd] bf16 tensor as 4-D (hd, H, S, B) with its
+// element strides `st` (b, s, h), boxes of 64 head dims x `rows` rows
+CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                    int B, int S, int H, int hd, const long long* st,
+                    int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD, bool CAUSAL>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int B, int S, int H, const long long* strides, float scale,
+                 cudaStream_t stream) {
+  using L = Layout<HD>;
+  auto kernel = flash_fwd_kernel_wgmma<HD, CAUSAL>;
+  EncodeTiled encode;
+  cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  const int rows[4] = {64, L::kBK, L::kBK, 64};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult res = encode_map(encode, &maps[i], ptrs[i], B, S, H, HD,
+                                    strides + 3 * i, rows[i]);
+    if (res != CUDA_SUCCESS) return -(int)res;
+  }
+  // dynamic shared memory above 48 KB is opted into once per device
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!((attr_set >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set |= 1ull << dev;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + kWgBQ - 1) / kWgBQ));
+  kernel<<<grid, kWgThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
+                                                  maps[3], S, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int causal,
+                        const long long* strides, float scale,
+                        cudaStream_t stream) {
+  return causal ? launch_wgmma<HD, true>(q, k, v, o, B, S, H, strides, scale,
+                                         stream)
+                : launch_wgmma<HD, false>(q, k, v, o, B, S, H, strides,
+                                          scale, stream);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
-// cudaErrorInvalidValue for a head dim or type the kernel does not take.
-// `dtype` is 0 for f32, 1 for bf16; `strides` holds the element strides of
-// the b, s and h axes of q, k, v and out, in that order (12 values; the hd
-// axis is contiguous); `scale` is hd^-0.5 rounded to f32 by the caller. The
-// caller allocates `o` and checks shapes, types, the 16-byte alignment of
-// every row and the launch limits.
+// cudaErrorInvalidValue for a head dim or type the kernels do not take, and
+// minus the CUresult when the driver refuses a bf16 tensor map. `dtype` is
+// 0 for f32 (flash_fwd_kernel), 1 for bf16 (flash_fwd_kernel_wgmma);
+// `strides` holds the element strides of the b, s and h axes of q, k, v and
+// out, in that order (12 values; the hd axis is contiguous); `scale` is
+// hd^-0.5 rounded to f32 by the caller. The caller allocates `o` and checks
+// shapes, types, the 16-byte alignment of every row (for bf16 also what the
+// tensor maps need: a 16-byte-aligned base and strides that are multiples
+// of 16 bytes) and the launch limits.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int hd, int dtype, int causal,
                                       const long long* strides, float scale,
                                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && hd == 64)
+    return launch_wgmma_causal<64>(q, k, v, o, B, S, H, causal, strides,
+                                   scale, s);
+  if (dtype == 1 && hd == 128)
+    return launch_wgmma_causal<128>(q, k, v, o, B, S, H, causal, strides,
+                                    scale, s);
   const Strides st = {strides[0], strides[1], strides[2],  strides[3],
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
-  const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && hd == 64)
     return launch_causal<float, 64>(q, k, v, o, B, S, H, causal, st, scale,
                                     s);
   if (dtype == 0 && hd == 128)
     return launch_causal<float, 128>(q, k, v, o, B, S, H, causal, st, scale,
                                      s);
-  if (dtype == 1 && hd == 64)
-    return launch_causal<__nv_bfloat16, 64>(q, k, v, o, B, S, H, causal, st,
-                                            scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch_causal<__nv_bfloat16, 128>(q, k, v, o, B, S, H, causal,
-                                             st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,19 +6,23 @@ exact softmax attention, causal or not, with ``scale = hd**-0.5`` applied
 after the dot and the result in q's dtype. Two executors compute it
 (:func:`repro_torch.kernels.backend.resolve_mode` picks one per call):
 
-* the CUDA kernel ``csrc/flash_attention.cu`` — the Hopper counterpart of
-  the reference's Pallas ``_kernel`` (``repro.kernels.flash_attention``): an
-  online softmax with f32 running max, sum and accumulator, one CTA per
-  (64-query tile, b·h) walking the key tiles itself, reading the
-  ``[B, S, H, hd]`` layout through its strides and masking the ragged S edge
-  and the causal triangle itself. It takes f32 and bf16 at hd 64 and 128,
-  raises on anything else, and serves CUDA tensors.
+* the CUDA kernels of ``csrc/flash_attention.cu`` — the Hopper
+  counterparts of the reference's Pallas ``_kernel``
+  (``repro.kernels.flash_attention``): an online softmax with f32 running
+  max, sum and accumulator, the ragged S edge and the causal triangle
+  masked in the kernel, ``[B, S, H, hd]`` read through its strides. bf16
+  inputs go to ``flash_fwd_kernel_wgmma`` (bf16 ``wgmma`` products on the
+  tensor cores, K/V tiles fed by TMA through a shared-memory ring), f32
+  inputs to ``flash_fwd_kernel`` (products on the CUDA cores in f32). Both
+  take hd 64 and 128; anything else raises. They serve CUDA tensors.
 * :func:`attention_plain` — the dense-softmax definition in f32, chunked
   over queries so no score block exceeds :data:`PLAIN_ELEMS` elements (it
   fits at S = 2048). It serves CPU tensors.
 
-The two differ only in the order of f32 sums; in bf16 the output rounds
-once, at the end, in both.
+In f32 the kernel and the plain version differ only in the order of f32
+sums. In bf16 the output rounds once, at the end, in both; the bf16 kernel
+also rounds the softmax weights P to bf16 before the PV product, as the
+reference's model attention does.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from repro_torch.kernels.backend import resolve_mode
 
 NEG = -1e30             # initial running max and mask value, as the reference
-BQ = 64                 # the kernel's query tile
+BQ = 64                 # the smaller of the kernels' query tiles
 PLAIN_ELEMS = 1 << 26   # largest [B, H, chunk, S] score block (plain form)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,14 +86,17 @@ def _launcher():
 
 def _rows_aligned(x: torch.Tensor) -> bool:
     """Whether every hd-row of ``x`` starts on a 16-byte boundary and is
-    contiguous: what the kernel's vector loads need."""
+    contiguous: what the f32 kernel's vector loads need, and what the bf16
+    kernel's tensor maps need (a 16-byte-aligned base, strides that are
+    multiples of 16 bytes)."""
     vec = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in x.stride()[:3]))
 
 
 def _flash_kernel(q, k, v, causal: bool):
-    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    """Launch ``csrc/flash_attention.cu`` on the current stream: the
+    ``wgmma`` kernel for bf16, the CUDA-core kernel for f32."""
     global LAUNCHES
     B, S, H, hd = q.shape
     dev = q.device
@@ -107,7 +114,7 @@ def _flash_kernel(q, k, v, causal: bool):
     if -(-S // BQ) > 65535 or B * H >= 2 ** 31:
         raise ValueError(f"flash_attention kernel: S={S}, B*H={B * H} "
                          f"exceed its grid")
-    # the kernel reads through strides; a tensor whose rows are not
+    # the kernels read through strides; a tensor whose rows are not
     # 16-byte aligned and contiguous is copied into the plain layout first
     q, k, v = (x if _rows_aligned(x)
                else x.clone(memory_format=torch.contiguous_format)
@@ -121,6 +128,9 @@ def _flash_kernel(q, k, v, causal: bool):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), B, S, H, hd, KERNEL_DTYPES[q.dtype],
                      int(causal), strides, hd ** -0.5, stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention kernel: the driver refused a "
+                           f"tensor map (CUresult {-err})")
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")

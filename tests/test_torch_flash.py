@@ -1,9 +1,10 @@
 """Port parity, flash attention: repro_torch's plain attention against
 repro's Pallas flash_attention (run in interpret mode on the CPU, as
 tests/test_kernels.py runs it) and its dense jnp oracle, at the reference
-sweep's five shapes and tolerances (2e-5 for f32, 2e-2 for bf16); the
-wrapper's dispatch and checks; and the hand-written CUDA kernel against the
-plain version on the card."""
+sweep's five shapes and tolerances (2e-5 for f32, 2e-2 for bf16); an
+emulation of the bf16 CUDA kernel's arithmetic (P rounded to bf16 before
+PV) against the same interpreter; the wrapper's dispatch and checks; and
+the hand-written CUDA kernels against the plain version on the card."""
 import numpy as np
 import pytest
 import torch
@@ -29,6 +30,11 @@ SWEEP = [                      # tests/test_kernels.py's flash sweep
     (1, 130, 3, 64, True, "float32"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 twins of the sweep's f32 shapes (non-causal, ragged, S = 128 / 256)
+BF16_TWINS = [c[:5] + ("bfloat16",) for c in SWEEP if c[5] == "float32"]
+# keys per tile of the bf16 kernel (csrc/flash_attention.cu, Layout<HD>::kBK)
+WGMMA_BK = {64: 128, 128: 64}
+LOG2E = 1.4426950408889634
 
 
 def _inputs(B, S, H, hd, seed):
@@ -67,6 +73,52 @@ def test_plain_matches_jnp_oracle(B, S, H, hd, causal, dtype):
     got = t_ref(*_torch(xs, dtype), causal=causal)
     want = r_ref(*_jax(xs, dtype), causal=causal)
     tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def _emulate_bf16_kernel(q, k, v, causal):
+    """The bf16 kernel's arithmetic in torch: key tiles of WGMMA_BK[hd], an
+    online softmax in f32 in base 2 (the running max, from NEG, of the raw
+    dots times scale * log2 e; P = exp2(dot * scale * log2 e - max)),
+    masked scores as an explicit 0, P rounded to bf16 before the PV product
+    with f32 accumulation, l the f32 sum of the unrounded P, and
+    acc / max(l, 1e-30) rounded once. Only this test file uses it."""
+    B, S, H, hd = q.shape
+    bk = WGMMA_BK[hd]
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B,H,S,hd]
+    sl2 = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+           * torch.tensor(LOG2E, dtype=torch.float32))
+    m = torch.full((B, H, S, 1), tf.NEG)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = (kpos <= qpos if causal
+              else torch.ones(S, kt.shape[2], dtype=torch.bool))
+        s = torch.where(ok, qf @ kt.transpose(-1, -2), tf.NEG)   # raw dots
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        # s * sl2 - m_new rounded once, as the kernel's fused multiply-add
+        x = (s.double() * sl2.double() - m_new.double()).float()
+        p = torch.where(ok, torch.exp2(x), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
+def test_bf16_kernel_arithmetic_matches_pallas_interpreter(B, S, H, hd,
+                                                          causal):
+    """Rounding P to bf16 before PV, as the bf16 kernel does, keeps the
+    result within the sweep's bf16 tolerance of the reference kernel."""
+    xs = _inputs(B, S, H, hd, seed=B * S + H + 2)
+    got = _emulate_bf16_kernel(*_torch(xs, "bfloat16"), causal=causal)
+    assert got.shape == (B, S, H, hd) and got.dtype == torch.bfloat16
+    want = r_flash(*_jax(xs, "bfloat16"), causal=causal, interpret=True)
+    tol = TOL["bfloat16"]
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
@@ -120,15 +172,15 @@ def test_rows_aligned():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
-    """The CUDA kernel against the plain version on the card: the sweep's
-    shapes and tolerances, the model's shape in bf16 and f32, strided views,
-    and one launch counted per call."""
+    """The CUDA kernels against the plain version on the card: the sweep's
+    shapes and tolerances, their bf16 twins, the model's shape in bf16 and
+    f32, strided views in f32 and bf16, and one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m cuda on the GPU host)")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = SWEEP + [(4, 2048, 16, 64, True, dt)
-                     for dt in ("bfloat16", "float32")]
+    cases = SWEEP + BF16_TWINS + [(4, 2048, 16, 64, True, dt)
+                                  for dt in ("bfloat16", "float32")]
     before = tf.LAUNCHES
     for B, S, H, hd, causal, dtype in cases:
         q, k, v = (x.to(dev) for x in _torch(_inputs(B, S, H, hd, seed=S),
@@ -140,12 +192,15 @@ def test_cuda_kernel_matches_plain():
         np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
                                    rtol=tol, atol=tol)
     qkv = torch.randn(2, 300, 3, 4, 128, device=dev)
-    q, k, v = qkv.unbind(2)
-    got = tf.flash_attention(q, k, v, causal=False)
-    want = tf.flash_attention(q, k, v, causal=False, mode="plain")
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
-                               rtol=2e-5, atol=2e-5)
-    assert tf.LAUNCHES - before == len(cases) + 1
+    for dtype in ("float32", "bfloat16"):     # rows 3 H hd apart: no copy
+        q, k, v = qkv.to(getattr(torch, dtype)).unbind(2)
+        assert not q.is_contiguous() and tf._rows_aligned(q)
+        got = tf.flash_attention(q, k, v, causal=False)
+        want = tf.flash_attention(q, k, v, causal=False, mode="plain")
+        tol = TOL[dtype]
+        np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                                   rtol=tol, atol=tol)
+    assert tf.LAUNCHES - before == len(cases) + 2
     with pytest.raises(ValueError, match="head_dim"):
         tf.flash_attention(*[x[..., :32].contiguous() for x in (q, k, v)])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
