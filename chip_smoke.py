@@ -11,10 +11,14 @@ reference package ``repro``. Phases, each fatal on failure:
 2. build of the hand-written kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together;
 3. every kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it: the gain sweep bitwise; the deficit
-   timeline bitwise on integer inputs (the reference's sweep shapes, the
-   plan's shape, a 30,000-task shape, edge cases) and within a stated
-   reorder bound on fractional works; each with the kernel's device time
+   shapes the main paths give it: the gain sweep bitwise (the climb's
+   shape, edge cases, and every mu compiled into the kernel plus one it
+   takes at run time, at a ragged Np and at rows at and over its staging
+   budget); the deficit timeline bitwise on integer inputs (the
+   reference's sweep shapes, the plan's shape, a 30,000-task shape, a T of
+   several tiles, edge and out-of-range windows), NaN where the plain
+   version is NaN on non-finite works, and within a stated reorder bound
+   on fractional works; each with the kernel's device time
    (``torch.profiler``, else a CUDA-graph replay), the eager CUDA-event time
    and the plain version's time; the profiler's tables are written to the
    file ``PROFILE_OUT`` names;
@@ -26,7 +30,7 @@ reference package ``repro``. Phases, each fatal on failure:
    equal the port's numpy engine bitwise;
 5. the cost oracle: every schedule of that plan costed through
    ``ops.carbon_cost`` on the card equals its int64 cost, and its deficit
-   timeline equals numpy's bitwise;
+   timeline equals numpy's bitwise; the oracle's wall time per schedule;
 6. one instance re-planned on the CPU against its four profiles: starts
    and costs equal the card's;
 7. that instance re-planned through the blocked longest-path form: starts
@@ -191,7 +195,7 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_ms(fn, reps: int, kernel: str, out_path: str, tries: int = 2):
+def profiled_ms(fn, reps: int, kernel: str, out_path: str, tries: int = 4):
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, from ``torch.profiler`` over ``reps`` warm calls of ``fn``;
     None when the profiler records no device time for it. The profiler's
@@ -409,6 +413,22 @@ def phase_kernels(dev):
         check(bool((got[:, :, mu] == gain_scan.NEG).all()),
               "delta = 0 must be illegal")
     log("[kernels] gain_scan edge and tie cases: bitwise equal")
+    # every mu compiled into the kernel and one it takes at run time, at an
+    # Np that is no multiple of the CTA's chunk and at rows at and over the
+    # staging budget
+    shapes = ((8, Np + 37, Tp - 1), (4, 1000, gain_scan.KERNEL_STAGE_MAX),
+              (4, 1000, gain_scan.KERNEL_STAGE_MAX + 809))
+    mus = (*gain_scan.KERNEL_MUS, 17)
+    for R2, N2, T2 in shapes:
+        for mu in mus:
+            args = gain_inputs(R2, N2, T2, mu, seed=N2 + T2 + mu, dev=dev)
+            check(torch.equal(gain_scan.gain_sweep(*args, mu=mu),
+                              gain_scan.gain_sweep(*args, mu=mu,
+                                                   mode="plain")),
+                  f"gain_scan kernel != plain at R={R2} Np={N2} Tp={T2} "
+                  f"mu={mu}")
+    log(f"[kernels] gain_scan at (R, Np, Tp) in {shapes} x mu in {mus}: "
+        f"bitwise equal")
     return rows
 
 
@@ -452,6 +472,38 @@ def deficit_edges(t=300, seed=11, frac_work=False):
     return starts, ends.astype(np.float32), works, g
 
 
+def deficit_bounds(t=300, seed=12):
+    """Windows the kernel's index rule must clamp or drop: starts at -inf
+    and exactly at T, ends at +inf, at 1e30 and before their starts, NaN
+    starts and ends (tests/test_torch_cost.py's _bounds_edges)."""
+    import numpy as np
+
+    starts, ends, works, g = deficit_inputs(40, t, seed)
+    starts[0], starts[1], starts[2] = -np.inf, float(t), np.nan
+    ends[3], ends[4], ends[5] = np.inf, 1e30, np.nan
+    starts[6], ends[6] = 50.0, 20.0
+    starts[7], ends[7] = -np.inf, np.inf
+    starts[8], ends[8] = -1e30, 3.5
+    return starts, ends, works, g
+
+
+def deficit_nonfinite(kind, t=300, seed=13):
+    """One infinite or NaN work among finite ones (tests/test_torch_cost.py's
+    _nonfinite_works): the dense form is NaN where an infinite work is
+    inactive (inf * 0) and +-inf where it is active."""
+    import numpy as np
+
+    starts, ends, works, g = deficit_inputs(30, t, seed)
+    starts[0], ends[0], works[0] = 40.0, 90.0, np.inf
+    if kind == "inf_both_signs":
+        starts[1], ends[1], works[1] = 70.0, 120.0, -np.inf
+    elif kind == "inf_inactive":
+        starts[0] = np.nan
+    elif kind == "nan_work":
+        works[0] = np.nan
+    return starts, ends, works, g
+
+
 def deficit_bound_ms(N, T) -> tuple[float, str]:
     """Least time for one deficit timeline: each input read once and the
     output written once, (3 N + 2 T) * 4 bytes over the memory rate,
@@ -479,7 +531,9 @@ def phase_deficit(dev):
              for n, t in DEFICIT_SWEEP]
     cases += [("plan", deficit_inputs(*DEFICIT_PLAN, seed=1)),
               ("large", deficit_inputs(*DEFICIT_LARGE, seed=2)),
-              ("edges", deficit_edges())]
+              ("multi-tile", deficit_inputs(
+                  700, 2 * carbon_cost.KERNEL_TILE + 300, seed=4)),
+              ("edges", deficit_edges()), ("bounds", deficit_bounds())]
     worst = 0.0
     for label, args in cases:
         x = on_card(args)
@@ -491,6 +545,16 @@ def phase_deficit(dev):
         check(bool(torch.isfinite(got).all()), f"non-finite timeline "
               f"({label})")
         worst = max(worst, float(got.max()))
+    kinds = ("inf_partial", "inf_both_signs", "inf_inactive", "nan_work")
+    for kind in kinds:
+        x = on_card(deficit_nonfinite(kind))
+        got = carbon_cost.deficit_timeline(*x)
+        want = carbon_cost.deficit_timeline(*x, mode="plain")
+        check(torch.equal(got.isnan(), want.isnan())
+              and torch.equal(got.nan_to_num(), want.nan_to_num()),
+              f"carbon_cost kernel != plain ({kind})")
+    log(f"[kernels] carbon_cost: equal to plain on non-finite works "
+        f"({', '.join(kinds)}; NaN where plain is NaN)")
     # integer works: every partial sum below 2^24 is exact, so fractional
     # windows change which units are active, never the arithmetic; with
     # fractional works two summation orders of n terms differ by at most
@@ -720,32 +784,32 @@ def phase_blocked(plat, insts, grid, card, i):
         f"the dense form's bitwise")
 
 
-def cost_through_kernel(inst, prof, start) -> float:
-    """The schedule's carbon cost from ``ops.carbon_cost`` on the card."""
-    from repro_torch.kernels import ops
-
-    return float(ops.carbon_cost(start, inst.dur, inst.task_work,
-                                 prof.unit_budget(inst.idle_total)))
-
-
-def check_costs_through_kernel(res, insts, grid, tag) -> tuple[int, int]:
+def check_costs_through_kernel(res, insts, grid,
+                               tag) -> tuple[int, int, float]:
     """Every schedule of ``res`` costed through the kernel must equal its
     int64 cost exactly (every cost is below 2^24). Returns (schedules,
-    largest cost)."""
-    count, largest = 0, 0
+    largest cost, host seconds inside ``ops.carbon_cost`` calls, each
+    ending in the copy of its cost to the host)."""
+    from repro_torch.kernels import ops
+
+    count, largest, oracle_s = 0, 0, 0.0
     for i, inst in enumerate(insts):
         for p, prof in enumerate(grid[i]):
+            g = prof.unit_budget(inst.idle_total)
             for v, name in enumerate(res.variants):
                 want = int(res.costs[i, p, v])
                 check(want < 2 ** 24, f"[{tag}] cost {want} is not exact "
                       f"in f32")
-                got = cost_through_kernel(inst, prof,
-                                          res.results[i][p][name].start)
+                start = res.results[i][p][name].start
+                t0 = time.perf_counter()
+                got = float(ops.carbon_cost(start, inst.dur, inst.task_work,
+                                            g))
+                oracle_s += time.perf_counter() - t0
                 check(got == want, f"[{tag}] kernel cost {got} != int64 "
                       f"cost {want} ({i}, {p}, {name})")
                 count += 1
                 largest = max(largest, want)
-    return count, largest
+    return count, largest, oracle_s
 
 
 def phase_cost_oracle(insts, grid, card, dev):
@@ -758,9 +822,11 @@ def phase_cost_oracle(insts, grid, card, dev):
 
     t0 = time.perf_counter()
     carbon_cost.LAUNCHES = 0
-    count, largest = check_costs_through_kernel(card, insts, grid, "cost")
+    count, largest, oracle_s = check_costs_through_kernel(card, insts, grid,
+                                                          "cost")
     launches = carbon_cost.LAUNCHES
     secs = time.perf_counter() - t0
+    oracle_ms = 1e3 * oracle_s / count
     check(launches == count, f"the cost oracle launched the carbon_cost "
           f"kernel {launches} times for {count} schedules")
     # each per-unit timeline against numpy's (comparison launches, read
@@ -779,11 +845,13 @@ def phase_cost_oracle(insts, grid, card, dev):
                                      want.astype(np.float32)),
                       f"kernel timeline != numpy's ({i}, {p}, {name})")
     log(f"[cost] {count} plan schedules costed through ops.carbon_cost on "
-        f"the card in {secs:.3f} s: all equal PlanResult.costs exactly "
+        f"the card in {secs:.3f} s with their checks ({oracle_ms:.4f} ms "
+        f"per schedule in ops.carbon_cost alone, from host arrays to the "
+        f"cost on the host): all equal PlanResult.costs exactly "
         f"(largest {largest}); every timeline equals numpy's "
         f"max(work_timeline - unit_budget, 0) bitwise; carbon_cost "
         f"launches {launches}")
-    return launches
+    return launches, oracle_ms
 
 
 def exact_grid():
@@ -1310,7 +1378,7 @@ def main() -> int:
     plat, insts, grid = build_matrix()
     log(f"[matrix] built in {time.perf_counter() - t0:.3f} s")
     card, launches, _, _ = phase_plan(plat, insts, grid)
-    cost_launches = phase_cost_oracle(insts, grid, card, dev)
+    cost_launches, oracle_ms = phase_cost_oracle(insts, grid, card, dev)
     eager = KINDS.index("eager")           # the smallest instance
     phase_cpu(plat, insts, grid, card, eager)
     phase_blocked(plat, insts, grid, card, eager)
@@ -1363,6 +1431,7 @@ def main() -> int:
         "bound_by": plan_row["bound_by"],
         "library_ms": None,
         "diff_scan_ms": plan_row["diff_scan_ms"],
+        "oracle_ms_per_schedule": oracle_ms,
         "bitwise_vs_plain": True,
         "shape": plan_row["shape"],
         "large": large_row,

@@ -9,17 +9,20 @@ same timeline (:func:`repro_torch.kernels.backend.resolve_mode` picks one
 per call):
 
 * the CUDA kernel ``csrc/carbon_cost.cu`` — the Hopper counterpart of the
-  reference's Pallas ``_kernel``: one thread per time unit, the task arrays
-  staged through shared memory and walked in ascending order. It serves
-  CUDA tensors.
+  reference's Pallas ``_kernel``: a difference array of the windows in
+  shared memory (f64) and a block-wide scan, one CTA per tile of
+  :data:`KERNEL_TILE` units, O(N + T) work. It serves CUDA tensors.
 * :func:`timeline_plain` — the dense ``[s <= t < e]`` form, chunked over
   tasks so no intermediate exceeds :data:`PLAIN_ELEMS` elements. It serves
   CPU tensors.
 
-With integer inputs whose sums stay below 2^24 the f32 accumulation is
-exact in any order, so the two executors agree bitwise (tested on the
-card). Unlike the reference, neither pads: the output is ``[T]`` for any
-``N >= 1`` and ``T``.
+With integer inputs whose sums stay below 2^24 the dense f32 sum and the
+kernel's f64 sum are both exact, so the two executors agree bitwise
+(tested on the card); non-finite works give the dense form's inf and NaN.
+Unlike the reference, neither pads: the output is ``[T]`` for any ``N``
+and ``T``. :func:`deficit_timeline_from_durs` takes durations in place of
+ends (``ops.carbon_cost``'s form), and the kernel then forms the ends
+itself.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ import torch
 from repro_torch.kernels.backend import resolve_mode
 
 PLAIN_ELEMS = 1 << 26   # largest [chunk, T] block the plain version builds
+KERNEL_TILE = 1024      # units per CTA of the kernel (kTile in the source)
+T_MAX = 1 << 24         # the kernel's units must be exact in f32
 
-LAUNCHES = 0     # CUDA kernel launches made by deficit_timeline (only there)
+LAUNCHES = 0     # CUDA kernel launches (one per timeline, only there)
 _COUNT_LOCK = threading.Lock()   # launches may come from several threads
 
 
@@ -62,19 +67,20 @@ def _launcher():
         fn = _build.load("carbon_cost").deficit_timeline_launch
         # pointers and the stream as c_void_p: left undeclared, ctypes
         # would pass them as 32-bit ints and cut them
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
 
 
-def _timeline_kernel(starts, ends, works, g_eff):
-    """Launch ``csrc/carbon_cost.cu`` on the current stream."""
+def _timeline_kernel(starts, second, works, g_eff, durs):
+    """Launch ``csrc/carbon_cost.cu`` on the current stream; ``second``
+    holds the ends, or the durations when ``durs``."""
     global LAUNCHES
     dev = g_eff.device
-    for name, x in (("starts", starts), ("ends", ends), ("works", works),
-                    ("g_eff", g_eff)):
+    for name, x in (("starts", starts), ("durs" if durs else "ends", second),
+                    ("works", works), ("g_eff", g_eff)):
         if x.device != dev or x.dtype != torch.float32 or x.dim() != 1 \
                 or not x.is_contiguous():
             raise ValueError(
@@ -82,18 +88,21 @@ def _timeline_kernel(starts, ends, works, g_eff):
                 f"{dev}; {name} is {x.dtype} rank {x.dim()} on {x.device} "
                 f"(contiguous={x.is_contiguous()})")
     N, T = starts.shape[0], g_eff.shape[0]
-    if ends.shape[0] != N or works.shape[0] != N:
+    if second.shape[0] != N or works.shape[0] != N:
         raise ValueError(
-            f"carbon_cost kernel shapes disagree: starts {N}, ends "
-            f"{ends.shape[0]}, works {works.shape[0]}")
-    if N < 1:
-        raise ValueError("carbon_cost kernel needs at least one task")
+            f"carbon_cost kernel shapes disagree: starts {N}, "
+            f"{'durs' if durs else 'ends'} {second.shape[0]}, works "
+            f"{works.shape[0]}")
+    if T >= T_MAX:
+        raise ValueError(f"carbon_cost kernel takes T < 2^24 units, got {T}")
     out = torch.empty(T, dtype=torch.float32, device=dev)
     launch = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(starts.data_ptr(), ends.data_ptr(), works.data_ptr(),
-                     g_eff.data_ptr(), out.data_ptr(), N, T, stream)
+    # by index: a torch.device argument costs several microseconds here
+    with torch.cuda.device(dev.index):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
+        err = launch(starts.data_ptr(), second.data_ptr(), works.data_ptr(),
+                     g_eff.data_ptr(), out.data_ptr(), N, T, int(durs),
+                     stream)
     if err != 0:
         raise RuntimeError(
             f"carbon_cost kernel launch failed: CUDA error {err}")
@@ -116,5 +125,13 @@ def deficit_timeline(starts, ends, works, g_eff, *, mode: str | None = None):
       f32[T] with ``max(power(t) - g_eff(t), 0)``.
     """
     if resolve_mode(g_eff, mode) == "kernel":
-        return _timeline_kernel(starts, ends, works, g_eff)
+        return _timeline_kernel(starts, ends, works, g_eff, durs=False)
     return timeline_plain(starts, ends, works, g_eff)
+
+
+def deficit_timeline_from_durs(starts, durs, works, g_eff):
+    """:func:`deficit_timeline` of the windows ``[starts, starts + durs)``,
+    the ends formed as one f32 add (in the kernel on the card)."""
+    if resolve_mode(g_eff) == "kernel":
+        return _timeline_kernel(starts, durs, works, g_eff, durs=True)
+    return timeline_plain(starts, starts + durs, works, g_eff)

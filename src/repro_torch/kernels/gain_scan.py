@@ -9,9 +9,12 @@ the task's start (s) or end (e). Two executors compute the same matrix
 (:func:`repro_torch.kernels.backend.resolve_mode` picks one per call):
 
 * the CUDA kernel ``csrc/gain_scan.cu`` — the Hopper counterpart of the
-  reference's Pallas ``_gain_kernel``. It reads the timeline directly and
-  gathers each candidate's windows itself, so the two ``[R*N, W]`` window
-  tensors of the plain version never exist. It serves CUDA tensors.
+  reference's Pallas ``_gain_kernel``. Each CTA stages one row of the
+  timeline in shared memory (rows up to :data:`KERNEL_STAGE_MAX` units;
+  longer ones are read from device memory) and gathers each candidate's
+  windows from there, so the two ``[R*N, W]`` window tensors of the plain
+  version never exist; ``mu`` in :data:`KERNEL_MUS` is compiled in. It
+  serves CUDA tensors.
 * :func:`gather_windows` + :func:`gains_from_windows` — the plain version:
   lane-aligned windows of the timeline around start and end,
 
@@ -42,6 +45,9 @@ from repro_torch.kernels.backend import resolve_mode
 W = 128          # lane-aligned window length of the plain version
 MU_MAX = W // 2 - 22   # 42, the reference's limit for W = 128
 NEG = -1e30
+KERNEL_MUS = (1, 10, 42)   # mu values compiled into the kernel; others run
+                           # the same code with mu at run time
+KERNEL_STAGE_MAX = 8192    # longest timeline row the kernel stages
 
 LAUNCHES = 0     # CUDA kernel launches made by gain_sweep (only there)
 _COUNT_LOCK = threading.Lock()   # launches may come from several threads
@@ -183,8 +189,9 @@ def _sweep_kernel(rem, start, dur, work, lo_rel, hi_rel, mu):
             f"{tuple(hi_rel.shape)}")
     out = torch.empty((R, N, 2 * mu + 1), dtype=torch.float32, device=dev)
     launch = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # by index: a torch.device argument costs several microseconds here
+    with torch.cuda.device(dev.index):
+        stream = torch.cuda.current_stream(dev.index).cuda_stream
         err = launch(rem.data_ptr(), start.data_ptr(), dur.data_ptr(),
                      work.data_ptr(), lo_rel.data_ptr(), hi_rel.data_ptr(),
                      out.data_ptr(), R, N, rem.shape[1], mu, stream)

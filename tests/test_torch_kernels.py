@@ -203,8 +203,49 @@ def test_build_key_tracks_source_and_flags(monkeypatch):
     assert _build.library_path("gain_scan") != path
 
 
+def _card_case(R, N, T, mu, seed):
+    """The climb's dtypes at any shape: starts over the whole row, some at
+    t = 0 and overrunning the horizon, zero works, rows with no legal
+    move."""
+    rng = np.random.default_rng(seed)
+    rem = torch.as_tensor(rng.integers(-40, 40, (R, T)), dtype=torch.float32)
+    start = torch.as_tensor(rng.integers(0, T - 12, (R, N)),
+                            dtype=torch.int32)
+    start[:, 0::5] = 0
+    start[:, 1::5] = T - 1
+    dur = torch.as_tensor(rng.integers(1, 12, N), dtype=torch.int32)
+    work = torch.as_tensor(rng.integers(0, 30, N), dtype=torch.float32)
+    lo = torch.as_tensor(-rng.integers(0, 2 * mu + 5, (R, N)),
+                         dtype=torch.float32)
+    hi = torch.as_tensor(rng.integers(0, 2 * mu + 5, (R, N)),
+                         dtype=torch.float32)
+    lo[:, 3::7], hi[:, 3::7] = 5.0, -5.0
+    return rem, start, dur, work, lo, hi
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mu", [1, 10, 42])
+@pytest.mark.parametrize("mu", [*tg.KERNEL_MUS, 17])
+@pytest.mark.parametrize("R,N,T", [
+    (8, 4352 + 37, 1023),                       # ragged chunk, odd row
+    (4, 1000, tg.KERNEL_STAGE_MAX),             # the longest staged row
+    (4, 1000, tg.KERNEL_STAGE_MAX + 809)])      # read from device memory
+def test_cuda_kernel_matches_plain_off_the_climb_shape(R, N, T, mu):
+    """Every compiled mu and one run-time mu, at an Np that is no multiple
+    of the CTA's chunk and at rows at and over the staging budget:
+    bitwise, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the GPU host)")
+    args = [a.cuda() for a in _card_case(R, N, T, mu, seed=R + N + T + mu)]
+    launches = tg.LAUNCHES
+    got = tg.gain_sweep(*args, mu=mu)
+    assert tg.LAUNCHES == launches + 1
+    want = tg.gain_sweep(*args, mu=mu, mode="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu", [*tg.KERNEL_MUS, 17])
 def test_cuda_kernel_matches_plain(mu):
     """The sm_90a kernel against the plain version on the card, bitwise,
     at the climb's shapes (R=32, Np=4352, Tp=1024) and on the edge case."""
