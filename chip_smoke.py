@@ -21,18 +21,21 @@ reference package ``repro``. Phases, each fatal on failure:
    on fractional works; each with the kernel's device time
    (``torch.profiler``, else a CUDA-graph replay), the eager CUDA-event time
    and the plain version's time; the profiler's tables are written to the
-   file ``PROFILE_OUT`` names;
+   file ``PROFILE_OUT`` names. Every profiler time comes from one trace
+   taken after a warm-up step that holds every launch (:func:`warm_trace`);
 4. the heuristic plan: ``Planner(platform, engine="torch").plan(...)`` on
    the paper's section 6.1 matrix (72-processor small cluster, the four
    nf-core families at 2000 workflow tasks, HEFT-mapped, deadline 2x ASAP,
    the S1-S4 ensemble, all 17 variants), cold and warm; every schedule is
    validated, every -LS cost is <= its greedy cost, and the non-LS columns
-   equal the port's numpy engine bitwise;
+   equal the port's numpy engine bitwise; the cold plan's span split from
+   the port's tracer and ``obs.torch_hooks.snapshot()``;
 5. the cost oracle: every schedule of that plan costed through
    ``ops.carbon_cost`` on the card equals its int64 cost, and its deficit
    timeline equals numpy's bitwise; the oracle's wall time per schedule;
-6. one instance re-planned on the CPU against its four profiles: starts
-   and costs equal the card's;
+6. one instance re-planned on the CPU against its first ``CPU_PROFILES``
+   profiles (each profile's rows are planned independently): starts and
+   costs equal the card's;
 7. that instance re-planned through the blocked longest-path form: starts
    equal the dense form's;
 8. the exact solver axis on small instances (``solver="exact"``, ``"ilp"``
@@ -44,14 +47,25 @@ reference package ``repro``. Phases, each fatal on failure:
    forecasts: every window equals an eager plan of it bitwise, the
    session's gain-kernel launches equal those eager plans', and every
    schedule costs the same through the kernel;
-10. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
+10. the joint mapping search (``PlanRequest(mapping="search")``,
+   ``[mapping]``): (a) tests/test_mapping.py's small search on the card
+   equals it on the CPU bitwise; (b) a raw ``wfgen_scale("eager",
+   MAPPING_TASKS)`` workflow on the 72-processor cluster against the S1-S4
+   ensemble, all 17 variants, ``deadline_scale=2``, default
+   ``MappingOptions``: every schedule valid, every -LS cost <= its greedy,
+   the winner re-planned with ``mapping="fixed"`` equal bitwise, a
+   ``mapping="heft"`` plan's score equal to the search's HEFT seed and not
+   below the winner's, every winner schedule costs the same through the
+   deficit kernel; the span split, and the device's idle share over the
+   profiled seed round;
+11. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
    the CUDA cores) against their plain version on the card at the
    reference sweep's five shapes and the bf16 twins of its four f32 shapes,
    at the model's shape (B=4, S=2048, H=16, hd=64, causal) in bf16 and f32,
    and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
    S=2048, H=8), the kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
-11. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
+12. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
    per forward, finite and within 0.5 of ln V; the final hidden states
@@ -59,18 +73,18 @@ reference package ``repro``. Phases, each fatal on failure:
    elementwise within 1e-4; bf16: within 2e-2 in relative norm, and no
    further from the f32 forward than the plain bf16 forward is); forward
    seconds cold and warm (``[model]``);
-12. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
+13. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
    requests on 4 slots, 32 new tokens, max_len 512, every request finished;
    then the forward's logits against step-by-step decode logits at full
    width in f32, B=2, S=8, within 2e-2 (``[serve]``).
 
-Each path (4, 5, 8, 9, 11, 12) is driven with the kernels' launch counts set
-to 0 just before it and read just after; a kernel the path runs that was
-never launched fails the run. f32 matrix products on the card run in full
-f32: TF32 is switched off for matmuls and cuDNN before any phase. The line
-before the last is a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before either
-is printed.
+Each path (4, 5, 8, 9, 10, 12, 13) is driven with the kernels' launch
+counts set to 0 just before it and read just after; a kernel the path runs
+that was never launched fails the run. f32 matrix products on the card run
+in full f32: TF32 is switched off for matmuls and cuDNN before any phase.
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before either is printed.
 """
 from __future__ import annotations
 
@@ -93,6 +107,8 @@ FACTOR = 2.0             # deadline = 2 x ASAP makespan
 SCENARIOS = ("S1", "S2", "S3", "S4")
 J = 48                   # profile intervals
 PROFILE_SEED = 17
+MAPPING_TASKS = 650      # workflow tasks of the [mapping] cell (depth cut)
+CPU_PROFILES = 2         # profiles of the [cpu] re-plan (a cut of the four)
 PROFILE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM published f32 rate (no tensor cores)
@@ -195,65 +211,73 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_ms(fn, reps: int, kernel: str, out_path: str, tries: int = 4):
-    """Mean device milliseconds of the CUDA kernel whose name contains
-    ``kernel``, from ``torch.profiler`` over ``reps`` warm calls of ``fn``;
-    None when the profiler records no device time for it. The profiler's
-    table goes to ``out_path``. A trace that holds fewer than ``reps``
-    launches of the kernel (the profiler dropped events) is taken again,
-    up to ``tries`` traces in all; the time comes only from a complete
-    one."""
+def warm_trace(run):
+    """``torch.profiler`` over one call of ``run()``, taken the way every
+    time in this script is: one warm-up step of ``run()`` while the
+    profiler starts, then the recorded step. A trace started cold loses
+    launches, more the longer the process has run since its first trace
+    (``chip_profiler_probe.py --drift``); one started a step earlier keeps
+    them all. Returns the profiler and the host wall seconds
+    of the recorded ``run()``, ending in a synchronize."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    return prof, wall
+
+
+def profiled_ms(fn, reps: int, kernel: str, out_path: str):
+    """Mean device milliseconds of the CUDA kernel whose name contains
+    ``kernel``, from one :func:`warm_trace` of ``reps`` warm calls of
+    ``fn``; None when the profiler records no device time for it. The time
+    comes only from a trace that holds all ``reps`` launches: one that
+    holds fewer fails the run. The profiler's table goes to
+    ``out_path``."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        avgs = prof.key_averages()
-        os.makedirs(os.path.dirname(out_path), exist_ok=True)
-        with open(out_path, "a") as f:
-            f.write(avgs.table(row_limit=20) + "\n")
-        total_us, count = 0.0, 0
-        for ev in avgs:
-            if kernel in ev.key:
-                total_us += float(getattr(ev, "device_time_total", 0.0)
-                                  or getattr(ev, "cuda_time_total", 0.0))
-                count += ev.count
-        if count == 0 or total_us <= 0.0:
-            return None
-        if count == reps:
-            return total_us / count / 1e3
-        log(f"[kernels] profiler trace {attempt} of {tries} saw {count} of "
-            f"{reps} launches of {kernel}")
-    raise SmokeFailure(f"profiler saw {count} launches of {kernel}, "
-                       f"expected {reps}, in each of {tries} traces")
+    prof, _ = warm_trace(lambda: [fn() for _ in range(reps)])
+    avgs = prof.key_averages()
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "a") as f:
+        f.write(avgs.table(row_limit=20) + "\n")
+    total_us, count = 0.0, 0
+    for ev in avgs:
+        if kernel in ev.key:
+            total_us += float(getattr(ev, "device_time_total", 0.0)
+                              or getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    log(f"[profiler] {kernel}: the trace holds {count} of {reps} launches")
+    if count == 0 or total_us <= 0.0:
+        return None
+    check(count == reps, f"the profiler's trace holds {count} launches of "
+          f"{kernel}, expected {reps}")
+    return total_us / count / 1e3
 
 
 def device_breakdown(fn, reps: int, out_path: str) -> dict:
-    """Where ``reps`` warm calls of ``fn`` spend the card's time, from
-    ``torch.profiler``: host wall ms per call (ending in a synchronize),
+    """Where ``reps`` warm calls of ``fn`` spend the card's time, from one
+    :func:`warm_trace`: host wall ms per call (ending in a synchronize),
     device busy ms per call (the sum of the kernels' device times; one
     stream, so they do not overlap), the idle share, and the kernels'
     device ms per call grouped as flash, matrix products and the rest.
     Busy is None when the profiler records no device time. The profiler's
     table goes to ``out_path``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall = warm_trace(lambda: [fn() for _ in range(reps)])
     avgs = prof.key_averages()
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "a") as f:
@@ -261,7 +285,10 @@ def device_breakdown(fn, reps: int, out_path: str) -> dict:
                 + "\n")
     groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
     for ev in avgs:
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        # the schedule's step range shows up on the device too, as a GPU
+        # user annotation spanning the step: a range, not a kernel
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or ev.key.startswith("ProfilerStep"):
             continue
         us = float(getattr(ev, "self_device_time_total", 0.0)
                    or getattr(ev, "self_cuda_time_total", 0.0))
@@ -671,17 +698,27 @@ def timed_plan(planner, request):
 def phase_plan(plat, insts, grid):
     import numpy as np
 
+    from repro_torch import obs
     from repro_torch.api import Planner, PlanRequest
     from repro_torch.core import validate_schedule
     from repro_torch.core.portfolio import PORTFOLIO_VARIANTS
     from repro_torch.kernels import gain_scan
+    from repro_torch.obs import torch_hooks
 
     planner = Planner(plat, engine="torch")
     request = PlanRequest(instances=insts, profiles=grid)
+    tracer = obs.Tracer()
+    prev = obs.set_tracer(tracer)
     gain_scan.LAUNCHES = 0
-    cold, cold_s = timed_plan(planner, request)
+    try:
+        cold, cold_s = timed_plan(planner, request)
+    finally:
+        obs.set_tracer(prev)
     launches = gain_scan.LAUNCHES
     check(launches > 0, "the plan did not launch the gain_scan kernel")
+    split = span_split(tracer.finished(), (
+        "plan", "prepare_graph", "bucket_launch", "ls_climb",
+        "ls_device_climb", "ls_polish"))
     warm, warm_s = timed_plan(planner, request)
     I, P, V = cold.costs.shape
     check((I, P, V) == (len(insts), len(SCENARIOS), 17),
@@ -691,9 +728,12 @@ def phase_plan(plat, insts, grid):
         f"{cold_s:.3f} s, warm {warm_s:.3f} s; gain_scan launches "
         f"{launches} (cold plan)")
     for tag, res in (("cold", cold), ("warm", warm)):
-        split = ", ".join(f"{k} {v:.3f}" for k, v in
-                          res.phase_seconds.items())
-        log(f"[plan] {tag} split (s): {split}")
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in
+                           res.phase_seconds.items())
+        log(f"[plan] {tag} split (s): {phases}")
+    log(f"[plan] cold span split: {split_text(split)}")
+    log(f"[plan] torch_hooks.snapshot(): "
+        f"{json.dumps(torch_hooks.snapshot(obs.registry()))}")
 
     names = cold.variants
     for i, inst in enumerate(insts):
@@ -738,26 +778,27 @@ def phase_plan(plat, insts, grid):
 
 
 def phase_cpu(plat, insts, grid, card, i):
-    """Instance ``i`` re-planned on the CPU against its four profiles: the
-    cell must equal the card's plan bitwise."""
+    """Instance ``i`` re-planned on the CPU against its first
+    ``CPU_PROFILES`` profiles: each must equal the card's plan bitwise."""
     import numpy as np
 
     from repro_torch.api import Planner, PlanRequest
 
+    profiles = grid[i][:CPU_PROFILES]
     t0 = time.perf_counter()
     res = Planner(plat, engine="torch", device="cpu").plan(
-        PlanRequest(instances=insts[i], profiles=grid[i]))
+        PlanRequest(instances=insts[i], profiles=profiles))
     secs = time.perf_counter() - t0
-    check(np.array_equal(res.costs[0], card.costs[i]),
+    check(np.array_equal(res.costs[0], card.costs[i][:len(profiles)]),
           "CPU costs differ from the card's")
-    for p in range(len(grid[i])):
+    for p in range(len(profiles)):
         for n in res.variants:
             check(np.array_equal(res.results[0][p][n].start,
                                  card.results[i][p][n].start),
                   f"CPU starts differ from the card's: {n}, profile {p}")
     log(f"[cpu] {KINDS[i]} re-planned on the CPU against "
-        f"{len(grid[i])} profiles in {secs:.3f} s: starts and costs equal "
-        f"the card's bitwise")
+        f"{len(profiles)} of its {len(grid[i])} profiles in {secs:.3f} s: "
+        f"starts and costs equal the card's bitwise")
 
 
 def phase_blocked(plat, insts, grid, card, i):
@@ -1029,6 +1070,245 @@ def phase_session(plat, inst):
         f"{n_costed} schedules cost the same through the kernel; launches "
         f"{launches} (gain_scan == the eager plans')")
     return launches
+
+
+def span_split(spans, names) -> dict:
+    """``{name: (count, seconds)}`` of the finished ``spans`` called
+    ``names`` (seconds summed over the spans, nested ones counted inside
+    their parents)."""
+    out = {n: [0, 0.0] for n in names}
+    for s in spans:
+        if s.name in out:
+            out[s.name][0] += 1
+            out[s.name][1] += s.duration
+    return {n: tuple(v) for n, v in out.items()}
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{n} {c} x {s:.3f} s" for n, (c, s) in split.items())
+
+
+def round_profiler(round_no=0):
+    """A tracer (``obs.Tracer`` subclass) that also profiles the card over
+    one mapping round, as :func:`warm_trace` does: the profiler warms up
+    from the search's start and records from the round's span start to its
+    end (each edge after a synchronize). ``busy()`` then gives the
+    kernels' device time and their launches by name, ``round_span`` the
+    round's span and ``launches`` the gain-kernel launches inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import obs
+    from repro_torch.kernels import gain_scan
+
+    class RoundProfiler(obs.Tracer):
+        prof = round_span = None
+        launches = 0
+
+        def start(self, name, parent=None, **attrs):
+            if name == "mapping_search" and self.prof is None:
+                self.prof = profile(activities=[ProfilerActivity.CUDA],
+                                    schedule=schedule(wait=0, warmup=1,
+                                                      active=1, repeat=1))
+                self.prof.start()
+            ours = name == "mapping_round" and attrs.get("round") == round_no
+            if ours:
+                torch.cuda.synchronize()
+                self.prof.step()                  # warm-up -> recording
+            sp = super().start(name, parent=parent, **attrs)
+            if ours:
+                self.round_span, self.launches = sp, gain_scan.LAUNCHES
+            return sp
+
+        def _finish(self, span):
+            super()._finish(span)
+            if span is self.round_span:
+                torch.cuda.synchronize()
+                self.launches = gain_scan.LAUNCHES - self.launches
+                self.prof.step()                  # recording -> done
+            elif span.name == "mapping_search" and self.prof is not None:
+                self.prof.stop()
+
+        def busy(self):
+            """(device ms of every kernel, {kernel name: launches})."""
+            us, counts = 0.0, {}
+            for ev in self.prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                us += float(getattr(ev, "self_device_time_total", 0.0)
+                            or getattr(ev, "self_cuda_time_total", 0.0))
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+            return us / 1e3, counts
+
+    return RoundProfiler()
+
+
+def scarce_profile(plat, T):
+    """tests/test_mapping.py's scarce forecast."""
+    from repro_torch.core import generate_profile
+
+    return generate_profile("S3", T, plat, J=12, seed=2, work_capacity=40)
+
+
+def mapping_cell(plat, n):
+    """The full-width mapping cell: a raw ``wfgen_scale("eager", n)``
+    workflow against the S1-S4 ensemble (J=48, seed=17). The forecasts
+    run to 2.5x the reference HEFT mapping's ASAP makespan, so the
+    request's ``deadline_scale=FACTOR`` crops them; returns (workflow,
+    forecasts, the cropped forecasts, the cropped horizon)."""
+    from repro_torch.api import crop_profile
+    from repro_torch.core import (build_instance, deadline_from_asap,
+                                  generate_profile, heft_mapping)
+    from repro_torch.workflows import wfgen_scale
+
+    wf = wfgen_scale("eager", n, seed=SEED)
+    ref = build_instance(wf, heft_mapping(wf, plat), plat)
+    cap = work_capacity(ref)
+    long_T = deadline_from_asap(ref, 2.5)
+    forecasts = [generate_profile(s, long_T, plat, J=J, seed=PROFILE_SEED,
+                                  work_capacity=cap) for s in SCENARIOS]
+    T = deadline_from_asap(ref, FACTOR)
+    return wf, forecasts, [crop_profile(f, T) for f in forecasts], T
+
+
+def phase_mapping(plat, n=MAPPING_TASKS):
+    """The joint mapping search on the card: (a) card == CPU bitwise on
+    tests/test_mapping.py's sizes; (b) at full cluster width against the
+    S1-S4 ensemble with the default MappingOptions."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.api import Planner, PlanRequest
+    from repro_torch.cluster import make_cluster
+    from repro_torch.core import build_instance, validate_schedule
+    from repro_torch.core.portfolio import heuristic_indices
+    from repro_torch.kernels import carbon_cost, gain_scan
+    from repro_torch.mapping import MappingOptions
+    from repro_torch.workflows import make_workflow
+
+    t_phase = time.perf_counter()
+    # (a) card == CPU, bitwise
+    small = make_cluster(1, seed=0)
+    req = PlanRequest(instances=make_workflow("eager", 2, seed=0),
+                      profiles=[scarce_profile(small, 300)] * 2,
+                      mapping="search",
+                      mapping_options={"seeds": 4, "rounds": 2,
+                                       "neighbors": 6})
+    card = Planner(small, engine="torch").plan(req)
+    cpu = Planner(small, engine="torch", device="cpu").plan(req)
+    ci, pi = card.mapping_info[0], cpu.mapping_info[0]
+    cd, pd = ci.to_dict(), pi.to_dict()
+    for key in cd.keys() - {"seconds", "cache_misses"}:
+        check(cd[key] == pd[key], f"[mapping] card {key} {cd[key]} != CPU "
+              f"{pd[key]}")
+    check(np.array_equal(card.mappings[0].proc, cpu.mappings[0].proc),
+          "[mapping] the card's winner proc != the CPU's")
+    check(np.array_equal(card.costs, cpu.costs),
+          "[mapping] the card's cost tensor != the CPU's")
+    log(f"[mapping] (a) eager x 2 samples on 6 processors, seeds 4, rounds "
+        f"2, neighbors 6: card == CPU bitwise (winner {ci.label}, "
+        f"{ci.candidates} candidates, {ci.infeasible} infeasible, trace "
+        f"{list(ci.trace)}); card {card.seconds:.3f} s, CPU "
+        f"{cpu.seconds:.3f} s")
+
+    # (b) full cluster width, default options
+    wf, forecasts, cropped, T = mapping_cell(plat, n)
+    opts = MappingOptions()
+    planner = Planner(plat, engine="torch")
+    request = PlanRequest(instances=wf, profiles=forecasts, mapping="search",
+                          deadline_scale=FACTOR,
+                          mapping_options=opts.to_dict())
+    # the seed round is profiled on the card (its idle share) while the
+    # tracer times every span of the search
+    tracer = round_profiler(0)
+    prev = obs.set_tracer(tracer)
+    gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    try:
+        res, secs = timed_plan(planner, request)
+    finally:
+        obs.set_tracer(prev)
+    gain_launches = gain_scan.LAUNCHES
+    check(gain_launches > 0, "the mapping search did not launch the "
+          "gain_scan kernel")
+    info = res.mapping_info[0]
+    spans = tracer.finished()
+    split = span_split(spans, ("mapping_search", "mapping_round",
+                                "bucket_launch", "ls_device_climb",
+                                "ls_polish"))
+    buckets = sorted({s.attrs["bucket"] for s in spans
+                      if s.name == "bucket_launch"})
+    rnd = tracer.round_span
+    busy_ms, kernels = tracer.busy()
+    seen = sum(c for k, c in kernels.items() if "gain_scan_kernel" in k)
+    check(seen == tracer.launches, f"[mapping] the seed round's trace holds "
+          f"{seen} of its {tracer.launches} gain_scan launches")
+    round_ms = 1e3 * rnd.duration
+    idle = max(0.0, 1.0 - busy_ms / round_ms)
+    in_round = span_split([s for s in spans if rnd.t0 <= s.t0 <= rnd.t1],
+                          ("bucket_launch", "ls_device_climb", "ls_polish"))
+    inst_w = build_instance(wf, res.mappings[0], plat)
+    n_costed = check_costs_through_kernel(res, [inst_w], [cropped],
+                                          "mapping")[0]
+    cost_launches = carbon_cost.LAUNCHES
+    check(cost_launches == n_costed, f"carbon_cost launches {cost_launches}"
+          f" != {n_costed} winner schedules")
+
+    names = res.variants
+    for p, prof in enumerate(cropped):
+        check(prof.T == T, f"[mapping] profile {p} not cropped to {T}")
+        cell = res.results[0][p]
+        for name in names:
+            validate_schedule(inst_w, prof, cell[name].start)
+            if name.endswith("-LS"):
+                check(cell[name].cost <= cell[name[:-3]].cost,
+                      f"[mapping] {name} costs more than its greedy ({p})")
+    fixed = planner.plan(PlanRequest(instances=inst_w, profiles=cropped))
+    check(np.array_equal(fixed.costs, res.costs), "[mapping] the winner "
+          "re-planned with mapping='fixed' gives other costs")
+    for p in range(len(cropped)):
+        for name in names:
+            check(np.array_equal(fixed.results[0][p][name].start,
+                                 res.results[0][p][name].start),
+                  f"[mapping] fixed re-plan starts differ: {name}, {p}")
+    heft = planner.plan(PlanRequest(instances=wf, profiles=forecasts,
+                                    mapping="heft", deadline_scale=FACTOR))
+    cols = heuristic_indices(names)
+    heft_score = int(heft.costs[0][:, cols].min())
+    seed_score = info.candidate_costs[info.candidate_labels.index(
+        "seed:heft")]
+    check(heft_score == seed_score, f"[mapping] heft plan score "
+          f"{heft_score} != the search's heft seed {seed_score}")
+    check(info.trace[-1] <= heft_score, f"[mapping] the winner's score "
+          f"{info.trace[-1]} > heft's {heft_score}")
+    check(int(res.costs[0][:, cols].min()) == info.trace[-1],
+          "[mapping] the winner's plan does not cost its score")
+    log(f"[mapping] (b) eager n={n} (N={wf.n} workflow tasks, winner N_c="
+        f"{inst_w.num_tasks}) on {plat.num_compute} processors x "
+        f"{len(SCENARIOS)} profiles x {len(names)} variants, T={T}, default "
+        f"MappingOptions {opts.to_dict()}: {secs:.3f} s; rounds "
+        f"{info.rounds}, candidates {info.candidates}, infeasible "
+        f"{info.infeasible}, buckets {len(buckets)} {buckets}, bucket "
+        f"misses per batch {list(info.cache_misses)}; trace "
+        f"{list(info.trace)}, winner {info.label} ({info.trace[-1]}) vs "
+        f"heft {heft_score}")
+    log(f"[mapping] span split: {split_text(split)}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[mapping] seed round ({rnd.attrs['candidates']} candidates, "
+        f"profiled): {round_ms:.3f} ms wall, device busy {busy_ms:.3f} ms, "
+        f"idle share {idle:.4f}; {sum(kernels.values())} kernels, the most "
+        f"launched {top}; gain_scan launches {tracer.launches}, all in the "
+        f"trace; span split {split_text(in_round)}")
+    log(f"[mapping] every schedule valid, every -LS cost <= its greedy, the "
+        f"fixed re-plan of the winner equal bitwise, heft's score == the "
+        f"heft seed's; {n_costed} winner schedules cost the same through "
+        f"the kernel; launches gain_scan {gain_launches}, carbon_cost "
+        f"{cost_launches}; the phase {time.perf_counter() - t_phase:.3f} s "
+        f"in all")
+    return {"gain_scan": gain_launches, "carbon_cost": cost_launches,
+            "seconds": secs, "rounds": info.rounds,
+            "candidates": info.candidates, "buckets": len(buckets),
+            "seed_round_ms": round_ms, "seed_round_busy_ms": busy_ms,
+            "seed_round_idle_share": idle}
 
 
 def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
@@ -1358,12 +1638,15 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch
 
+    from repro_torch import obs
+
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     dev = torch.device("cuda")
+    obs.configure(tracing=False, torch_hooks_on=True)   # nvcc builds
     # f32 matrix products in full f32, so the plain versions are true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1384,6 +1667,7 @@ def main() -> int:
     phase_blocked(plat, insts, grid, card, eager)
     exact_launches = phase_exact()
     session_launches = phase_session(plat, insts[eager])
+    mapping_run = phase_mapping(plat)
     flash_rows = phase_flash(dev)
     model_run = phase_model(dev)
     serve_run = phase_serve(dev)
@@ -1398,7 +1682,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"plan": launches,
                              "exact": exact_launches["gain_scan"],
-                             "session": session_launches["gain_scan"]},
+                             "session": session_launches["gain_scan"],
+                             "mapping": mapping_run["gain_scan"]},
         "max_abs_err": main_mu["max_abs_err"],
         "ms": main_mu["ms"],
         "ms_from": main_mu["ms_from"],
@@ -1417,10 +1702,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/carbon_cost.cu",
         "replaces": "src/repro/kernels/carbon_cost.py:31",
         "launches": cost_launches + exact_launches["carbon_cost"]
-        + session_launches["carbon_cost"],
+        + session_launches["carbon_cost"] + mapping_run["carbon_cost"],
         "launches_by_path": {"cost": cost_launches,
                              "exact": exact_launches["carbon_cost"],
-                             "session": session_launches["carbon_cost"]},
+                             "session": session_launches["carbon_cost"],
+                             "mapping": mapping_run["carbon_cost"]},
         "max_abs_err": plan_row["max_abs_err"],
         "ms": plan_row["ms"],
         "ms_from": plan_row["ms_from"],

@@ -25,6 +25,7 @@ import collections
 import threading
 import time
 
+from repro_torch import obs
 from repro_torch.api.request import LocalSearchConfig, PlanRequest
 from repro_torch.api.result import PlanResult
 from repro_torch.core.portfolio import PreparedGraph, prepare_graph
@@ -94,9 +95,19 @@ class Planner:
             g = self._graphs.get(key)
             if g is not None and g.inst is inst:
                 self._graphs.move_to_end(key)
+                obs.registry().counter(
+                    "planner_graph_cache_total",
+                    "PreparedGraph cache lookups", labels=("outcome",)
+                ).inc(outcome="hit")
                 return g
-        g = prepare_graph(inst, self.platform, int(T), k=self.k,
-                          lp_budget_bytes=self.lp_budget_bytes)
+        with obs.span("prepare_graph", N=int(getattr(inst, "N", 0)),
+                      T=int(T), cache_hit=False):
+            g = prepare_graph(inst, self.platform, int(T), k=self.k,
+                              lp_budget_bytes=self.lp_budget_bytes)
+        obs.registry().counter(
+            "planner_graph_cache_total",
+            "PreparedGraph cache lookups", labels=("outcome",)
+        ).inc(outcome="miss")
         self.seed_graph(g)
         return g
 
@@ -128,24 +139,56 @@ class Planner:
         t0 = time.perf_counter()
         instances, grid, names = request.resolve()
         solver = resolve_solver(request.solver)
+        outcomes = None
+        if request.mapping != "fixed":
+            # mapping modes resolve raw Workflows to mapped Instances
+            # first (repro_torch.mapping); the winning instances then ride
+            # the unchanged fixed-mapping path below, with winner graphs
+            # pre-seeded into the cache. deadline_scale is applied HERE
+            # (not in resolve()): the ASAP horizon needs a mapping, so
+            # resolve_mappings derives it from a reference HEFT mapping
+            # per workflow and returns the cropped grid
+            from repro_torch.mapping.search import resolve_mappings
+
+            outcomes, grid = resolve_mappings(
+                self, instances, grid, names, solver,
+                mode=request.mapping, options=request.mapping_options,
+                robust=bool(request.robust),
+                solver_options=request.solver_options, cancel=cancel,
+                deadline_scale=request.deadline_scale)
+            instances = [o.instance for o in outcomes]
+            for o in outcomes:
+                if o.graph is not None:
+                    self.seed_graph(o.graph)
         I = len(instances)
         P = len(grid[0]) if I else 0
         # engine= is the heuristic solver's sub-knob; only graph-consuming
         # solvers pay for (and cache) the PreparedGraph precompute
         engine = resolve_engine(self.engine, fanout=I * P) \
             if solver.name == "heuristic" else "numpy"
-        t_graph = time.perf_counter()
-        graphs = [self.prepared(inst, ps[0].T)
-                  for inst, ps in zip(instances, grid)] \
-            if solver.uses_graphs else None
-        t_graph = time.perf_counter() - t_graph
-        out = solver.solve_grid(
-            instances, grid, self.platform, names, k=self.k,
-            mu=self.ls.mu, validate=self.validate, engine=engine,
-            graphs=graphs, commit_k=self.ls.commit_k,
-            ls_max_rounds=self.ls.max_rounds,
-            options=request.solver_options, cancel=cancel,
-            device=self.device)
+        with obs.span("plan", solver=solver.name, engine=engine,
+                      instances=I, profiles=P, variants=len(names)):
+            t_graph = time.perf_counter()
+            graphs = [self.prepared(inst, ps[0].T)
+                      for inst, ps in zip(instances, grid)] \
+                if solver.uses_graphs else None
+            t_graph = time.perf_counter() - t_graph
+            out = solver.solve_grid(
+                instances, grid, self.platform, names, k=self.k,
+                mu=self.ls.mu, validate=self.validate, engine=engine,
+                graphs=graphs, commit_k=self.ls.commit_k,
+                ls_max_rounds=self.ls.max_rounds,
+                options=request.solver_options, cancel=cancel,
+                device=self.device)
+        obs.registry().counter(
+            "planner_plans_total", "Planner.plan calls served",
+            labels=("solver", "engine")).inc(solver=solver.name,
+                                             engine=engine)
+        obs.registry().histogram(
+            "planner_plan_seconds", "wall time of Planner.plan",
+            labels=("solver", "engine"), reservoir=256,
+        ).observe(time.perf_counter() - t0, solver=solver.name,
+                  engine=engine)
         return PlanResult(variants=names, results=out.cells,
                           costs=out.cost_tensor(names), engine=engine,
                           seconds=time.perf_counter() - t0,
@@ -153,6 +196,10 @@ class Planner:
                           solver=solver.name, lower_bound=out.lower,
                           mip_gap=out.mip_gap,
                           mapping_mode=request.mapping,
+                          mappings=None if outcomes is None else
+                          tuple(o.mapping for o in outcomes),
+                          mapping_info=None if outcomes is None else
+                          tuple(o.info for o in outcomes),
                           phase_seconds={"graphs": t_graph, **out.timings})
 
     def session(self, instances, window_profiles, **kw):

@@ -12,8 +12,8 @@ pass. :func:`crop_profile` restricts a long forecast to a deadline window
 the async :class:`~repro_torch.api.session.PlanningSession` replans
 against.
 
-This slice serves the fixed-mapping setting on one device: ``mapping``
-other than ``"fixed"`` and ``devices`` above 1 raise ``ValueError``.
+The port serves every mapping mode on one device: ``devices`` above 1
+raises ``ValueError`` (the multi-device grid is not ported yet).
 """
 from __future__ import annotations
 
@@ -24,9 +24,11 @@ import numpy as np
 from repro_torch.core.carbon import PowerProfile
 from repro_torch.core.cawosched import VARIANTS_BY_NAME, deadline_from_asap
 from repro_torch.core.dag import Instance
+from repro_torch.workflows.generators import Workflow
 
-# the reference's mapping axis; only "fixed" (pre-built Instances under
-# their baked-in mapping, the paper's setting) is ported so far
+# mapping axis: "fixed" schedules pre-built Instances under their baked-in
+# mapping (the paper's setting); "heft"/"search" accept raw Workflows and
+# resolve the task->processor mapping inside the plan (repro_torch.mapping)
 MAPPING_MODES = ("fixed", "heft", "search")
 
 
@@ -104,6 +106,24 @@ def _as_instances(instances) -> list[Instance]:
     return out
 
 
+def _as_workflows(instances) -> list[Workflow]:
+    if isinstance(instances, Workflow):
+        return [instances]
+    err = TypeError(
+        "mapping modes 'heft'/'search' take raw Workflow objects "
+        "(the mapping is the decision variable); pass Instances only "
+        "with mapping='fixed'")
+    if isinstance(instances, Instance):
+        raise err
+    try:
+        out = list(instances)
+    except TypeError:
+        raise err from None
+    if not all(isinstance(w, Workflow) for w in out):
+        raise err
+    return out
+
+
 def _as_grid(profiles, I: int) -> list[list[PowerProfile]]:
     """Normalize to one profile list per instance (shared list broadcast)."""
     if isinstance(profiles, PowerProfile):
@@ -136,7 +156,11 @@ class PlanRequest:
     * ``variants`` — ``None`` (the solver's default columns: asap + all 16
       paper variants for the heuristic solver), one name, or a sequence.
     * ``deadline_scale`` — optional: crop every profile to the owning
-      instance's deadline ``deadline_scale x ASAP-makespan``.
+      instance's deadline ``deadline_scale x ASAP-makespan``. In mapping
+      modes the ASAP makespan depends on the mapping being decided, so the
+      horizon is derived from a reference HEFT mapping per workflow and
+      every candidate is evaluated under that cropped row
+      (:func:`repro_torch.mapping.search.resolve_mappings`).
     * ``robust`` — plan for the min-max pick across the profile axis.
     * ``solver`` — which registered backend serves the grid
       (:mod:`repro_torch.core.solvers`): ``"heuristic"`` (default, the
@@ -147,9 +171,18 @@ class PlanRequest:
     * ``solver_options`` — solver-specific knobs: ``time_limit`` /
       ``mip_gap`` (ilp, exact), ``check`` (dp: cross-validate against the
       pseudo-polynomial oracle).
-    * ``mapping`` — ``"fixed"`` only in this port so far; ``"heft"`` and
-      ``"search"`` raise ``ValueError``.
-    * ``mapping_options`` — must be None (mapping search is not ported).
+    * ``mapping`` — the mapping axis (:mod:`repro_torch.mapping`):
+      ``"fixed"`` (default, the paper's setting — ``instances`` are
+      pre-built :class:`Instance` objects scheduled under their baked-in
+      mapping), ``"heft"`` (``instances`` are raw
+      :class:`~repro_torch.workflows.generators.Workflow` objects, mapped
+      with exact HEFT before scheduling), or ``"search"`` (joint mapping x
+      scheduling: candidate mappings evaluated in batch through the grid,
+      elite kept by best/robust carbon cost).
+    * ``mapping_options`` — :class:`repro_torch.mapping.MappingOptions`
+      knobs as a dict (``seeds``, ``rounds``, ``neighbors``, ``elite``,
+      ``patience``, ``seed``, ``objective``); only valid with
+      ``mapping="search"``/``"heft"``.
     * ``devices`` — ``None`` or 1; a sharded multi-device grid is not
       ported yet.
     """
@@ -167,19 +200,28 @@ class PlanRequest:
 
     def resolve(self) -> tuple[list[Instance], list[list[PowerProfile]],
                                tuple[str, ...]]:
-        """The normalized (instances, profile grid, variant names) triple."""
+        """The normalized (instances, profile grid, variant names) triple.
+
+        Mapping modes (``mapping="heft"``/``"search"``) return raw
+        :class:`Workflow` objects in the instances slot — the Planner
+        resolves them to Instances via :mod:`repro_torch.mapping` before
+        the schedule solve.
+        """
         if self.mapping not in MAPPING_MODES:
             raise ValueError(
                 f"unknown mapping {self.mapping!r}; one of {MAPPING_MODES}")
-        if self.mapping != "fixed":
-            raise ValueError(
-                f"mapping={self.mapping!r} is not yet ported to repro_torch "
-                f"(the mapping search comes with a later slice); pass "
-                f"mapped Instances with mapping='fixed'")
-        if self.mapping_options:
-            raise ValueError(
-                "mapping_options requires mapping='heft' or 'search', "
-                "which repro_torch does not serve yet")
+        if self.mapping == "fixed":
+            if self.mapping_options:
+                raise ValueError(
+                    "mapping_options requires mapping='heft' or 'search'")
+            instances = _as_instances(self.instances)
+        else:
+            from repro_torch.mapping.options import MappingOptions
+
+            MappingOptions.from_dict(self.mapping_options)  # raises early
+            instances = _as_workflows(self.instances)
+        if not instances:
+            raise ValueError("at least one instance is required")
         if self.devices is not None and (
                 not isinstance(self.devices, int)
                 or isinstance(self.devices, bool) or self.devices < 1):
@@ -191,9 +233,6 @@ class PlanRequest:
                 f"devices={self.devices} is not yet ported to repro_torch "
                 f"(the multi-device grid comes with a later slice); use "
                 f"devices=None or 1")
-        instances = _as_instances(self.instances)
-        if not instances:
-            raise ValueError("at least one instance is required")
         grid = _as_grid(self.profiles, len(instances))
         P = len(grid[0])
         if any(len(ps) != P for ps in grid):
@@ -204,9 +243,14 @@ class PlanRequest:
                 raise ValueError(
                     f"deadline_scale must be positive, "
                     f"got {self.deadline_scale!r}")
-            grid = [[crop_profile(p, deadline_from_asap(
-                        inst, self.deadline_scale)) for p in ps]
-                    for inst, ps in zip(instances, grid)]
+            if self.mapping == "fixed":
+                grid = [[crop_profile(p, deadline_from_asap(
+                            inst, self.deadline_scale)) for p in ps]
+                        for inst, ps in zip(instances, grid)]
+            # mapping modes: the ASAP makespan depends on the mapping
+            # being decided — the Planner derives the horizon from a
+            # reference HEFT mapping and crops per workflow inside
+            # resolve_mappings (the grid passes through uncropped here)
         for inst, ps in zip(instances, grid):
             if any(p.T != ps[0].T for p in ps):
                 raise ValueError(

@@ -15,6 +15,14 @@ from repro_torch.core.cawosched import ScheduleResult
 from repro_torch.core.portfolio import heuristic_indices, robust_pick
 
 
+def _mapping_info_from_wire(m: dict | None):
+    if not m or m.get("info") is None:
+        return None
+    from repro_torch.mapping.search import MappingSearchInfo
+
+    return tuple(MappingSearchInfo.from_dict(x) for x in m["info"])
+
+
 @dataclasses.dataclass
 class PlanResult:
     """The (instances x profiles x variants) planning grid, densely.
@@ -53,9 +61,16 @@ class PlanResult:
     degraded: bool = False                  # service fallback record
     fallback_stage: str | None = None
     attempts: tuple[str, ...] = ()
-    # mapping axis: "fixed" = baked into the request's Instances (the
-    # paper's setting, the only mode ported so far)
+    # mapping axis (repro_torch.mapping): how the task->processor mapping
+    # was chosen. "fixed" = baked into the request's Instances (the paper's
+    # setting); "heft"/"search" resolved it inside the plan — `mappings`
+    # then carries the winning FixedMapping per instance and
+    # `mapping_info` the search provenance (rounds, candidates evaluated,
+    # improvement trace). Schedules in `results` are under the winning
+    # mapping's instance.
     mapping_mode: str = "fixed"
+    mappings: tuple | None = None           # FixedMapping per instance
+    mapping_info: tuple | None = None       # MappingSearchInfo per instance
     phase_seconds: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -97,7 +112,13 @@ class PlanResult:
             "degraded": bool(self.degraded),
             "fallback_stage": self.fallback_stage,
             "attempts": list(self.attempts),
-            "mapping": {"mode": self.mapping_mode, "info": None},
+            # FixedMappings themselves don't travel (array-heavy); the
+            # mode + per-instance search provenance do
+            "mapping": {
+                "mode": self.mapping_mode,
+                "info": None if self.mapping_info is None else
+                        [inf.to_dict() for inf in self.mapping_info],
+            },
         }
 
     @classmethod
@@ -131,6 +152,7 @@ class PlanResult:
             fallback_stage=d.get("fallback_stage"),
             attempts=tuple(d.get("attempts", ())),
             mapping_mode=(d.get("mapping") or {}).get("mode", "fixed"),
+            mapping_info=_mapping_info_from_wire(d.get("mapping")),
         )
 
     def result(self, instance: int = 0, profile: int = 0,

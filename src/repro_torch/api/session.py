@@ -21,8 +21,14 @@ from __future__ import annotations
 
 import concurrent.futures as _fut
 
+from repro_torch import obs
 from repro_torch.api.request import PlanRequest
 from repro_torch.core.cancel import Cancelled, CancelToken
+
+_WINDOW_FETCH = obs.registry().counter(
+    "session_window_fetch_total",
+    "plan_for() outcomes: prefetched = plan already done, waited = the "
+    "caller blocked on the background worker", labels=("outcome",))
 
 
 class PlanningSession:
@@ -90,9 +96,14 @@ class PlanningSession:
             token = CancelToken()
             self._tokens[window] = token
 
-            def _plan(window=window, token=token):
-                return self.planner.plan(self.request_for(window),
-                                         cancel=token)
+            def _plan(window=window, token=token,
+                      parent=obs.current_span()):
+                # re-anchor the worker thread to the caller's span (the
+                # context variable does not cross pool submission)
+                with obs.attach(parent):
+                    with obs.span("session_window", window=window):
+                        return self.planner.plan(self.request_for(window),
+                                                 cancel=token)
 
             self._plans[window] = self._pool.submit(_plan)
 
@@ -115,6 +126,8 @@ class PlanningSession:
         self._submit(window)
         for nxt in range(window + 1, window + 1 + self.lookahead):
             self._submit(nxt)
+        _WINDOW_FETCH.inc(outcome="prefetched"
+                          if self._plans[window].done() else "waited")
         try:
             return self._plans[window].result()
         except (_fut.CancelledError, Cancelled):

@@ -29,6 +29,15 @@ from __future__ import annotations
 import threading
 import time
 
+from repro_torch import obs
+
+# How long a cancelled solve keeps running before a poll point notices:
+# observed once per cancellation, on the (rare) raising path of check().
+_CANCEL_LATENCY = obs.registry().histogram(
+    "cancel_observe_latency_seconds",
+    "delay between CancelToken.cancel() and the poll that observed it",
+    reservoir=256)
+
 
 class Cancelled(Exception):
     """Raised by :meth:`CancelToken.check` inside a cancelled solve.
@@ -52,7 +61,7 @@ class CancelToken:
     """
 
     __slots__ = ("deadline", "checks", "reason", "_cancelled", "_lock",
-                 "cancelled_at")
+                 "cancelled_at", "_latency_done")
 
     def __init__(self, deadline: float | None = None):
         self.deadline = deadline
@@ -61,6 +70,7 @@ class CancelToken:
         self._cancelled = False
         self._lock = threading.Lock()
         self.cancelled_at: float | None = None
+        self._latency_done = False
 
     @classmethod
     def with_budget(cls, budget: float | None) -> "CancelToken":
@@ -102,6 +112,10 @@ class CancelToken:
         self.checks += 1        # benign race: a lost increment only
         # undercounts telemetry, never correctness
         if self.cancelled:
+            # rare path: record cancel -> observation latency once
+            if not self._latency_done and self.cancelled_at is not None:
+                self._latency_done = True
+                _CANCEL_LATENCY.observe(time.monotonic() - self.cancelled_at)
             raise Cancelled(self.reason or "cancelled")
 
 

@@ -28,10 +28,12 @@ chunk instead of holding the dense matrix, bit-identically.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.cluster import Platform
 from repro_torch.core.carbon import PowerProfile
 from repro_torch.core.dag import Instance
@@ -51,6 +53,19 @@ T_BUCKET = 256                         # time-axis shape bucket
 LP_MAX_BYTES = 128 * 2**20
 
 _BIG = np.iinfo(np.int32).max // 4     # "infeasible" budget marker
+
+# (Npad, Tp) shape buckets the fan-out has run in this process: the
+# counterpart of the reference's compiled jit signatures (a new bucket is
+# the torch engine's "cache miss"; see buckets_run)
+_BUCKETS_RUN: set[tuple[int, int]] = set()
+_BUCKETS_LOCK = threading.Lock()
+
+
+def buckets_run() -> frozenset:
+    """The distinct ``(Npad, Tp)`` buckets :func:`greedy_fanout_grid_torch`
+    has run in this process."""
+    with _BUCKETS_LOCK:
+        return frozenset(_BUCKETS_RUN)
 
 
 def lp_matrix_bytes(num_tasks: int) -> int:
@@ -387,14 +402,22 @@ def _blocked_fanout_padded(dur, work, blp: BlockedLP, budgets, masks,
                   vec(lst)[None].repeat(R, 1))
     col_of = torch.arange(V, device=dev).repeat(P)          # row -> variant
     orders_t = torch.from_numpy(orders).to(dev)
-    for c in range(0, Np, B):
-        vs = orders[:, c:c + B]
-        rows, cols = blp.chunk_tensors(vs, Np)
-        rows = torch.from_numpy(rows).to(dev)
-        cols = torch.from_numpy(cols).to(dev)
-        for j in range(vs.shape[1]):
-            v = orders_t[col_of, c + j]
-            state.step(v, rows[col_of, j], cols[col_of, j], dur[v], work[v])
+    n_chunks = -(-Np // B)
+    with obs.span("blocked_chunk_sweep", N=int(Np), chunk_width=int(B),
+                  chunks=n_chunks, rows=int(P * V)):
+        for c in range(0, Np, B):
+            vs = orders[:, c:c + B]
+            rows, cols = blp.chunk_tensors(vs, Np)
+            rows = torch.from_numpy(rows).to(dev)
+            cols = torch.from_numpy(cols).to(dev)
+            for j in range(vs.shape[1]):
+                v = orders_t[col_of, c + j]
+                state.step(v, rows[col_of, j], cols[col_of, j], dur[v],
+                           work[v])
+    obs.registry().counter(
+        "blocked_lp_chunks_total",
+        "device chunk launches of the blocked longest-path sweep"
+    ).inc(n_chunks)
     return state.start.reshape(P, V, Np)
 
 
@@ -437,6 +460,9 @@ def greedy_fanout_grid_torch(bucket_rows, device=None) -> torch.Tensor:
     """
     dev = resolve_device(device)
     rows = list(bucket_rows)
+    with _BUCKETS_LOCK:
+        _BUCKETS_RUN.add((int(rows[0][7].shape[1]),     # order [V, Np]
+                          int(rows[0][3].shape[1])))    # rem0 [P, Tp]
     blocked = [isinstance(r[2], BlockedLP) for r in rows]
     out: list = [None] * len(rows)
     dense_idx = [i for i, b in enumerate(blocked) if not b]

@@ -23,6 +23,7 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.optimize import LinearConstraint, milp
 
+from repro_torch import obs
 from repro_torch.core.cancel import checkpoint
 from repro_torch.core.carbon import PowerProfile
 from repro_torch.core.dag import Instance
@@ -53,6 +54,18 @@ def solve_ilp(inst: Instance, profile: PowerProfile,
     if cancel is not None and cancel.deadline is not None:
         time_limit = min(float(time_limit),
                          max(cancel.remaining() or 0.0, 0.1))
+    build_span = obs.start_span("ilp_build", N=int(inst.num_tasks),
+                                T=int(profile.T))
+    try:
+        return _build_and_solve(inst, profile, cancel, build_span,
+                                time_limit, mip_gap)
+    finally:
+        build_span.end()      # idempotent: normal path already ended it
+
+
+def _build_and_solve(inst: Instance, profile: PowerProfile, cancel,
+                     build_span, time_limit: float,
+                     mip_gap: float) -> ILPResult:
     N = inst.num_tasks
     T = profile.T
     dur = inst.dur
@@ -116,14 +129,21 @@ def solve_ilp(inst: Instance, profile: PowerProfile,
     integrality = np.concatenate([np.ones(n_s), np.zeros(T)])
     bounds_lo = np.zeros(n_var)
     bounds_hi = np.concatenate([np.ones(n_s), np.full(T, np.inf)])
+    build_span.end(rows=int(r), n_var=int(n_var), nnz=len(vals))
 
-    res = milp(
-        c,
-        constraints=LinearConstraint(A, np.asarray(lo), np.asarray(hi)),
-        integrality=integrality,
-        bounds=(bounds_lo, bounds_hi),
-        options={"time_limit": time_limit, "mip_rel_gap": mip_gap},
-    )
+    with obs.span("ilp_milp", N=int(N), T=int(T), rows=int(r),
+                  time_limit=round(time_limit, 3)) as milp_span:
+        res = milp(
+            c,
+            constraints=LinearConstraint(A, np.asarray(lo), np.asarray(hi)),
+            integrality=integrality,
+            bounds=(bounds_lo, bounds_hi),
+            options={"time_limit": time_limit, "mip_rel_gap": mip_gap},
+        )
+        milp_span.set(status=int(res.status))
+    obs.registry().counter(
+        "ilp_solves_total", "HiGHS MILP solves, by exit status",
+        labels=("status",)).inc(status=int(res.status))
     dual = getattr(res, "mip_dual_bound", None)
     gap = getattr(res, "mip_gap", None)
     if res.x is None:

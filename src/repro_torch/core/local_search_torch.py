@@ -35,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cancel import checkpoint
 from repro_torch.core.carbon import PowerProfile, work_timeline
 from repro_torch.core.dag import Instance
@@ -323,29 +324,48 @@ def local_search_portfolio_multi(inst: Instance, T: int,
     dur_p[:N] = inst.dur
     work_p = np.zeros(Np, dtype=np.int32)
     work_p[:N] = inst.task_work
-    adj = _device_adjacency(inst, ctx, Np, adjacency == "padded", dev)
+    padded = adjacency == "padded"
+    adj = _device_adjacency(inst, ctx, Np, padded, dev)
 
     checkpoint(cancel)                   # last rung before the device climb
     ck = _COMMIT_K if commit_k is None else int(commit_k)
-    climbed, _ = climb(
-        torch.from_numpy(rem_p).to(dev), torch.from_numpy(start_p).to(dev),
-        int(T), torch.from_numpy(dur_p).to(dev),
-        torch.from_numpy(work_p).to(dev), adj, mu=mu,
-        max_rounds=max_rounds, commit_k=ck, cancel=cancel)
-    starts = climbed[:R, :N].cpu().numpy().astype(np.int64)
+    with obs.span("ls_device_climb", rows=int(R), N=int(N), T=int(T),
+                  commit_k=ck, padded=padded) as climb_span:
+        climbed, rounds_dev = climb(
+            torch.from_numpy(rem_p).to(dev),
+            torch.from_numpy(start_p).to(dev), int(T),
+            torch.from_numpy(dur_p).to(dev),
+            torch.from_numpy(work_p).to(dev), adj, mu=mu,
+            max_rounds=max_rounds, commit_k=ck, cancel=cancel)
+        starts = climbed[:R, :N].cpu().numpy().astype(np.int64)
+        rounds_dev = rounds_dev[:R].cpu().numpy()
+        climb_span.set(rounds_max=int(rounds_dev.max(initial=0)))
+    rounds_hist = obs.registry().histogram(
+        "ls_device_rounds", "device while_loop rounds per climb row",
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256), reservoir=256)
+    for r in rounds_dev:
+        rounds_hist.observe(int(r))
     t1 = time.perf_counter()
 
     if polish:
         pad = mu
-        for i in range(R):
-            rem_pad = np.zeros(T + 2 * pad, dtype=np.int64)
-            rem_pad[pad:pad + T] = unit_budgets[i] - work_timeline(
-                inst, T, starts[i])
-            budget = max_rounds               # per-variant round budget
-            while budget > 0 and reference_round(inst, T, rem_pad, pad,
-                                                 starts[i], mu, ctx):
-                budget -= 1
-                checkpoint(cancel)   # per-polish-round rung
+        polish_rounds = 0
+        with obs.span("ls_polish", rows=int(R)) as polish_span:
+            for i in range(R):
+                rem_pad = np.zeros(T + 2 * pad, dtype=np.int64)
+                rem_pad[pad:pad + T] = unit_budgets[i] - work_timeline(
+                    inst, T, starts[i])
+                budget = max_rounds               # per-variant round budget
+                while budget > 0 and reference_round(inst, T, rem_pad, pad,
+                                                     starts[i], mu, ctx):
+                    budget -= 1
+                    polish_rounds += 1
+                    checkpoint(cancel)   # per-polish-round rung
+            polish_span.set(rounds=polish_rounds)
+        obs.registry().counter(
+            "ls_polish_rounds_total",
+            "sequential-reference polish rounds run after device climbs"
+        ).inc(polish_rounds)
     if timings is not None:
         timings["climb"] = timings.get("climb", 0.0) + (t1 - t0)
         timings["polish"] = timings.get("polish", 0.0) \

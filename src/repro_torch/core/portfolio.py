@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.cluster import Platform
 from repro_torch.core.cancel import checkpoint
 from repro_torch.core.carbon import PowerProfile, schedule_cost, \
@@ -224,6 +225,16 @@ def _greedy_starts_numpy(prep: PreparedInstance, combos) -> dict:
     return out
 
 
+def bucket_entries_total() -> int:
+    """Distinct ``(Npad, Tp)`` shape buckets the torch fan-out has run
+    in this process (the counterpart of the reference's
+    ``jit_entries_total``): sampled before and after a bucket run, the
+    delta is that run's bucket misses, which the mapping search records
+    per evaluation batch."""
+    from repro_torch.core.greedy_torch import buckets_run
+    return len(buckets_run())
+
+
 def _needed_combos(names) -> list[tuple[str, bool, bool]]:
     need = []
     for name in names:
@@ -351,6 +362,13 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
     for inst, ps in zip(instances, profile_grid):
         key = (id(inst), tuple(id(p) for p in ps))
         dup_of.append(uniq.setdefault(key, len(dup_of)))
+    n_dup = sum(1 for i, d in enumerate(dup_of) if d != i)
+    if n_dup:
+        obs.registry().counter(
+            "portfolio_rows_deduped_total",
+            "duplicate (instance, profile-row) grid rows aliased to a "
+            "unique row's results instead of recomputed host-side").inc(
+                n_dup)
 
     t0 = time.perf_counter()
     if graphs is None:
@@ -378,15 +396,16 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
     greedys: list[list[dict]] = [[{} for _ in range(P)] for _ in range(I)]
     if need and engine == "numpy":
         t0 = time.perf_counter()
-        for i in range(I):
-            if dup_of[i] != i:
-                greedys[i] = greedys[dup_of[i]]
-                continue
-            for p in range(P):
-                checkpoint(cancel)   # per-cell cancellation rung
-                prep = PreparedInstance(graph=graphs[i],
-                                        overlay=overlays[i][p])
-                greedys[i][p] = _greedy_starts_numpy(prep, need)
+        with obs.span("greedy_numpy", cells=I * P, combos=len(need)):
+            for i in range(I):
+                if dup_of[i] != i:
+                    greedys[i] = greedys[dup_of[i]]
+                    continue
+                for p in range(P):
+                    checkpoint(cancel)   # per-cell cancellation rung
+                    prep = PreparedInstance(graph=graphs[i],
+                                            overlay=overlays[i][p])
+                    greedys[i][p] = _greedy_starts_numpy(prep, need)
         _add(timings, "greedy", t0)
     elif need:                                     # engine == "torch"
         from repro_torch.core.greedy_torch import greedy_fanout_grid_torch, \
@@ -398,6 +417,10 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
         for (Npad, Tp), idx in buckets.items():
             checkpoint(cancel)           # per-bucket rung
             t0 = time.perf_counter()
+            launch_span = obs.start_span(
+                "bucket_launch", bucket=f"{Npad}x{Tp}",
+                instances=len(idx), rows=len(idx) * P * len(need))
+            misses0 = bucket_entries_total()
             # duplicate rows reuse the unique row's host-built tuple (the
             # dedupe target shares the instance object, hence the bucket,
             # so it was built earlier in this idx walk)
@@ -421,8 +444,20 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
                 rows.append(row_cache[dup_of[i]])
             _add(timings, "rows", t0)
             t0 = time.perf_counter()
-            starts = greedy_fanout_grid_torch(rows, device=device) \
-                .cpu().numpy().astype(np.int64)
+            try:
+                starts = greedy_fanout_grid_torch(rows, device=device) \
+                    .cpu().numpy().astype(np.int64)
+            finally:
+                # a bucket's first run in this process is its miss
+                misses = max(bucket_entries_total() - misses0, 0)
+                if misses:
+                    obs.registry().counter(
+                        "torch_bucket_misses_total",
+                        "first runs of a padded (Npad, Tp) fan-out bucket "
+                        "in this process (steady state stays at 0)",
+                        labels=("bucket",)).inc(misses,
+                                                bucket=f"{Npad}x{Tp}")
+                launch_span.end(cache_misses=misses)
             _add(timings, "greedy", t0)
             dt = (time.perf_counter() - t0) / (len(idx) * P * len(need))
             for b, i in enumerate(idx):
@@ -462,18 +497,23 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
             # ctx = the graph dict, so the adjacency cache of the device
             # climb survives across profiles; blocked-lp instances use the
             # padded-CSR adjacency so the climb holds no N x N tensor
-            improved = local_search_portfolio_multi(
-                instances[i], graphs[i].T, row_budgets, rows, mu=mu,
-                max_rounds=ls_max_rounds, ctx=graphs[i].ls_graph,
-                commit_k=ck,
-                adjacency="padded" if graphs[i].lp_is_blocked
-                else "dense",
-                cancel=cancel, device=device, timings=timings)
+            with obs.span("ls_climb", instance=i, rows=len(rows)):
+                improved = local_search_portfolio_multi(
+                    instances[i], graphs[i].T, row_budgets, rows, mu=mu,
+                    max_rounds=ls_max_rounds, ctx=graphs[i].ls_graph,
+                    commit_k=ck,
+                    adjacency="padded" if graphs[i].lp_is_blocked
+                    else "dense",
+                    cancel=cancel, device=device, timings=timings)
             dt = (time.perf_counter() - t0) / len(rows)
             for p in range(P):
                 ls_dones[i][p] = {n: (improved[p * len(keys) + j], dt)
                                   for j, n in enumerate(ls_names)}
 
+    obs.registry().counter(
+        "portfolio_cells_total",
+        "grid cells served by the portfolio pass, by engine",
+        labels=("engine",)).inc(I * P, engine=engine)
     t0 = time.perf_counter()
     out_rows: list = []
     for i in range(I):

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.cancel import checkpoint
 from repro_torch.core.carbon import schedule_cost, validate_schedule
 from repro_torch.core.cawosched import ScheduleResult
@@ -117,7 +118,9 @@ class Solver:
             for p, profile in enumerate(profile_grid[i]):
                 checkpoint(cancel)        # per-cell cancellation rung
                 t0 = time.perf_counter()
-                out = cell_fn(i, inst, profile)
+                with obs.span("solve_cell", solver=self.name, i=i, p=p):
+                    out = cell_fn(i, inst, profile)
+                _CELLS.inc(solver=self.name)
                 start, lb = out[0], out[1]
                 gap = out[2] if len(out) > 2 else None
                 secs = time.perf_counter() - t0
@@ -137,6 +140,11 @@ class Solver:
         return SolveOutput(cells=cells,
                            lower=lower if any_lower else None,
                            mip_gap=gaps if any_gap else None)
+
+
+_CELLS = obs.registry().counter(
+    "solver_cells_total", "grid cells served, by solver backend",
+    labels=("solver",))
 
 
 def _single_label(names, solver: Solver) -> str:

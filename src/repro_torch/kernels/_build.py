@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -24,6 +25,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# called as fn(name, seconds) after each nvcc run that built a library
+# (:func:`repro_torch.obs.torch_hooks.install` adds one)
+_BUILD_LISTENERS: list = []
+
+
+def add_build_listener(fn) -> None:
+    """Call ``fn(name, seconds)`` after every ``nvcc`` build."""
+    _BUILD_LISTENERS.append(fn)
 
 
 def nvcc() -> str:
@@ -57,13 +66,17 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)            # atomic: concurrent builders agree
+    for fn in list(_BUILD_LISTENERS):
+        fn(name, secs)
     return out
 
 

@@ -117,7 +117,9 @@ def test_request_surface_limits_of_this_slice():
     plat, insts, grid = _grid(("eager",), ("S1",))
     tplat, tinsts, tgrid = _ported(plat, insts, grid)
     planner = Planner(tplat, engine="torch", device="cpu")
-    with pytest.raises(ValueError, match="mapping='heft' is not yet ported"):
+    # mapping modes are ported (tests/test_torch_mapping.py); they take
+    # raw Workflows, so mapped Instances are refused as in the reference
+    with pytest.raises(TypeError, match="Workflow"):
         planner.plan(PlanRequest(instances=tinsts, profiles=tgrid,
                                  mapping="heft"))
     with pytest.raises(ValueError, match="devices=2 is not yet ported"):
