@@ -58,14 +58,28 @@ reference package ``repro``. Phases, each fatal on failure:
    below the winner's, every winner schedule costs the same through the
    deficit kernel; the span split, and the device's idle share over the
    profiled seed round;
-11. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
+11. the planning service (``PlanService``, ``[service]``): (a) the four
+   matrix tickets admitted to a service with a write-ahead journal, which
+   is killed before it serves them; a second service on the journal
+   replays them as one coalesced batch (two workers), each ticket bitwise
+   equal to the cold plan's row, none degraded, the journal empty after
+   ``close()``, every delivered schedule costed through the deficit
+   kernel; (b) the seconds from ``Ticket.cancel()`` until the solve pool is
+   idle, for a cancel when the first device climb opens and one during the
+   greedy bucket; (c) scripted fault drills at tests/test_service.py's
+   sizes (a transient crash, an injected OOM's blocked-LP retry, a hang
+   the watchdog trips, a zero budget on a mapping search, two coalesce
+   groups on two workers), each through a service on the card and one on
+   the CPU, their attempts logs and plans equal; (d) ``CarbonGate`` plans,
+   nominal and with an ensemble, card == CPU bitwise;
+12. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
    the CUDA cores) against their plain version on the card at the
    reference sweep's five shapes and the bf16 twins of its four f32 shapes,
    at the model's shape (B=4, S=2048, H=16, hd=64, causal) in bf16 and f32,
    and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
    S=2048, H=8), the kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
-12. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
+13. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
    per forward, finite and within 0.5 of ln V; the final hidden states
@@ -73,12 +87,12 @@ reference package ``repro``. Phases, each fatal on failure:
    elementwise within 1e-4; bf16: within 2e-2 in relative norm, and no
    further from the f32 forward than the plain bf16 forward is); forward
    seconds cold and warm (``[model]``);
-13. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
+14. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
    requests on 4 slots, 32 new tokens, max_len 512, every request finished;
    then the forward's logits against step-by-step decode logits at full
    width in f32, B=2, S=8, within 2e-2 (``[serve]``).
 
-Each path (4, 5, 8, 9, 10, 12, 13) is driven with the kernels' launch
+Each path (4, 5, 8, 9, 10, 11, 13, 14) is driven with the kernels' launch
 counts set to 0 just before it and read just after; a kernel the path runs
 that was never launched fails the run. f32 matrix products on the card run
 in full f32: TF32 is switched off for matmuls and cuDNN before any phase.
@@ -1311,6 +1325,377 @@ def phase_mapping(plat, n=MAPPING_TASKS):
             "seed_round_idle_share": idle}
 
 
+# --- [service] --------------------------------------------------------------
+
+SERVICE_SPANS = ("rung:heuristic", "solve", "plan", "prepare_graph",
+                 "bucket_launch", "ls_climb", "ls_device_climb", "ls_polish")
+
+
+def service_replay(plat, insts, grid, cold, cold_s):
+    """[service] (a): four matrix tickets admitted to a journaled service
+    that is killed before it serves them; a second service on the same
+    journal replays them as one coalesced batch, bitwise equal to the cold
+    plan's rows, with nothing degraded."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.api import Planner, PlanRequest
+    from repro_torch.serve import PlanService, TicketJournal
+
+    with tempfile.TemporaryDirectory() as jdir:
+        a = PlanService(Planner(plat, engine="torch"), journal_dir=jdir,
+                        workers=2)
+        try:
+            a.pause()
+            tickets = [a.submit(PlanRequest(instances=inst, profiles=ps))
+                       for inst, ps in zip(insts, grid)]
+        finally:
+            a.kill()
+        check(not any(t.done() for t in tickets), "[service] a killed "
+              "service resolved a ticket")
+        tracer = obs.Tracer()
+        prev = obs.set_tracer(tracer)
+        t0 = time.perf_counter()
+        try:
+            b = PlanService(Planner(plat, engine="torch"), journal_dir=jdir,
+                            workers=2)
+            try:
+                check(len(b.replayed) == len(insts), f"[service] replayed "
+                      f"{len(b.replayed)} of {len(insts)} tickets")
+                results = [t.result(timeout=600) for t in b.replayed]
+                secs = time.perf_counter() - t0
+                stats = b.stats()
+            finally:
+                b.close()
+        finally:
+            obs.set_tracer(prev)
+        left = len(TicketJournal(jdir))
+    check(left == 0, f"[service] {left} journal entries left after close()")
+    check(stats["batches"] == 1 and stats["coalesced_requests"] == 4,
+          f"[service] replay ran {stats['batches']} batches of "
+          f"{stats['coalesced_requests']} tickets, not one of 4")
+    check(stats["failed"] == 0 and stats["degraded"] == 0,
+          f"[service] failed {stats['failed']}, degraded "
+          f"{stats['degraded']}")
+    for i, res in enumerate(results):
+        check(not res.degraded and res.fallback_stage == "heuristic"
+              and res.attempts[-1] == "heuristic:ok",
+              f"[service] ticket {i} degraded {res.degraded}, stage "
+              f"{res.fallback_stage}, attempts {res.attempts}")
+        check(res.engine == "torch", f"[service] engine {res.engine}")
+        check(np.array_equal(res.costs[0], cold.costs[i]),
+              f"[service] ticket {i} costs != the cold plan's row {i}")
+        for p in range(len(grid[i])):
+            for n in cold.variants:
+                check(np.array_equal(res.results[0][p][n].start,
+                                     cold.results[i][p][n].start),
+                      f"[service] ticket {i} starts != the cold plan's: "
+                      f"{n}, profile {p}")
+    costed = 0
+    for i, res in enumerate(results):
+        costed += check_costs_through_kernel(res, [insts[i]], [grid[i]],
+                                             "service")[0]
+    lat = stats["latency"]
+    log(f"[service] (a) 4 matrix tickets journaled, the service killed, "
+        f"replayed by a second service (workers=2): {secs:.3f} s from its "
+        f"start to the last delivery ([plan] cold {cold_s:.3f} s); batches "
+        f"{stats['batches']}, coalesced requests "
+        f"{stats['coalesced_requests']}, coalesce ratio "
+        f"{stats['coalesce_ratio']}, replayed {stats['replayed']}, latency "
+        f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms; every "
+        f"ticket bitwise equal to the cold plan's row, none degraded, the "
+        f"journal empty after close(); {costed} schedules cost the same "
+        f"through the deficit kernel")
+    log(f"[service] (a) span split under rung:heuristic: "
+        f"{split_text(span_split(tracer.finished(), SERVICE_SPANS))}")
+    return {"seconds": secs, "coalesce_ratio": stats["coalesce_ratio"],
+            "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"]}
+
+
+def service_cancel(plat, inst, profiles):
+    """[service] (b): the seconds from ``Ticket.cancel()`` until the
+    service's solve pool is idle, for a cancel issued when the first
+    device climb opens and one issued during the greedy bucket."""
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.api import Planner, PlanRequest
+    from repro_torch.core import cancel as cancel_mod
+    from repro_torch.serve import PlanService, TicketCancelled
+
+    class Trigger(obs.Tracer):
+        """Sets ``fired`` when the first span named ``target`` opens."""
+
+        target = None
+
+        def __init__(self):
+            super().__init__()
+            self.fired = threading.Event()
+
+        def start(self, name, parent=None, **attrs):
+            sp = super().start(name, parent=parent, **attrs)
+            if name == self.target:
+                self.fired.set()
+            return sp
+
+    out = {}
+    with PlanService(Planner(plat, engine="torch")) as svc:
+        for target in ("ls_device_climb", "bucket_launch"):
+            tracer = Trigger()
+            tracer.target = target
+            prev = obs.set_tracer(tracer)
+            try:
+                t = svc.submit(PlanRequest(instances=inst,
+                                           profiles=profiles))
+                check(tracer.fired.wait(timeout=300),
+                      f"[service] no {target} span opened")
+                t0 = time.perf_counter()
+                check(t.cancel("chip_smoke"), f"[service] the cancel at "
+                      f"{target} lost: the ticket had resolved")
+                while svc.stats()["inflight_solves"] > 0 and \
+                        time.perf_counter() - t0 < 300:
+                    time.sleep(0.001)
+                freed = time.perf_counter() - t0
+            finally:
+                obs.set_tracer(prev)
+            check(svc.stats()["inflight_solves"] == 0,
+                  f"[service] the solve cancelled at {target} still runs")
+            try:
+                t.result(timeout=10)
+                check(False, "[service] a cancelled ticket delivered")
+            except TicketCancelled:
+                pass
+            observed = cancel_mod._CANCEL_LATENCY.samples()
+            out[target] = (freed, observed[-1] if observed else None)
+            log(f"[service] (b) cancel at the first {target} span: "
+                f"{freed:.4f} s until inflight_solves == 0; "
+                f"cancel_observe_latency_seconds {out[target][1]}")
+        stats = svc.stats()
+    check(stats["cancelled"] == 2 and stats["cancelled_solves"] == 2,
+          f"[service] cancelled {stats['cancelled']}, cancelled solves "
+          f"{stats['cancelled_solves']}")
+    return out
+
+
+def drill_setup(samples=3, seed=3):
+    """tests/test_service.py's ``_setup``."""
+    from repro_torch.cluster import make_cluster
+    from repro_torch.core import (build_instance, deadline_from_asap,
+                                  generate_profile, heft_mapping)
+    from repro_torch.workflows import make_workflow
+
+    plat = make_cluster(1, seed=seed)
+    wf = make_workflow("eager", samples, seed=seed)
+    inst = build_instance(wf, heft_mapping(wf, plat), plat)
+    prof = generate_profile("S3", deadline_from_asap(inst, 1.5), plat,
+                            J=16, seed=seed)
+    return plat, inst, prof
+
+
+def run_drill(name, device):
+    """One scripted fault drill through a service whose planner runs on
+    ``device`` (None = the card); returns the delivered results."""
+    import numpy as np
+
+    from repro_torch.api import Planner, PlanRequest
+    from repro_torch.cluster import make_cluster
+    from repro_torch.core import (build_instance, generate_profile,
+                                  lp_matrix_bytes, validate_schedule)
+    from repro_torch.runtime.fault import FaultSpec, ServiceFaultInjector
+    from repro_torch.serve import PlanService
+    from repro_torch.workflows import make_workflow
+
+    plat, inst, prof = drill_setup()
+    planner = Planner(plat, engine="torch", device=device)
+    req = PlanRequest(instances=inst, profiles=prof)
+
+    def same(a, b, what):
+        check(a.variants == b.variants and np.array_equal(a.costs, b.costs),
+              f"[service] {name}: {what} costs differ")
+        for p in range(a.costs.shape[1]):
+            for n in a.variants:
+                check(np.array_equal(a.results[0][p][n].start,
+                                     b.results[0][p][n].start),
+                      f"[service] {name}: {what} starts differ ({n})")
+
+    def valid(res, inst_, prof_):
+        for n in res.variants:
+            validate_schedule(inst_, prof_, res.result(variant=n).start)
+
+    if name == "two-groups":
+        pinned = PlanRequest(instances=inst, profiles=prof,
+                             variants=("asap", "pressWR-LS"))
+        reqs = [req, pinned, req, pinned]
+        direct = [planner.plan(r) for r in reqs]
+        with PlanService(planner.clone(), workers=2) as svc:
+            svc.pause()
+            tickets = [svc.submit(r) for r in reqs]
+            svc.resume()
+            served = [t.result(timeout=120) for t in tickets]
+            stats = svc.stats()
+        check(stats["batches"] == 2, f"[service] {name}: "
+              f"{stats['batches']} batches, not 2 groups")
+        for s, d in zip(served, direct):
+            check(not s.degraded and s.attempts == ("heuristic:ok",),
+                  f"[service] {name}: degraded, attempts {s.attempts}")
+            same(s, d, "served vs direct")
+            valid(s, inst, prof)
+        return served
+    if name == "mapping-budget-zero":
+        wf = make_workflow("eager", 2, seed=0)
+        mplat = make_cluster(1, seed=0)
+        scarce = generate_profile("S3", 400, mplat, J=12, seed=2,
+                                  work_capacity=40)
+        with PlanService(Planner(mplat, engine="torch",
+                                 device=device)) as svc:
+            res = svc.plan(PlanRequest(
+                instances=wf, profiles=scarce, mapping="search",
+                mapping_options={"seeds": 8, "rounds": 6,
+                                 "neighbors": 16}), budget=0.0)
+        check(res.degraded and res.fallback_stage == "asap"
+              and res.mapping_mode == "heft"
+              and "mapping:heft" in res.attempts,
+              f"[service] {name}: stage {res.fallback_stage}, mapping "
+              f"{res.mapping_mode}, attempts {res.attempts}")
+        valid(res, build_instance(wf, res.mappings[0], mplat), scarce)
+        return [res]
+    faults, kw, budget = {
+        "transient-crash": ([FaultSpec(kind="crash", stage="heuristic",
+                                       times=1)],
+                            dict(retries=2, backoff=0.01), None),
+        "oom-blocked-retry": ([FaultSpec(kind="oom", stage="heuristic",
+                                         times=1)],
+                              dict(lp_retry_budget_bytes=lp_matrix_bytes(
+                                  inst.num_tasks) - 1), None),
+        "hang-watchdog": ([FaultSpec(kind="hang", stage="heuristic",
+                                     times=5, seconds=2.0)], {}, 0.3),
+    }[name]
+    direct = planner.plan(req)
+    inj = ServiceFaultInjector(faults=faults)
+    with PlanService(planner.clone(), injector=inj, **kw) as svc:
+        t0 = time.perf_counter()
+        res = svc.plan(req, budget=budget)
+        elapsed = time.perf_counter() - t0
+        stats = svc.stats()
+        blocked = [p for (_, b), p in svc._planners.items() if b]
+    valid(res, inst, prof)
+    if name == "hang-watchdog":
+        check(res.attempts == ("heuristic:timeout", "asap:ok")
+              and elapsed < 1.5, f"[service] {name}: attempts "
+              f"{res.attempts} in {elapsed:.3f} s")
+        return [res]
+    want = {"transient-crash": ("heuristic:crash", "heuristic:ok"),
+            "oom-blocked-retry": ("heuristic:oom",
+                                  "heuristic:oom-retry-blocked-lp",
+                                  "heuristic:ok")}[name]
+    check(res.attempts == want and not res.degraded,
+          f"[service] {name}: attempts {res.attempts}, degraded "
+          f"{res.degraded}")
+    same(res, direct, "served vs direct")
+    if name == "oom-blocked-retry":
+        check(stats["oom_retries"] == 1 and
+              blocked[0].prepared(inst, prof.T).lp_is_blocked,
+              f"[service] {name}: the retry did not stream BlockedLP")
+    return [res]
+
+
+DRILLS = ("transient-crash", "oom-blocked-retry", "hang-watchdog",
+          "mapping-budget-zero", "two-groups")
+
+
+def service_drills():
+    """[service] (c): each scripted fault through a service on the card and
+    through one on the CPU: the attempts logs and the delivered plans
+    equal."""
+    import numpy as np
+
+    for name in DRILLS:
+        t0 = time.perf_counter()
+        card = run_drill(name, None)
+        card_s = time.perf_counter() - t0
+        cpu = run_drill(name, "cpu")
+        for a, b in zip(card, cpu):
+            check(a.attempts == b.attempts, f"[service] {name}: card "
+                  f"attempts {a.attempts} != CPU {b.attempts}")
+            check(np.array_equal(a.costs, b.costs), f"[service] {name}: "
+                  f"card costs != CPU costs")
+            for p in range(a.costs.shape[1]):
+                for n in a.variants:
+                    check(np.array_equal(a.results[0][p][n].start,
+                                         b.results[0][p][n].start),
+                          f"[service] {name}: card starts != CPU ({n})")
+        log(f"[service] (c) {name}: attempts {list(card[0].attempts)} "
+            f"(card == CPU), {len(card)} plan(s) equal bitwise and valid; "
+            f"card {card_s:.3f} s")
+
+
+def service_gate():
+    """[service] (d): CarbonGate.make_plan on the card and on the CPU, with
+    tests/test_substrates.py's fleet, chunks and barriers, nominal and with
+    an S1-S3 ensemble at the same horizon (``variant="auto"``)."""
+    import numpy as np
+
+    from repro_torch.core import generate_profile
+    from repro_torch.runtime import CarbonGate
+    from repro_torch.runtime.carbon_gate import fleet_platform
+
+    plat = fleet_platform(pods=2, chip_watts_idle=100, chip_watts_work=250,
+                          chips_per_pod=4)
+    chunks = [[30] * 12, [30] * 12]
+    horizon = 3 * 12 * 30
+    prof = generate_profile("S1", horizon, plat, J=24, seed=0)
+    members = [generate_profile(s, horizon, plat, J=24, seed=seed)
+               for s, seed in (("S2", 1), ("S3", 2))]
+    for label, variant, ensemble in (("nominal", "pressWR-LS", None),
+                                     ("ensemble", "auto", members)):
+        plans = []
+        for device in (None, "cpu"):
+            t0 = time.perf_counter()
+            gate = CarbonGate(prof, plat, variant=variant,
+                              profiles=ensemble, device=device)
+            plans.append((gate.engine, gate.make_plan(chunks, barriers=[5]),
+                          time.perf_counter() - t0))
+        (engine, card, card_s), (_, cpu, _) = plans
+        check(np.array_equal(card.start, cpu.start)
+              and np.array_equal(card.cost_matrix, cpu.cost_matrix)
+              and card.variant == cpu.variant,
+              f"[service] gate {label}: card != CPU")
+        check(card.cost <= card.asap_cost, f"[service] gate {label}: cost "
+              f"{card.cost} > asap {card.asap_cost}")
+        log(f"[service] (d) CarbonGate {label} (engine {engine}): variant "
+            f"{card.variant}, cost {card.cost} <= asap {card.asap_cost}, "
+            f"cost matrix {card.cost_matrix.tolist()}; card == CPU bitwise; "
+            f"card {card_s:.3f} s")
+
+
+def phase_service(plat, insts, grid, cold, cold_s):
+    """The planning service on the card: (a) crash and replay at the matrix
+    size, (b) how fast a cancellation frees the card, (c) fault drills card
+    vs CPU, (d) the CarbonGate card vs CPU."""
+    from repro_torch.kernels import carbon_cost, gain_scan
+
+    t_phase = time.perf_counter()
+    gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    replay = service_replay(plat, insts, grid, cold, cold_s)
+    eager = KINDS.index("eager")
+    cancels = service_cancel(plat, insts[eager], grid[eager])
+    service_drills()
+    service_gate()
+    launches = {"gain_scan": gain_scan.LAUNCHES,
+                "carbon_cost": carbon_cost.LAUNCHES}
+    check(launches["gain_scan"] > 0, "[service] the service did not launch "
+          "the gain_scan kernel")
+    check(launches["carbon_cost"] > 0, "[service] the deficit kernel did "
+          "not cost the service's schedules")
+    secs = time.perf_counter() - t_phase
+    log(f"[service] launches gain_scan {launches['gain_scan']}, carbon_cost "
+        f"{launches['carbon_cost']}; the phase {secs:.3f} s in all")
+    return {**launches, "seconds": secs, "replay": replay,
+            "cancel": cancels}
+
+
 def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
     """Least time for one attention pass: q, k, v read once and the output
     written once, against the flops of QK^T and PV over the keys each query
@@ -1660,7 +2045,7 @@ def main() -> int:
     t0 = time.perf_counter()
     plat, insts, grid = build_matrix()
     log(f"[matrix] built in {time.perf_counter() - t0:.3f} s")
-    card, launches, _, _ = phase_plan(plat, insts, grid)
+    card, launches, cold_s, _ = phase_plan(plat, insts, grid)
     cost_launches, oracle_ms = phase_cost_oracle(insts, grid, card, dev)
     eager = KINDS.index("eager")           # the smallest instance
     phase_cpu(plat, insts, grid, card, eager)
@@ -1668,6 +2053,7 @@ def main() -> int:
     exact_launches = phase_exact()
     session_launches = phase_session(plat, insts[eager])
     mapping_run = phase_mapping(plat)
+    service_run = phase_service(plat, insts, grid, card, cold_s)
     flash_rows = phase_flash(dev)
     model_run = phase_model(dev)
     serve_run = phase_serve(dev)
@@ -1683,7 +2069,8 @@ def main() -> int:
         "launches_by_path": {"plan": launches,
                              "exact": exact_launches["gain_scan"],
                              "session": session_launches["gain_scan"],
-                             "mapping": mapping_run["gain_scan"]},
+                             "mapping": mapping_run["gain_scan"],
+                             "service": service_run["gain_scan"]},
         "max_abs_err": main_mu["max_abs_err"],
         "ms": main_mu["ms"],
         "ms_from": main_mu["ms_from"],
@@ -1702,11 +2089,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/carbon_cost.cu",
         "replaces": "src/repro/kernels/carbon_cost.py:31",
         "launches": cost_launches + exact_launches["carbon_cost"]
-        + session_launches["carbon_cost"] + mapping_run["carbon_cost"],
+        + session_launches["carbon_cost"] + mapping_run["carbon_cost"]
+        + service_run["carbon_cost"],
         "launches_by_path": {"cost": cost_launches,
                              "exact": exact_launches["carbon_cost"],
                              "session": session_launches["carbon_cost"],
-                             "mapping": mapping_run["carbon_cost"]},
+                             "mapping": mapping_run["carbon_cost"],
+                             "service": service_run["carbon_cost"]},
         "max_abs_err": plan_row["max_abs_err"],
         "ms": plan_row["ms"],
         "ms_from": plan_row["ms_from"],

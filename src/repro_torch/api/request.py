@@ -10,7 +10,8 @@ pass. :func:`crop_profile` restricts a long forecast to a deadline window
 (``PlanRequest.deadline_scale``), and :func:`window_profile` slices the
 ``[t0, t0+T)`` window out of a long forecast — the rolling-horizon overlay
 the async :class:`~repro_torch.api.session.PlanningSession` replans
-against.
+against. :func:`validate_resolved` is the serving tier's structural check
+of a resolved grid.
 
 The port serves every mapping mode on one device: ``devices`` above 1
 raises ``ValueError`` (the multi-device grid is not ported yet).
@@ -24,7 +25,7 @@ import numpy as np
 from repro_torch.core.carbon import PowerProfile
 from repro_torch.core.cawosched import VARIANTS_BY_NAME, deadline_from_asap
 from repro_torch.core.dag import Instance
-from repro_torch.workflows.generators import Workflow
+from repro_torch.workflows.generators import Workflow, topological_order
 
 # mapping axis: "fixed" schedules pre-built Instances under their baked-in
 # mapping (the paper's setting); "heft"/"search" accept raw Workflows and
@@ -95,6 +96,104 @@ def window_profile(profile: PowerProfile, t0: int, T: int) -> PowerProfile:
     bounds = np.clip(b[j0:j1 + 1] - t0, 0, T).astype(np.int64)
     return PowerProfile(bounds=bounds, budget=profile.budget[j0:j1].copy(),
                         scenario=profile.scenario)
+
+
+def validate_resolved(instances, grid) -> None:
+    """Structural sanity of a resolved (instances x profiles) grid.
+
+    The serving tier's quarantine check (:class:`~repro_torch.serve.service
+    .PlanService`): a corrupt instance or profile must be rejected with a
+    precise, per-cell error *before* it reaches the shared
+    ``PreparedGraph`` cache or the coalesced batch it rode in on.
+    Checks, per instance: CSR adjacency indices in range, positive
+    durations; per (instance, profile) cell: monotone bounds starting at
+    0, ``len(budget) == len(bounds) - 1``, and a horizon long enough for
+    the instance's critical path (otherwise no feasible schedule exists
+    and every solver would fail downstream with a far worse message).
+    Raises :class:`ValueError` naming the failing cell.
+    """
+    from repro_torch.core.estlst import compute_est
+
+    for i, (inst, ps) in enumerate(zip(instances, grid)):
+        if isinstance(inst, Workflow):
+            _validate_workflow(i, inst, ps)
+            continue
+        n = inst.num_tasks
+        for name, idx in (("succ", inst.succ_idx), ("pred", inst.pred_idx)):
+            if len(idx) and (idx.min() < 0 or idx.max() >= n):
+                raise ValueError(
+                    f"instance {i} ({inst.name!r}): {name} adjacency "
+                    f"index outside [0, {n})")
+        if (inst.dur < 1).any():
+            raise ValueError(
+                f"instance {i} ({inst.name!r}): non-positive duration")
+        need = int((compute_est(inst) + inst.dur).max()) if n else 0
+        for p, prof in enumerate(ps):
+            b = np.asarray(prof.bounds)
+            g = np.asarray(prof.budget)
+            if b.ndim != 1 or len(b) < 2 or int(b[0]) != 0 \
+                    or (np.diff(b) <= 0).any():
+                raise ValueError(
+                    f"cell ({i}, {p}): malformed profile bounds "
+                    f"(need 0 = b[0] < ... < b[J] = T)")
+            if g.ndim != 1 or len(g) != len(b) - 1:
+                raise ValueError(
+                    f"cell ({i}, {p}): profile budget length {len(g)} != "
+                    f"{len(b) - 1} intervals")
+            if prof.T < need:
+                raise ValueError(
+                    f"cell ({i}, {p}): horizon {prof.T} is shorter than "
+                    f"the instance's critical path {need} (infeasible)")
+
+
+def _validate_workflow(i: int, wf: Workflow, ps) -> None:
+    """The workflow branch of :func:`validate_resolved` (mapping modes).
+
+    Structural checks mirror the instance branch, but the horizon check
+    uses a mapping-independent lower bound — the longest chain in tasks
+    (every task runs >= 1 time unit on any processor), since the actual
+    critical path depends on the mapping the plan will choose.
+    """
+    n = wf.n
+    if n < 1:
+        raise ValueError(f"workflow {i} ({wf.name!r}): empty workflow")
+    edges = np.asarray(wf.edges)
+    if edges.ndim != 2 or (len(edges) and edges.shape[1] != 2):
+        raise ValueError(
+            f"workflow {i} ({wf.name!r}): edges must be [m, 2] pairs")
+    if len(edges) and (edges.min() < 0 or edges.max() >= n):
+        raise ValueError(
+            f"workflow {i} ({wf.name!r}): edge endpoint outside [0, {n})")
+    if (np.asarray(wf.node_w) < 1).any():
+        raise ValueError(
+            f"workflow {i} ({wf.name!r}): non-positive task weight")
+    if len(edges) and (np.asarray(wf.edge_w) < 0).any():
+        raise ValueError(
+            f"workflow {i} ({wf.name!r}): negative communication weight")
+    order = topological_order(n, edges)
+    if len(order) != n:
+        raise ValueError(f"workflow {i} ({wf.name!r}): graph has a cycle")
+    depth = np.zeros(n, dtype=np.int64)
+    for v in order:
+        for u in edges[edges[:, 1] == v, 0] if len(edges) else ():
+            depth[v] = max(depth[v], depth[int(u)] + 1)
+    need = int(depth.max()) + 1 if n else 0
+    for p, prof in enumerate(ps):
+        b = np.asarray(prof.bounds)
+        g = np.asarray(prof.budget)
+        if b.ndim != 1 or len(b) < 2 or int(b[0]) != 0 \
+                or (np.diff(b) <= 0).any():
+            raise ValueError(
+                f"cell ({i}, {p}): malformed profile bounds "
+                f"(need 0 = b[0] < ... < b[J] = T)")
+        if g.ndim != 1 or len(g) != len(b) - 1:
+            raise ValueError(
+                f"cell ({i}, {p}): profile budget length {len(g)} != "
+                f"{len(b) - 1} intervals")
+        if prof.T < need:
+            raise ValueError(
+                f"cell ({i}, {p}): horizon {prof.T} is shorter than the "
+                f"workflow's depth {need} (infeasible under any mapping)")
 
 
 def _as_instances(instances) -> list[Instance]:

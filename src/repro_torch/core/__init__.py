@@ -5,6 +5,8 @@ from repro_torch.core.cawosched import (  # noqa: F401
     ScheduleResult,
     Variant,
     deadline_from_asap,
+    schedule,
+    schedule_reference,
 )
 from repro_torch.core.carbon import (  # noqa: F401
     PowerProfile,
@@ -45,8 +47,11 @@ from repro_torch.core.portfolio import (  # noqa: F401
     overlay_profile,
     portfolio_cost_matrix,
     prepare_graph,
+    prepare_instance,
     robust_pick,
+    schedule_portfolio,
     schedule_portfolio_grid,
+    schedule_portfolio_multi,
 )
 from repro_torch.core.solvers import (  # noqa: F401
     AsapSolver,

@@ -443,6 +443,26 @@ def greedy_schedule_torch(inst: Instance, profile: PowerProfile,
     return starts[0, 0]
 
 
+def greedy_fanout_torch(inst: Instance, profile: PowerProfile, est0, lst0,
+                        masks: np.ndarray, orders: np.ndarray, lp=None,
+                        shared=None, device=None) -> torch.Tensor:
+    """All variants of one instance against one profile in one batched
+    loop; the single-profile slice of :func:`greedy_fanout_multi_torch`.
+
+    Args:
+      masks:  bool [V, T+1] per-variant candidate masks.
+      orders: int  [V, N] per-variant score orders.
+      lp:     optional precomputed :func:`longest_path_matrix`.
+      shared: optional :func:`padded_shared` output (device-resident reuse).
+    Returns:
+      int32 [V, N] start times on the device.
+    """
+    return greedy_fanout_multi_torch(
+        inst, profile.T, profile.unit_budget(inst.idle_total)[None],
+        np.asarray(masks)[None], orders, est0, lst0, lp=lp, shared=shared,
+        device=device)[0]
+
+
 def greedy_fanout_grid_torch(bucket_rows, device=None) -> torch.Tensor:
     """All (instance, profile, variant) greedy schedules of one shape
     bucket: every dense-lp row advances in ONE batched loop.

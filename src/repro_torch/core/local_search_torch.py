@@ -40,7 +40,9 @@ from repro_torch.core.cancel import checkpoint
 from repro_torch.core.carbon import PowerProfile, work_timeline
 from repro_torch.core.dag import Instance
 from repro_torch.core.greedy_torch import N_BUCKET, T_BUCKET, _bucket_up
-from repro_torch.core.local_search import ls_graph_context, reference_round
+from repro_torch.core.local_search import apply_move, dyn_bounds, \
+    ls_graph_context, move_gain, reference_round
+from repro_torch.core.local_search import dyn_bounds_all as _dyn_windows
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.gain_scan import gain_sweep
 
@@ -58,6 +60,69 @@ def auto_commit_k(n_candidates: int,
     termination guarantee — the sequential-reference polish runs
     regardless."""
     return int(np.clip(int(n_candidates) // 4, lo, hi))
+
+
+def _commit_round(inst, T, rem, start, gains, mu) -> bool:
+    """Commit this round's kernel proposals in gain order, exactly."""
+    dur = inst.dur
+    work = inst.task_work
+    best_delta = np.argmax(gains, axis=1) - mu
+    best_gain = gains.max(axis=1)
+    cand = np.flatnonzero(best_gain > 0)
+    committed = False
+    for v in cand[np.argsort(-best_gain[cand], kind="stable")]:
+        v = int(v)
+        s = int(start[v])
+        e = s + int(dur[v])
+        new_s = s + int(best_delta[v])
+        dlo, dhi = dyn_bounds(inst, start, v, T)
+        new_s = min(max(new_s, dlo), dhi)
+        if new_s == s or dlo > dhi:
+            continue
+        g = move_gain(rem, s, e, new_s, int(work[v]))
+        if g <= 0:
+            continue
+        apply_move(rem, s, e, new_s, int(work[v]))
+        start[v] = new_s
+        committed = True
+    return committed
+
+
+def local_search_batched(inst: Instance, profile: PowerProfile,
+                         start: np.ndarray, mu: int = 10,
+                         max_rounds: int = 200, cancel=None,
+                         device=None) -> np.ndarray:
+    """The host-loop climb of one schedule: one gain sweep a round on
+    ``device`` (:func:`repro_torch.kernels.ops.ls_gains`; None = the
+    card), its proposals committed on the host in gain order with exact
+    integer re-evaluation, until a round commits nothing. The port of the
+    reference's ``local_search_batched``; the portfolio engine climbs with
+    :func:`local_search_portfolio_multi` instead."""
+    from repro_torch.kernels.ops import ls_gains
+
+    T = profile.T
+    start = np.asarray(start, dtype=np.int64).copy()
+    rem = (profile.unit_budget(inst.idle_total)
+           - work_timeline(inst, T, start)).astype(np.int64)
+    dur = inst.dur
+    work = inst.task_work
+    N = inst.num_tasks
+
+    # edge arrays for vectorized dynamic bounds
+    edges = (np.repeat(np.arange(N), np.diff(inst.pred_ptr)), inst.pred_idx,
+             np.repeat(np.arange(N), np.diff(inst.succ_ptr)), inst.succ_idx)
+
+    for _ in range(max_rounds):
+        checkpoint(cancel)               # per-round cancellation rung
+        lo, hi = _dyn_windows(start, dur, T, edges)
+        gains = ls_gains(
+            rem.astype(np.float32), start.astype(np.float32),
+            dur.astype(np.float32), work.astype(np.float32),
+            lo.astype(np.float32), hi.astype(np.float32), mu=mu,
+            device=device).cpu().numpy()
+        if not _commit_round(inst, T, rem, start, gains, mu):
+            return start
+    return start
 
 
 class _DenseAdjacency:

@@ -52,6 +52,11 @@ from repro_torch.core.subdivide import candidate_mask
 PORTFOLIO_VARIANTS: tuple[str, ...] = \
     ("asap",) + tuple(v.name for v in ALL_VARIANTS)
 
+# the 8 unique greedy configurations behind the 16 variants
+_COMBOS: tuple[tuple[str, bool, bool], ...] = tuple(
+    (s, w, r) for s in ("slack", "press") for w in (False, True)
+    for r in (False, True))
+
 
 @dataclasses.dataclass
 class PreparedGraph:
@@ -210,6 +215,14 @@ class PreparedInstance:
     masks = property(lambda self: self.overlay.masks)
     segs = property(lambda self: self.overlay.segs)
     ls = property(lambda self: self.overlay.ls)
+
+
+def prepare_instance(inst: Instance, profile: PowerProfile,
+                     platform: Platform, k: int = 3) -> PreparedInstance:
+    """Graph + overlay in one call; see :class:`PreparedInstance`."""
+    graph = prepare_graph(inst, platform, profile.T, k=k)
+    return PreparedInstance(graph=graph,
+                            overlay=overlay_profile(graph, profile))
 
 
 def _greedy_starts_numpy(prep: PreparedInstance, combos) -> dict:
@@ -531,6 +544,61 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
     return out_rows
 
 
+def schedule_portfolio(inst: Instance, profile: PowerProfile,
+                       platform: Platform, variants=None, k: int = 3,
+                       mu: int = 10, validate: bool = True,
+                       engine: str = "numpy",
+                       prep: PreparedInstance | None = None,
+                       device=None) -> dict[str, ScheduleResult]:
+    """Schedule all requested variants (default: asap + all 16) in one pass.
+
+    .. deprecated:: legacy shim over :class:`repro_torch.api.Planner` (the
+       1 instance x 1 profile slice of one :meth:`~repro_torch.api.Planner
+       .plan` call); prefer ``Planner(platform).plan(PlanRequest(...))``.
+       ``prep`` may be passed to reuse the precompute across calls (it
+       must match ``(inst, profile, platform, k)``). ``device`` is the
+       planner's (None = the card).
+    """
+    from repro_torch.api import LocalSearchConfig, Planner, PlanRequest
+
+    planner = Planner(platform, engine=engine, k=k,
+                      ls=LocalSearchConfig(mu=mu), validate=validate,
+                      device=device)
+    if prep is not None:
+        planner.seed_graph(prep.graph)
+    res = planner.plan(PlanRequest(instances=inst, profiles=profile,
+                                   variants=variants))
+    return res.results[0][0]
+
+
+def schedule_portfolio_multi(inst: Instance, profiles, platform: Platform,
+                             variants=None, k: int = 3, mu: int = 10,
+                             validate: bool = True, engine: str = "numpy",
+                             graph: PreparedGraph | None = None,
+                             device=None) -> list[dict[str, ScheduleResult]]:
+    """One instance x N profiles x all variants; the replanning fan-out.
+
+    .. deprecated:: legacy shim over :class:`repro_torch.api.Planner` (the
+       1 instance x P profiles slice of one :meth:`~repro_torch.api
+       .Planner.plan` call). Returns one ``{variant: ScheduleResult}`` dict
+       per profile, each equal to ``schedule_portfolio(inst, profile_i,
+       platform, engine=engine)``.
+    """
+    from repro_torch.api import LocalSearchConfig, Planner, PlanRequest
+
+    profiles = list(profiles)
+    if not profiles:
+        return []
+    planner = Planner(platform, engine=engine, k=k,
+                      ls=LocalSearchConfig(mu=mu), validate=validate,
+                      device=device)
+    if graph is not None:
+        planner.seed_graph(graph)
+    res = planner.plan(PlanRequest(instances=inst, profiles=profiles,
+                                   variants=variants))
+    return res.results[0]
+
+
 def portfolio_cost_matrix(results, variants=None):
     """[P, V] cost matrix from one instance's row of grid results.
 
@@ -568,3 +636,48 @@ def robust_pick(costs: np.ndarray, names) -> tuple[str, int]:
     worst = np.asarray(costs)[:, heur].max(axis=0)
     j = int(worst.argmin())
     return names[heur[j]], int(worst[j])
+
+
+def portfolio_starts_batch(preps: list[PreparedInstance], combos=_COMBOS,
+                           device=None) -> list[np.ndarray]:
+    """Greedy starts for a batch of instances x all variants on the device.
+
+    Instances are grouped by padded shape bucket
+    (:func:`repro_torch.core.greedy_torch.pad_dims`); each group runs as
+    ONE :func:`~repro_torch.core.greedy_torch.greedy_fanout_grid_torch`
+    pass, as the reference's doubly-vmapped jitted call. Returns, aligned
+    with ``preps``, int64 arrays of shape [len(combos), N_i].
+    """
+    from repro_torch.core.greedy_torch import greedy_fanout_grid_torch, \
+        pad_budget, pad_dims, pad_masks, pad_orders
+    from repro_torch.kernels.backend import resolve_device
+
+    dev = resolve_device(device)
+    results: list[np.ndarray | None] = [None] * len(preps)
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(preps):
+        groups.setdefault(pad_dims(p.inst.num_tasks, p.profile.T),
+                          []).append(i)
+    for (_, Tp), idx in groups.items():
+        rows = []
+        for i in idx:
+            p = preps[i]
+            if p.graph.lp_is_blocked:
+                raise TypeError(
+                    "portfolio_starts_batch batches dense-lp instances "
+                    "only; blocked-lp (big) instances go through "
+                    "greedy_fanout_grid_torch / schedule_portfolio_grid")
+            dur, work, lp, est, lst, tail = p.graph.shared(dev)
+            masks = pad_masks(np.stack(
+                [p.masks[r] for (_, _, r) in combos]), Tp)
+            orders = pad_orders(np.stack(
+                [p.graph.order_for(s, w) for (s, w, _) in combos]), tail)
+            rem0 = pad_budget(
+                p.profile.unit_budget(p.inst.idle_total), Tp)
+            rows.append((dur, work, lp, rem0[None], masks[None], est, lst,
+                         orders))
+        starts = greedy_fanout_grid_torch(rows, device=dev)[:, 0]
+        starts = starts.cpu().numpy().astype(np.int64)
+        for b, i in enumerate(idx):
+            results[i] = starts[b][:, :preps[i].inst.num_tasks]
+    return results

@@ -81,3 +81,34 @@ def resolve_engine(engine: str | None, fanout: int = 1) -> str:
     if engine not in ("numpy", "torch"):
         raise ValueError(f"unknown engine {engine!r}")
     return engine
+
+
+# the scheduler's CUDA kernels: every heuristic plan launches gain_scan,
+# and the cost oracle launches carbon_cost
+SCHEDULER_KERNELS = ("gain_scan", "carbon_cost")
+
+
+def enable_compilation_cache(device=None) -> str:
+    """The kernel build directory, with the scheduler's kernels built into
+    it when ``device`` is a CUDA device.
+
+    The counterpart of the reference's ``enable_compilation_cache``, which
+    turns on jax's persistent compilation cache. The port compiles nothing
+    per shape; what persists across processes is its ``nvcc`` output,
+    ``build/repro_torch/<name>-<hash>.so``
+    (:mod:`repro_torch.kernels._build`), keyed by the source and the
+    flags. On a CUDA device this builds (or finds built) and loads
+    ``gain_scan`` and ``carbon_cost``, so a service's first ticket pays no
+    ``nvcc`` and a second process builds nothing; on the CPU it builds
+    nothing. ``device=None`` means the card, as for every entry point.
+
+    Unlike the reference, which returns None on any error, a failed build
+    raises: swallowing it would hide a broken kernel until the fallback
+    ladder turned every heuristic plan into a degraded ``asap`` plan.
+    """
+    from repro_torch.kernels import _build
+
+    if resolve_device(device).type == "cuda":
+        for name in SCHEDULER_KERNELS:
+            _build.load(name)
+    return str(_build.BUILD_DIR)
