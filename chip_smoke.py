@@ -22,7 +22,8 @@ reference package ``repro``. Phases, each fatal on failure:
    (``torch.profiler``, else a CUDA-graph replay), the eager CUDA-event time
    and the plain version's time; the profiler's tables are written to the
    file ``PROFILE_OUT`` names. Every profiler time comes from one trace
-   taken after a warm-up step that holds every launch (:func:`warm_trace`);
+   taken after a warm-up that holds every launch (:func:`warm_trace`; a
+   trace that lost launches is taken again behind a longer warm-up);
 4. the heuristic plan: ``Planner(platform, engine="torch").plan(...)`` on
    the paper's section 6.1 matrix (72-processor small cluster, the four
    nf-core families at 2000 workflow tasks, HEFT-mapped, deadline 2x ASAP,
@@ -79,6 +80,11 @@ reference package ``repro``. Phases, each fatal on failure:
    and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
    S=2048, H=8), the kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
+   then the row LSE of both forward kernels and the three backward kernels
+   (``flash_bwd_dot``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) against the
+   plain versions at the same shapes, on strided views and output
+   gradients and through the autograd Function, with the backward's times
+   beside the plain backward's and SDPA's backward;
 13. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
@@ -90,9 +96,21 @@ reference package ``repro``. Phases, each fatal on failure:
 14. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
    requests on 4 slots, 32 new tokens, max_len 512, every request finished;
    then the forward's logits against step-by-step decode logits at full
-   width in f32, B=2, S=8, within 2e-2 (``[serve]``).
+   width in f32, B=2, S=8, within 2e-2 (``[serve]``);
+15. training (``[train]``): (a) ``repro_torch.launch.train.train`` at full
+   width on SmolLM-360M with the train CLI's defaults (B=8, S=256, 100
+   steps) and the CarbonGate: finite losses, the first within 0.5 of ln V,
+   64 forward and 32 of each backward flash launch a step, cold and warm
+   step seconds, tokens/s, and one profiled warm step's device busy time
+   and idle share; (b) the first step's loss and gradients through the
+   kernels against the plain attention, in an f32 copy of the config
+   elementwise and in bf16 against the f32 gradients; (c) an 8-step run
+   under injected failures, restarted from checkpoints, equal to an
+   uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``:
+   bf16 live parameters, the checkpoint's bf16 leaves read back bit for
+   bit.
 
-Each path (4, 5, 8, 9, 10, 11, 13, 14) is driven with the kernels' launch
+Each path (4, 5, 8, 9, 10, 11, 13, 14, 15) is driven with the kernels' launch
 counts set to 0 just before it and read just after; a kernel the path runs
 that was never launched fails the run. f32 matrix products on the card run
 in full f32: TF32 is switched off for matmuls and cuDNN before any phase.
@@ -159,6 +177,35 @@ F32_MODEL_TOL = 1e-4
 BF16_MODEL_TOL = 2e-2
 BF16_MODEL_SLACK = 1.1
 DECODE_TOL = 2e-2            # tests/test_model_equivalence.py's tolerance
+# flash backward kernels vs attention_bwd_plain on the same (o, lse): in f32
+# the two differ only in the order of f32 sums (measured below 1e-6):
+# elementwise allclose at BWD_F32_TOL; in bf16 the gradients round to bf16
+# once, from f32 sums in another order: relative Frobenius norm within the
+# sweep's bf16 tolerance. The LSE of both forward kernels against the plain
+# version's torch.logsumexp of its scores, absolute (values ~ ln S + |s|)
+BWD_F32_TOL = 1e-4
+LSE_TOL = 1e-4
+# [train]: the train CLI's defaults at full width (launch/train.py)
+TRAIN_ARCH = "smollm-360m"
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
+RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
+RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
+RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
+MP_STEPS = 3                 # (d): --mp, checkpoints at steps 0 and 2
+# (b) first step, kernel vs plain attention, f32 copy of the config: the
+# loss and the gradients differ only by the order of f32 sums in the two
+# attentions, carried through 32 layers: elementwise
+# |g - g_plain| <= F32_GRAD_TOL (|g_plain| + max |g_plain| of the leaf).
+# In bf16 any two pipelines that round in other places differ by more than
+# the sweep's 2e-2: at the first step the plain bf16 gradients are 1.5-3.7%
+# from the f32 gradients (relative norm per leaf), and the kernels' and the
+# plain version's 1.4-3.4% from each other (measured on one H100: the P the bf16
+# forward rounds to bf16 moves every activation downstream). So, as the
+# [model] check holds the bf16 forward, each leaf of the kernels' bf16
+# gradient must be no further from the f32 gradient (plain attention, f32
+# config, same parameters and batch) than the plain bf16 gradient is,
+# within BF16_MODEL_SLACK; the loss within BF16_MODEL_TOL
+F32_GRAD_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -225,21 +272,22 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def warm_trace(run):
+def warm_trace(run, warmup: int = 1):
     """``torch.profiler`` over one call of ``run()``, taken the way every
-    time in this script is: one warm-up step of ``run()`` while the
+    time in this script is: ``warmup`` warm-up steps of ``run()`` while the
     profiler starts, then the recorded step. A trace started cold loses
     launches, more the longer the process has run since its first trace
     (``chip_profiler_probe.py --drift``); one started a step earlier keeps
-    them all. Returns the profiler and the host wall seconds
+    them all, and where one step is not enough a longer warm-up is
+    (:data:`TRACE_WARMUPS`). Returns the profiler and the host wall seconds
     of the recorded ``run()``, ending in a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
+                 schedule=schedule(wait=0, warmup=warmup, active=1,
                                    repeat=1)) as prof:
-        for _ in range(2):
+        for _ in range(warmup + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run()
@@ -252,31 +300,56 @@ def warm_trace(run):
 def profiled_ms(fn, reps: int, kernel: str, out_path: str):
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, from one :func:`warm_trace` of ``reps`` warm calls of
-    ``fn``; None when the profiler records no device time for it. The time
-    comes only from a trace that holds all ``reps`` launches: one that
-    holds fewer fails the run. The profiler's table goes to
+    ``fn``; None when the profiler records no device time for it."""
+    return profiled_kernels_ms(fn, reps, (kernel,), out_path)[kernel]
+
+
+# warm-up steps of the successive traces :func:`profiled_kernels_ms` takes:
+# a trace that lost launches is taken again behind a longer warm-up
+TRACE_WARMUPS = (1, 4, 16)
+
+
+def profiled_kernels_ms(fn, reps: int, kernels, out_path: str) -> dict:
+    """Mean device milliseconds of each CUDA kernel whose name contains one
+    of ``kernels``, each launched once a call, from one :func:`warm_trace`
+    of ``reps`` warm calls of ``fn``; None for a kernel the profiler
+    records no device time for. A time comes only from a trace that holds
+    all ``reps`` launches: a trace that holds fewer is taken again behind
+    the next, longer warm-up of :data:`TRACE_WARMUPS`, and when the last
+    one still holds fewer the run fails. The profilers' tables go to
     ``out_path``."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    prof, _ = warm_trace(lambda: [fn() for _ in range(reps)])
-    avgs = prof.key_averages()
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    with open(out_path, "a") as f:
-        f.write(avgs.table(row_limit=20) + "\n")
-    total_us, count = 0.0, 0
-    for ev in avgs:
-        if kernel in ev.key:
-            total_us += float(getattr(ev, "device_time_total", 0.0)
-                              or getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
-    log(f"[profiler] {kernel}: the trace holds {count} of {reps} launches")
-    if count == 0 or total_us <= 0.0:
-        return None
-    check(count == reps, f"the profiler's trace holds {count} launches of "
-          f"{kernel}, expected {reps}")
-    return total_us / count / 1e3
+    for warmup in TRACE_WARMUPS:
+        prof, _ = warm_trace(lambda: [fn() for _ in range(reps)], warmup)
+        avgs = prof.key_averages()
+        with open(out_path, "a") as f:
+            f.write(avgs.table(row_limit=20) + "\n")
+        totals = {}
+        for kernel in kernels:
+            total_us, count = 0.0, 0
+            for ev in avgs:
+                if kernel in ev.key:
+                    total_us += float(getattr(ev, "device_time_total", 0.0)
+                                      or getattr(ev, "cuda_time_total", 0.0))
+                    count += ev.count
+            log(f"[profiler] {kernel}: the trace behind {warmup} warm-up "
+                f"step(s) holds {count} of {reps} launches")
+            totals[kernel] = (total_us, count)
+        if all(count in (0, reps) for _, count in totals.values()):
+            break
+    out = {}
+    for kernel, (total_us, count) in totals.items():
+        if count == 0 or total_us <= 0.0:
+            out[kernel] = None
+            continue
+        check(count == reps, f"the profiler's trace holds {count} launches "
+              f"of {kernel}, expected {reps}, behind {warmup} warm-up steps")
+        out[kernel] = total_us / count / 1e3
+    return out
 
 
 def device_breakdown(fn, reps: int, out_path: str) -> dict:
@@ -307,7 +380,7 @@ def device_breakdown(fn, reps: int, out_path: str) -> dict:
         us = float(getattr(ev, "self_device_time_total", 0.0)
                    or getattr(ev, "self_cuda_time_total", 0.0))
         name = ev.key.lower()
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd_kernel" in name or "flash_bwd_" in name:
             groups["flash"] += us
         elif any(k in name for k in ("gemm", "xmma", "cutlass", "gemv",
                                      "nvjet")):
@@ -1712,6 +1785,21 @@ def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
+def flash_bwd_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
+    """Least time for one attention backward: q, k, v, o, dO read once,
+    the row LSE read once, dq, dk, dv written once, against the flops of
+    its five products (QK^T, dO V^T, P^T dO, dS^T Q, dS K) over the pairs
+    each query sees, at the card's peak for the input type."""
+    esize = 2 if dtype == "bfloat16" else 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 5 * 2 * B * H * hd * pairs
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes = (8 * B * S * H * hd * esize + 4 * B * H * S) / HBM_BYTES_PER_S
+    t_ops = flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def flash_inputs(B, S, H, hd, dtype, seed, dev):
     import torch
 
@@ -1818,6 +1906,149 @@ def phase_flash(dev):
             f"ms (max |sdpa - kernel| {sdpa_diff:.3g}), bound {bound:.4f} ms "
             f"({by}), {100 * bound / ms:.2f}% of bound, {ms / sdpa_ms:.2f}x "
             f"the PyTorch call")
+    return rows, phase_flash_bwd(dev)
+
+
+def check_bwd(label, q, k, v, causal, do=None):
+    """The forward kernels' LSE against the plain version's, then the
+    backward kernels against attention_bwd_plain on the kernel's (o, lse)
+    and one output gradient. Returns (LSE max abs error, the gradients'
+    max abs error)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    _, lse_p = fa.flash_attention(q, k, v, causal=causal, mode="plain",
+                                  return_lse=True)
+    if do is None:
+        g = torch.Generator(device=q.device).manual_seed(q.shape[1] + 7)
+        do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  mode="plain")
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_p).abs().max())
+    check(lse.shape == lse_p.shape and bool(torch.isfinite(lse).all())
+          and lse_err <= LSE_TOL, f"flash LSE != plain ({label}): "
+          f"{lse_err} > {LSE_TOL}")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == q.dtype and a.shape == q.shape
+              and bool(torch.isfinite(a).all()),
+              f"flash backward {name} {a.dtype} {tuple(a.shape)} ({label})")
+        if dt == "float32":
+            err = close_err(a, b, BWD_F32_TOL)
+            check(err <= BWD_F32_TOL, f"flash backward {name} != plain "
+                  f"({label}): |got - want| - tol |want| reaches {err} > "
+                  f"{BWD_F32_TOL}")
+        else:
+            err = rel_err(a, b)
+            check(err <= FLASH_TOL[dt], f"flash backward {name} != plain "
+                  f"({label}): relative error {err} > {FLASH_TOL[dt]}")
+    return lse_err, max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, want))
+
+
+def phase_flash_bwd(dev):
+    """[flash], backward: the LSE of both forward kernels and the three
+    backward kernels against the plain versions at the sweep's shapes, their
+    bf16 twins, the timed shapes, strided inputs and output gradients, and
+    through the autograd Function; times at the shapes of
+    ``FLASH_TIMED``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = [(f"sweep {c}", c) for c in FLASH_SWEEP]
+    cases += [(f"bf16 twin {c[:5]}", c) for c in FLASH_BF16_TWINS]
+    cases += [(key, (B, S, H, hd, True, dt))
+              for key, (B, S, H, hd, dt) in FLASH_TIMED.items()]
+    errs = {}
+    for label, (B, S, H, hd, causal, dt) in cases:
+        q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
+        errs[label] = check_bwd(label, q, k, v, causal)
+    # strided: q, k, v as slices of one projection; dO as a transposed
+    # [B, H, S, hd] tensor (read in place) and with a strided head dim
+    # (copied first)
+    for dt in ("bfloat16", "float32"):
+        B, S, H, hd = 2, 300, 4, 128
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        qkv = torch.randn((B, S, 3, H, hd), generator=g, device=dev)
+        q, k, v = qkv.to(getattr(torch, dt)).unbind(2)
+        do_t = torch.randn((B, H, S, hd), generator=g, device=dev) \
+            .to(getattr(torch, dt)).transpose(1, 2)
+        do_s = torch.randn((B, S, H, 2 * hd), generator=g, device=dev) \
+            .to(getattr(torch, dt))[..., ::2]
+        for causal in (True, False):
+            for what, do in (("transposed dO", do_t), ("strided dO", do_s)):
+                label = f"strided {dt} views, {what}, causal={causal}"
+                errs[label] = check_bwd(label, q, k, v, causal, do)
+    # autograd through FlashAttentionFn against autograd through the plain
+    # version, f32, on the strided views
+    qkv = torch.randn((2, 300, 3, 4, 64), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 1), device=dev, requires_grad=True)
+    w = torch.randn((2, 300, 4, 64), device=dev)
+    before = dict(fa.BWD_LAUNCHES)
+    got = torch.autograd.grad(
+        (fa.flash_attention(*qkv.unbind(2)) * w).sum(), qkv)[0]
+    check(all(fa.BWD_LAUNCHES[n] == before[n] + 1 for n in fa.BWD_KERNELS),
+          f"the autograd Function did not launch each backward kernel once: "
+          f"{before} -> {fa.BWD_LAUNCHES}")
+    want = torch.autograd.grad((fa.flash_attention(
+        *qkv.unbind(2), mode="plain") * w).sum(), qkv)[0]
+    err = close_err(got, want, BWD_F32_TOL)
+    check(err <= BWD_F32_TOL, f"autograd through the kernels != through the "
+          f"plain version: {err}")
+    log("[flash] backward: LSE == plain within " + f"{LSE_TOL} and dq, dk, "
+        f"dv == attention_bwd_plain (f32 allclose {BWD_F32_TOL}, bf16 "
+        f"relative norm {FLASH_TOL['bfloat16']}) on the sweep, its bf16 "
+        f"twins, the timed shapes, strided views and dO, and through the "
+        f"autograd Function (max |diff| {float((got - want).abs().max()):.3g}"
+        f"); (max |LSE diff|, max |grad diff|): "
+        + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in errs.items()))
+
+    rows = {}
+    for key, (B, S, H, hd, dt) in FLASH_TIMED.items():
+        q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
+        do = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 4, dev=dev)[0]
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        reps = 20
+        event_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                          do), reps=reps)
+        per_kernel = profiled_kernels_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), reps,
+            fa.BWD_KERNELS, PROFILE_OUT)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, mode="plain"), reps=3, warm=1)
+        # yardstick, not used by the port: the backward of PyTorch's fused
+        # attention on its [B, H, S, hd] layout, on a retained graph
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=reps)
+        del out, qt, kt, vt
+        bound, by = flash_bwd_bound_ms(B, S, H, hd, True, dt)
+        if all(t is not None for t in per_kernel.values()):
+            ms, ms_from = sum(per_kernel.values()), "profiler"
+        else:
+            ms, ms_from = event_ms, "events"
+        rows[key] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
+                     "max_abs_err": errs[key][1], "ms": ms,
+                     "ms_from": ms_from, "kernel_ms": per_kernel,
+                     "event_ms": event_ms, "plain_ms": plain_ms,
+                     "library_ms": sdpa_ms, "bound_ms": bound,
+                     "bound_by": by}
+        log(f"[flash] backward B={B} S={S} H={H} hd={hd} causal {dt}: "
+            f"kernels {ms:.4f} ms ({ms_from}: " + ", ".join(
+                f"{n} {t}" for n, t in per_kernel.items())
+            + f"; eager events {event_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of bound, "
+            f"{ms / sdpa_ms:.2f}x the PyTorch call")
     return rows
 
 
@@ -2014,6 +2245,254 @@ def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
             "decode_diff": diff}
 
 
+def leaf_pairs(a, b, prefix=""):
+    """(path, leaf of a, leaf of b) over two nested dicts of one
+    structure."""
+    for key, x in a.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(x, dict):
+            yield from leaf_pairs(x, b[key], path)
+        else:
+            yield path, x, b[key]
+
+
+def train_first_step(cfg, dev):
+    """[train] (b): the loss and gradients of the first step (seed-0
+    parameters, the CLI's batch 0) through the kernels and through the
+    plain attention. Returns (the kernel's loss, the plain loss, per-leaf
+    gradients of both)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_state, loss_and_grads
+
+    model = build_model(cfg, device=dev)
+    params = init_state(model, torch.Generator(device=dev).manual_seed(0))[
+        "params"]
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
+                                             TRAIN_B), seed=0).batch(0)
+    before = fa.BWD_LAUNCHES["flash_bwd_dq"]
+    loss_k, g_k = loss_and_grads(model, params, batch)
+    check(fa.BWD_LAUNCHES["flash_bwd_dq"] - before == cfg.num_layers,
+          f"the kernel step of {cfg.dtype} did not go through the backward "
+          f"kernels")
+    with plain_attention():
+        loss_p, g_p = loss_and_grads(model, params, batch)
+    check(fa.BWD_LAUNCHES["flash_bwd_dq"] - before == cfg.num_layers,
+          "the plain step launched a backward kernel")
+    return float(loss_k), float(loss_p), list(leaf_pairs(g_k, g_p))
+
+
+def phase_train(dev):
+    """[train]: (a) the train entry point at full width with the CLI's
+    defaults and the CarbonGate, through the flash kernels forward and
+    backward, and one profiled warm step; (b) its first step's loss and
+    gradients through the kernels against the plain attention, in bf16 and
+    in an f32 copy of the config; (c) an 8-step run under injected failures
+    and restarts from checkpoints against an uninterrupted one; (d) --mp:
+    bf16 live parameters, their checkpoint read back bit for bit."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.checkpoint.ckpt import latest_checkpoint
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector, run_with_restarts
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = ARCHS[TRAIN_ARCH]
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    tmp = tmp_dir.name
+
+    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 100
+    # --carbon-gate, checkpoints every 50 steps
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                carbon_gate=True, ckpt_dir=os.path.join(tmp, "cli"),
+                device=dev, log=lambda m: log(f"[train] {m}"))
+    cli_s = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.LAUNCHES, **fa.BWD_LAUNCHES}
+    losses, secs = out["losses"], out["step_seconds"]
+    n = len(losses)
+    check(out["start"] == 0 and n == TRAIN_STEPS, f"the CLI ran {n} steps "
+          f"from {out['start']}")
+    check(all(math.isfinite(x) for x in losses + out["gnorms"]),
+          "a loss or gradient norm is not finite")
+    ln_v = math.log(cfg.vocab)
+    check(abs(losses[0] - ln_v) < 0.5, f"first loss {losses[0]} is not "
+          f"within 0.5 of ln V = {ln_v:.4f}")
+    want = {"flash_fwd": 2 * L * n, **{k: L * n for k in fa.BWD_KERNELS}}
+    check(launches == want, f"flash launches {launches}, predicted {want} "
+          f"(per step: {2 * L} forward with remat, {L} of each backward)")
+    gate = out["gate"]
+    check(gate["cost"] <= gate["asap_cost"], f"gate plan {gate}")
+    cold_s, warm_s = secs[0], float(np.median(secs[1:]))
+    tok_s = out["tokens_per_step"] / warm_s
+    # one profiled warm step: the CLI's step function on its final state
+    model = build_model(cfg, device=dev)
+    step_fn = make_train_step(model, warmup=min(50, TRAIN_STEPS // 5 + 1))
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
+                                             TRAIN_B), seed=0).batch(n)
+    state = out["state"]
+    step_prof = device_breakdown(lambda: step_fn(state, batch), 1,
+                                 PROFILE_OUT)
+    del out, state, model
+    log(f"[train] (a) {cfg.name} ({cfg.dtype} activations, f32 masters), "
+        f"B={TRAIN_B} S={TRAIN_S}, {n} steps with the CarbonGate (plan cost "
+        f"{gate['cost']} vs ASAP {gate['asap_cost']}, {gate['waited']:.0f} "
+        f"simulated s held back) in {cli_s:.3f} s: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V = {ln_v:.4f}); step s cold {cold_s:.4f}, "
+        f"warm {warm_s:.4f} (median of {n - 1}; min {min(secs[1:]):.4f}, max "
+        f"{max(secs[1:]):.4f}), {tok_s:.1f} tokens/s; flash launches "
+        f"{launches} ({2 * L} forward and {L} of each backward per step)")
+    log(f"[train] (a) profiled warm step: {breakdown_text(step_prof)}")
+
+    # (b) the first step, kernels against the plain attention: f32, then
+    # bf16 against the f32 gradients
+    t0 = time.perf_counter()
+    loss32_k, loss32_p, pairs = train_first_step(
+        dataclasses.replace(cfg, dtype="float32"), dev)
+    check(abs(loss32_k - loss32_p) <= F32_GRAD_TOL * abs(loss32_p),
+          f"f32 first-step loss {loss32_k} != plain {loss32_p}")
+    ratio32, g32 = {}, {}
+    for path, a, b in pairs:
+        ratio32[path] = float(((a - b).abs() / (b.abs() + b.abs().max()))
+                              .max())
+        g32[path] = b
+    worst32 = max(ratio32, key=ratio32.get)
+    check(ratio32[worst32] <= F32_GRAD_TOL, f"f32 first-step gradient "
+          f"{worst32} through the kernels != plain: |g - g_plain| / "
+          f"(|g_plain| + max |g_plain|) reaches {ratio32[worst32]} > "
+          f"{F32_GRAD_TOL}")
+    del pairs
+    loss_k, loss_p, pairs = train_first_step(cfg, dev)
+    check(abs(loss_k - loss_p) <= BF16_MODEL_TOL * abs(loss_p),
+          f"bf16 first-step loss {loss_k} != plain {loss_p}")
+    to32 = {}
+    for path, a, b in pairs:
+        to32[path] = (rel_err(a, g32[path]), rel_err(b, g32[path]),
+                      rel_err(a, b))
+        check(to32[path][0] <= BF16_MODEL_SLACK * to32[path][1],
+              f"bf16 first-step gradient {path} through the kernels is "
+              f"{to32[path][0]} from the f32 gradient, the plain bf16 "
+              f"gradient {to32[path][1]}")
+    worst = max(to32, key=lambda p: to32[p][0] / to32[p][1])
+    del pairs, g32
+    log(f"[train] (b) first step, kernels vs plain attention: f32 loss "
+        f"{loss32_k:.7f} vs {loss32_p:.7f}, worst gradient |g - g_plain| / "
+        f"(|g_plain| + max |g_plain|) {ratio32[worst32]:.3g} ({worst32}; <= "
+        f"{F32_GRAD_TOL}); bf16 loss {loss_k:.6f} vs {loss_p:.6f}; bf16 "
+        f"gradients to the f32 ones, kernels / plain (relative norm, "
+        f"<= {BF16_MODEL_SLACK}x): "
+        + ", ".join(f"{p} {a:.4f}/{b:.4f}" for p, (a, b, _) in to32.items())
+        + f" (worst ratio {to32[worst][0] / to32[worst][1]:.3f}, {worst}); "
+        f"kernels vs plain bf16 up to {max(v[2] for v in to32.values()):.4f}"
+        f" in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+
+    # (c) restarts: tests/test_substrates.py's resume case at full width
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    step_fn = make_train_step(model)
+    data = SyntheticTokens(cfg, ShapeConfig("restart", "train", TRAIN_S,
+                                            TRAIN_B), seed=5)
+
+    def fresh():
+        return init_state(model, torch.Generator(device=dev).manual_seed(0))
+
+    ref = fresh()
+    for s in range(RESTART_STEPS):
+        ref, _ = step_fn(ref, data.batch(s))
+    mgr = CheckpointManager(os.path.join(tmp, "restart"), keep=2,
+                            every=RESTART_EVERY)
+    inj = FailureInjector(prob_per_step=0.35, seed=3)
+
+    def train_fn(state, start, stop):
+        for s in range(start, stop):
+            inj.maybe_fail(s)
+            state, _ = step_fn(state, data.batch(s))
+            mgr.maybe_save(state, s)
+        return state
+
+    got, done, restarts = run_with_restarts(train_fn, mgr, fresh,
+                                            RESTART_STEPS, max_restarts=50)
+    check(done == RESTART_STEPS and restarts > 0, f"the restarted run did "
+          f"{done} steps with {restarts} restarts")
+    worst, bitwise = 0.0, True
+    for path, a, b in leaf_pairs(ref["params"], got["params"]):
+        a, b = a.float(), torch.as_tensor(b, device=dev).float()
+        bitwise &= bool(torch.equal(a, b))
+        worst = max(worst, float(((a - b).abs()
+                                  - RESTART_RTOL * b.abs()).max()))
+        check(bool(torch.allclose(a, b, rtol=RESTART_RTOL,
+                                  atol=RESTART_ATOL)),
+              f"the restarted run's {path} != the uninterrupted run's: "
+              f"|a - b| - rtol |b| reaches {worst}")
+    del ref, got, model
+    log(f"[train] (c) {RESTART_STEPS} steps under injected failures: "
+        f"{restarts} restarts from checkpoints every {RESTART_EVERY} steps, "
+        f"final parameters == the uninterrupted run's (rtol {RESTART_RTOL}, "
+        f"atol {RESTART_ATOL}; bitwise equal: {bitwise}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+
+    # (d) --mp: bf16 live parameters over f32 masters, checkpointed
+    t0 = time.perf_counter()
+    out = train(cfg, steps=MP_STEPS, batch=TRAIN_B, seq=TRAIN_S, mp=True,
+                ckpt_dir=os.path.join(tmp, "mp"), ckpt_every=2, device=dev,
+                log=lambda m: log(f"[train] {m}"))
+    mp_losses = out["losses"]
+    check(all(math.isfinite(x) for x in mp_losses), f"--mp losses "
+          f"{mp_losses}")
+    path = latest_checkpoint(os.path.join(tmp, "mp"))
+    saved, step = load_checkpoint(path)
+    check(step == MP_STEPS - 1, f"the last --mp checkpoint is of step {step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    state = out["state"]
+    n_bf16 = 0
+    for path_, a, b in leaf_pairs(state, saved):
+        kind = manifest[path_]["dtype"]
+        if path_.startswith("params/"):
+            check(kind == "bfloat16" and a.dtype == torch.bfloat16
+                  and b.dtype == torch.bfloat16, f"--mp leaf {path_}: live "
+                  f"{a.dtype}, stored {kind}, read back {b.dtype}")
+            check(torch.equal(a.cpu().view(torch.int16), b.view(torch.int16)),
+                  f"--mp leaf {path_} read back with other bits")
+            n_bf16 += 1
+        else:
+            check(np.array_equal(a.cpu().numpy(), np.asarray(b)),
+                  f"--mp leaf {path_} read back different")
+    del out, state, saved
+    log(f"[train] (d) --mp, {MP_STEPS} steps: losses "
+        f"{[round(x, 4) for x in mp_losses]}; the step-{step} checkpoint "
+        f"holds {n_bf16} bf16 parameter "
+        f"leaves, read back bit for bit beside the f32 master and moments, "
+        f"in {time.perf_counter() - t0:.3f} s")
+    tmp_dir.cleanup()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.empty_cache()
+    secs_phase = time.perf_counter() - t_phase
+    log(f"[train] phase {secs_phase:.3f} s, peak memory {peak_gb:.2f} GiB")
+    return {"launches": launches, "cold_s": cold_s, "warm_s": warm_s,
+            "tokens_per_s": tok_s, "step": step_prof, "seconds": secs_phase}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2054,9 +2533,12 @@ def main() -> int:
     session_launches = phase_session(plat, insts[eager])
     mapping_run = phase_mapping(plat)
     service_run = phase_service(plat, insts, grid, card, cold_s)
-    flash_rows = phase_flash(dev)
+    flash_rows, bwd_rows = phase_flash(dev)
     model_run = phase_model(dev)
     serve_run = phase_serve(dev)
+    train_run = phase_train(dev)
+
+    from repro_torch.kernels.flash_attention import BWD_KERNELS as bwd_kernels
 
     main_mu = gain_rows[0]
     plan_row, large_row = deficit_rows
@@ -2116,16 +2598,40 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": model_run["launches"] + serve_run["launches"]
-        + serve_run["eq_launches"],
+        + serve_run["eq_launches"] + train_run["launches"]["flash_fwd"],
         "launches_by_path": {"model": model_run["launches"],
                              "serve": serve_run["launches"],
-                             "forward_vs_decode": serve_run["eq_launches"]},
+                             "forward_vs_decode": serve_run["eq_launches"],
+                             "train": train_run["launches"]["flash_fwd"]},
         **{k: flash_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "float32": flash_rows["float32"],
         "bfloat16_hd128": flash_rows["bfloat16_hd128"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": None,
+        "note": "no TPU kernel: the reference differentiates its plain "
+                "chunked attention through XLA "
+                "(src/repro/models/layers.py:112); the port's attention "
+                "runs through the forward kernel, whose gradient these "
+                "kernels compute",
+        "kernels": list(bwd_kernels),
+        "launches": sum(train_run["launches"][k] for k in bwd_kernels),
+        "launches_by_kernel": {k: train_run["launches"][k]
+                               for k in bwd_kernels},
+        "launches_by_path": {"train": sum(train_run["launches"][k]
+                                          for k in bwd_kernels)},
+        **{k: bwd_rows["bfloat16"][k] for k in (
+            "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "library_call": "torch.autograd.grad of "
+                        "torch.nn.functional.scaled_dot_product_attention",
+        "float32": bwd_rows["float32"],
+        "bfloat16_hd128": bwd_rows["bfloat16_hd128"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

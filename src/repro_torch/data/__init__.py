@@ -1,1 +1,1 @@
-from repro_torch.data.synthetic import SyntheticTokens  # noqa: F401
+from repro_torch.data.synthetic import SyntheticTokens, make_batch_iter  # noqa: F401

@@ -1,10 +1,15 @@
 """Deterministic synthetic token batches (a copy of ``repro.data.synthetic``
-'s ``SyntheticTokens``, numpy only).
+'s ``SyntheticTokens`` and ``make_batch_iter``, numpy only).
 
 Batches are a pure function of (seed, step), so the port and the reference
-draw the same tokens from the same seed.
+draw the same tokens from the same seed, and restarts resume the exact data
+stream from the checkpointed step. A background thread keeps a small
+prefetch queue filled.
 """
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
@@ -34,3 +39,35 @@ class SyntheticTokens:
             return {"enc_embeds": emb, "dec_tokens": tok, "labels": lab}
         tok = rng.integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
         return {"tokens": tok[:, :-1].copy(), "labels": tok[:, 1:].copy()}
+
+
+def make_batch_iter(source: SyntheticTokens, start_step: int = 0,
+                    prefetch: int = 2):
+    """Prefetching iterator over (step, batch)."""
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def producer():
+        step = start_step
+        while not stop.is_set():
+            q.put((step, source.batch(step)))
+            step += 1
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+
+    class _Iter:
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            return q.get()
+
+        def close(self):
+            stop.set()
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+
+    return _Iter()

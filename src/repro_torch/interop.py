@@ -7,9 +7,10 @@ numpy, the dict :func:`dataclasses.asdict` or :func:`fields` returns — into
 the port's own dataclass of the same name, so both packages can schedule the
 identical instance. The LLM substrate's state is a model's parameter tree:
 :func:`load_params` copies the reference's tree, given as nested dicts of
-numpy arrays, into the port's model, leaf for leaf. The module imports
+numpy arrays, into the port's model, leaf for leaf, and :func:`load_state`
+turns a reference training state into the port's. The module imports
 nothing of ``repro``: :func:`port` reads any dataclass by its name and
-fields, and :func:`load_params` reads plain dicts.
+fields, and :func:`load_params` and :func:`load_state` read plain dicts.
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import bf16_tensor
 from repro_torch.cluster import Platform
 from repro_torch.core.carbon import PowerProfile
 from repro_torch.core.dag import FixedMapping, Instance
+from repro_torch.train.optimizer import tree_map
 from repro_torch.workflows.generators import Workflow
 
 CLASSES = {cls.__name__: cls for cls in
@@ -102,3 +105,36 @@ def load_params(model, tree):
         for name, p in model.state_dict().items():
             p.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
     return model
+
+
+def to_tensor(x, device=None) -> torch.Tensor:
+    """A numpy leaf as a tensor of its dtype on ``device``; an extension
+    ``bfloat16`` array (the reference's bf16) by its words."""
+    x = np.asarray(x)
+    t = bf16_tensor(x) if x.dtype.name == "bfloat16" \
+        else torch.from_numpy(np.array(x, copy=True))
+    return t.to(device)
+
+
+def load_state(model, ref_state) -> dict:
+    """The port's training state from a reference one (its
+    ``init_state``/``train_step`` dict with numpy leaves: ``params``, and
+    ``opt`` with ``m``, ``v``, ``step`` and under mixed precision
+    ``master``), on the model's device, every leaf in its own dtype. The
+    f32 parameters (the master under mixed precision) are also loaded into
+    ``model`` by :func:`load_params`, which checks the tree; the live
+    parameters and the moments are checked against the model's shapes."""
+    opt = ref_state["opt"]
+    load_params(model, opt.get("master", ref_state["params"]))
+    for tree in (ref_state["params"], opt["m"], opt["v"]):
+        check_params(model, flatten_params(tree))
+    def conv(tree):
+        return tree_map(lambda x: to_tensor(x, model.device), tree)
+
+    state = {"params": conv(ref_state["params"]),
+             "opt": {"m": conv(opt["m"]), "v": conv(opt["v"]),
+                     "step": to_tensor(np.asarray(opt["step"], np.int32),
+                                       model.device)}}
+    if "master" in opt:
+        state["opt"]["master"] = conv(opt["master"])
+    return state

@@ -113,8 +113,8 @@ constexpr int smem_bytes() {  // K and V tiles, f32, rows padded by 4
 template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kBQ * (HD / kDT)) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int H, Strides st,
-    float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int S, int H, Strides st, float scale) {
   constexpr int kTPR = HD / kDT;         // threads per query row
   constexpr int kThreads = kBQ * kTPR;
   constexpr int kLD = HD + 4;            // shared row stride, in floats
@@ -248,12 +248,15 @@ __global__ void __launch_bounds__(kBQ * (HD / kDT)) flash_fwd_kernel(
       for (int j = 0; j < kVN; ++j) buf[j] = acc[i + j] / denom;
       Vec<T>::store(dst + i, buf);
     }
+    // the row's log-sum-exp of the scaled scores; m is in natural units
+    if (lse != nullptr && part == 0)
+      lse[((long long)b * H + h) * S + qpos] = m + logf(l);
   }
 }
 
 template <typename T, int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, const Strides& st, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, const Strides& st, float scale,
            cudaStream_t stream) {
   constexpr int kThreads = kBQ * (HD / kDT);
   constexpr int kSmem = smem_bytes<HD>();
@@ -273,17 +276,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, st, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, st, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch_causal(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int causal, const Strides& st,
-                  float scale, cudaStream_t stream) {
-  return causal
-             ? launch<T, HD, true>(q, k, v, o, B, S, H, st, scale, stream)
-             : launch<T, HD, false>(q, k, v, o, B, S, H, st, scale, stream);
+                  float* lse, int B, int S, int H, int causal,
+                  const Strides& st, float scale, cudaStream_t stream) {
+  return causal ? launch<T, HD, true>(q, k, v, o, lse, B, S, H, st, scale,
+                                      stream)
+                : launch<T, HD, false>(q, k, v, o, lse, B, S, H, st, scale,
+                                       stream);
 }
 
 // ---- bf16: wgmma products fed by a TMA ring ----------------------------
@@ -575,7 +579,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_kernel_wgmma(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap omap, int S, int H, float scale) {
+    const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int S,
+    int H, float scale) {
   using L = Layout<HD>;
   constexpr int BK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
@@ -749,6 +754,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_kernel_wgmma(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-30f);
   }
+  // the rows' log-sum-exp of the scaled scores: m is in log2 units (sl2
+  // folds log2 e in), so lse = (m + log2 l) ln 2; one lane a row writes
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < S)
+        lse[((long long)b * H + h) * S + row] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
 #pragma unroll
@@ -822,8 +838,8 @@ CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int HD, bool CAUSAL>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int B, int S, int H, const long long* strides, float scale,
-                 cudaStream_t stream) {
+                 float* lse, int B, int S, int H, const long long* strides,
+                 float scale, cudaStream_t stream) {
   using L = Layout<HD>;
   auto kernel = flash_fwd_kernel_wgmma<HD, CAUSAL>;
   EncodeTiled encode;
@@ -851,19 +867,408 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kWgBQ - 1) / kWgBQ));
   kernel<<<grid, kWgThreads, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
-                                                  maps[3], S, H, scale);
+                                                  maps[3], lse, S, H, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int causal,
+                        float* lse, int B, int S, int H, int causal,
                         const long long* strides, float scale,
                         cudaStream_t stream) {
-  return causal ? launch_wgmma<HD, true>(q, k, v, o, B, S, H, strides, scale,
-                                         stream)
-                : launch_wgmma<HD, false>(q, k, v, o, B, S, H, strides,
+  return causal ? launch_wgmma<HD, true>(q, k, v, o, lse, B, S, H, strides,
+                                         scale, stream)
+                : launch_wgmma<HD, false>(q, k, v, o, lse, B, S, H, strides,
                                           scale, stream);
+}
+
+// ---- backward: FlashAttention-2 in two deterministic passes -------------
+//
+// Given q, k, v, the forward's output o and row log-sum-exp lse (natural
+// units, [B, H, S] f32) and the output gradient g = dL/do, the gradients
+// are, with P = exp(scale q k^T - lse) (masked entries 0),
+//
+//   D = rowsum(g o),  dv = P^T g,  dP = g v^T,  dS = P (dP - D),
+//   dq = scale dS k,  dk = scale dS^T q.
+//
+// flash_bwd_dot writes D (one warp a row). flash_bwd_dkdv gives each CTA a
+// tile of kBwdB keys of one (b, h): it holds K and V in shared memory and
+// walks the query tiles (from the diagonal on when causal), accumulating dK
+// and dV in f32 registers. flash_bwd_dq gives each CTA a tile of kBwdB
+// queries: it holds Q, g, lse and D and walks the key tiles up to the
+// diagonal, accumulating dQ. Each gradient is summed by one CTA in a fixed
+// order and written once: no atomics, the same bits on every run. P is
+// recomputed in f32 from lse (the bf16 forward rounds P to bf16 before PV;
+// that gap is inside the bf16 tolerance).
+//
+// Bound on this card: operations, the five products QK^T, g V^T, P^T g,
+// dS^T q and dS k over the visible (q, k) pairs (0.087 ms in bf16 at B = 4,
+// S = 2048, H = 16, hd = 64, causal, at 989 TFLOP/s; 1.28 ms at the f32
+// rate). This first form runs every product on the CUDA cores in f32 (bf16
+// inputs are widened as they are staged), recomputes QK^T and g V^T in both
+// passes (seven products), and stages tiles as f32 rows padded to HD + 1
+// floats, so a warp's 16 row reads of one column fall in 16 banks. Each of
+// 256 threads owns a 4 x 4 block of a 64 x 64 score tile (rows ty + 16 r,
+// columns tx + 16 c) and a 4 x HD/16 block of the gradient tile. Tensor
+// cores (wgmma) and a TMA ring are the next step.
+
+constexpr int kBwdB = 64;          // queries, and keys, per tile
+constexpr int kBwdThreads = 256;   // 16 x 16
+constexpr int kDotRows = 8;        // rows per CTA of flash_bwd_dot
+constexpr int kLDP = kBwdB + 1;    // shared row stride of a score tile
+
+struct BwdStrides {   // element strides of the b, s and h axes of q, k, v, g
+  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, gb, gs, gh;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kDotRows) flash_bwd_dot(
+    const T* __restrict__ o, const T* __restrict__ g,
+    float* __restrict__ dsum, int B, int S, int H, long long ob,
+    long long os, long long oh, long long gb, long long gs, long long gh) {
+  const long long row = (long long)blockIdx.x * kDotRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)B * H * S) return;
+  // row = (b H + h) S + i, the layout of D and lse
+  const int i = (int)(row % S);
+  const int h = (int)((row / S) % H);
+  const int b = (int)(row / ((long long)S * H));
+  const T* orow = o + b * ob + i * os + h * oh;
+  const T* grow = g + b * gb + i * gs + h * gh;
+  float acc = 0.0f;
+#pragma unroll
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f32(grow[d]), to_f32(orow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dsum[row] = acc;
+}
+
+// rows [r0, r0 + kBwdB) of one (b, h) slice (src points at row 0 of it; ss
+// is the row stride) into a shared f32 tile of row stride HD + 1, rows past
+// S as zeros
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long ss, int r0, int S) {
+  for (int idx = threadIdx.x; idx < kBwdB * HD; idx += kBwdThreads) {
+    const int r = idx / HD;
+    const int d = idx % HD;
+    const int s = r0 + r;
+    dst[r * (HD + 1) + d] = s < S ? to_f32(src[(long long)s * ss + d]) : 0.0f;
+  }
+}
+
+// lse and D of rows [r0, r0 + kBwdB) into shared memory (0 past S)
+__device__ __forceinline__ void load_rows(float* lse_s, float* d_s,
+                                          const float* lse, const float* dsum,
+                                          int r0, int S) {
+  for (int r = threadIdx.x; r < kBwdB; r += kBwdThreads) {
+    const bool ok = r0 + r < S;
+    lse_s[r] = ok ? lse[r0 + r] : 0.0f;
+    d_s[r] = ok ? dsum[r0 + r] : 0.0f;
+  }
+}
+
+// c[r][c] = a[ty + 16 r] . b[tx + 16 c] over HD: rows of two [kBwdB][HD]
+// tiles (row stride HD + 1)
+template <int HD>
+__device__ __forceinline__ void tile_abt(float (&c)[4][4], const float* a,
+                                         const float* b, int ty, int tx) {
+  constexpr int kLD = HD + 1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[r][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) av[r] = a[(ty + 16 * r) * kLD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kLD + d];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[r][j] = fmaf(av[r], bv[j], c[r][j]);
+  }
+}
+
+// c[r][j] += sum_i p[i][ty + 16 r] b[i][tx + 16 j]: the columns of a
+// [kBwdB][kBwdB] score tile (row stride kLDP) against a [kBwdB][HD] tile
+template <int HD>
+__device__ __forceinline__ void tile_atb(float (&c)[4][HD / 16],
+                                         const float* p, const float* b,
+                                         int ty, int tx) {
+  constexpr int kLD = HD + 1;
+#pragma unroll 4
+  for (int i = 0; i < kBwdB; ++i) {
+    float pv[4], bv[HD / 16];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pv[r] = p[i * kLDP + ty + 16 * r];
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) bv[j] = b[i * kLD + tx + 16 * j];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) c[r][j] = fmaf(pv[r], bv[j], c[r][j]);
+  }
+}
+
+// c[r][j] += sum_k p[ty + 16 r][k] b[k][tx + 16 j]: the rows of a score
+// tile against a [kBwdB][HD] tile
+template <int HD>
+__device__ __forceinline__ void tile_ab(float (&c)[4][HD / 16],
+                                        const float* p, const float* b,
+                                        int ty, int tx) {
+  constexpr int kLD = HD + 1;
+#pragma unroll 4
+  for (int k = 0; k < kBwdB; ++k) {
+    float pv[4], bv[HD / 16];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pv[r] = p[(ty + 16 * r) * kLDP + k];
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) bv[j] = b[k * kLD + tx + 16 * j];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) c[r][j] = fmaf(pv[r], bv[j], c[r][j]);
+  }
+}
+
+// P and dS of one (query tile at i0, key tile at k0) pair from the staged
+// q, g, k, v tiles into shared memory (ps may be null: the dq pass needs
+// only dS)
+template <int HD, bool CAUSAL>
+__device__ __forceinline__ void scores(float* ps, float* dss, const float* qs,
+                                       const float* gs, const float* ks,
+                                       const float* vs, const float* lse_s,
+                                       const float* d_s, int i0, int k0,
+                                       int S, float scale, int ty, int tx) {
+  float sc[4][4], dp[4][4];
+  tile_abt<HD>(sc, qs, ks, ty, tx);    // q k^T
+  tile_abt<HD>(dp, gs, vs, ty, tx);    // g v^T
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int ri = ty + 16 * r;
+    const int i = i0 + ri;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cj = tx + 16 * c;
+      const int j = k0 + cj;
+      const bool ok = i < S && j < S && (!CAUSAL || j <= i);
+      const float p = ok ? expf(fmaf(sc[r][c], scale, -lse_s[ri])) : 0.0f;
+      if (ps != nullptr) ps[ri * kLDP + cj] = p;
+      dss[ri * kLDP + cj] = p * (dp[r][c] - d_s[ri]);
+    }
+  }
+}
+
+template <int HD>
+constexpr int bwd_smem_bytes(int score_tiles) {
+  return (4 * kBwdB * (HD + 1) + score_tiles * kBwdB * kLDP + 2 * kBwdB) *
+         (int)sizeof(float);
+}
+
+template <typename T, int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    T* __restrict__ dk, T* __restrict__ dv, int S, int H, BwdStrides st,
+    float scale) {
+  constexpr int kTile = kBwdB * (HD + 1);
+  extern __shared__ float4 bwd_smem4[];
+  float* ks = reinterpret_cast<float*>(bwd_smem4);
+  float* vs = ks + kTile;
+  float* qs = vs + kTile;
+  float* gs = qs + kTile;
+  float* ps = gs + kTile;
+  float* dss = ps + kBwdB * kLDP;
+  float* lse_s = dss + kBwdB * kLDP;
+  float* d_s = lse_s + kBwdB;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kt = blockIdx.y;          // causal: the longest walks first
+  const int k0 = kt * kBwdB;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const T* qb = q + b * st.qb + h * st.qh;
+  const T* gb = g + b * st.gb + h * st.gh;
+  const long long rows = ((long long)b * H + h) * S;
+  load_tile<T, HD>(ks, k + b * st.kb + h * st.kh, st.ks, k0, S);
+  load_tile<T, HD>(vs, v + b * st.vb + h * st.vh, st.vs, k0, S);
+
+  float dka[4][HD / 16], dva[4][HD / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) dka[r][j] = dva[r][j] = 0.0f;
+
+  const int n_q = (S + kBwdB - 1) / kBwdB;
+  for (int qt = CAUSAL ? kt : 0; qt < n_q; ++qt) {
+    const int i0 = qt * kBwdB;
+    __syncthreads();                  // the previous tiles are consumed
+    load_tile<T, HD>(qs, qb, st.qs, i0, S);
+    load_tile<T, HD>(gs, gb, st.gs, i0, S);
+    load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
+    __syncthreads();
+    scores<HD, CAUSAL>(ps, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S, scale,
+                       ty, tx);
+    __syncthreads();
+    tile_atb<HD>(dva, ps, gs, ty, tx);   // dV += P^T g
+    tile_atb<HD>(dka, dss, qs, ty, tx);  // dK += dS^T q
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = k0 + ty + 16 * r;
+    if (j >= S) continue;
+    const long long at = (((long long)b * S + j) * H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      store_f32(dk + at + tx + 16 * c, scale * dka[r][c]);
+      store_f32(dv + at + tx + 16 * c, dva[r][c]);
+    }
+  }
+}
+
+template <typename T, int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    T* __restrict__ dq, int S, int H, BwdStrides st, float scale) {
+  constexpr int kTile = kBwdB * (HD + 1);
+  extern __shared__ float4 bwd_smem4[];
+  float* qs = reinterpret_cast<float*>(bwd_smem4);
+  float* gs = qs + kTile;
+  float* ks = gs + kTile;
+  float* vs = ks + kTile;
+  float* dss = vs + kTile;
+  float* lse_s = dss + kBwdB * kLDP;
+  float* d_s = lse_s + kBwdB;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // the longest walks first
+  const int i0 = qt * kBwdB;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
+  const long long rows = ((long long)b * H + h) * S;
+  load_tile<T, HD>(qs, q + b * st.qb + h * st.qh, st.qs, i0, S);
+  load_tile<T, HD>(gs, g + b * st.gb + h * st.gh, st.gs, i0, S);
+  load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
+
+  float dqa[4][HD / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) dqa[r][j] = 0.0f;
+
+  const int n_k = CAUSAL ? qt + 1 : (S + kBwdB - 1) / kBwdB;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBwdB;
+    __syncthreads();                  // the previous tiles are consumed
+    load_tile<T, HD>(ks, kb, st.ks, k0, S);
+    load_tile<T, HD>(vs, vb, st.vs, k0, S);
+    __syncthreads();
+    scores<HD, CAUSAL>(nullptr, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S,
+                       scale, ty, tx);
+    __syncthreads();
+    tile_ab<HD>(dqa, dss, ks, ty, tx);   // dQ += dS k
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty + 16 * r;
+    if (i >= S) continue;
+    const long long at = (((long long)b * S + i) * H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c)
+      store_f32(dq + at + tx + 16 * c, scale * dqa[r][c]);
+  }
+}
+
+// opts `kernel` into `bytes` of dynamic shared memory, once per device
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!((*set >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    *set |= 1ull << dev;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int HD>
+int launch_bwd_dot(const void* o, const void* g, float* dsum, int B, int S,
+                   int H, const long long* st, cudaStream_t stream) {
+  const long long rows = (long long)B * H * S;
+  const unsigned grid = (unsigned)((rows + kDotRows - 1) / kDotRows);
+  flash_bwd_dot<T, HD><<<grid, 32 * kDotRows, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(g), dsum, B, S, H,
+      st[0], st[1], st[2], st[3], st[4], st[5]);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD, bool CAUSAL>
+int launch_bwd(int pass, const void* q, const void* k, const void* v,
+               const void* g, const float* lse, const float* dsum, void* d0,
+               void* d1, int B, int S, int H, const BwdStrides& st,
+               float scale, cudaStream_t stream) {
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBwdB - 1) / kBwdB));
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(g);
+  cudaError_t err;
+  if (pass == 0) {
+    static unsigned long long set = 0;
+    constexpr int kSmem = bwd_smem_bytes<HD>(2);
+    auto kernel = flash_bwd_dkdv<T, HD, CAUSAL>;
+    err = allow_smem(kernel, kSmem, &set);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kBwdThreads, kSmem, stream>>>(
+        qt, kt, vt, gt, lse, dsum, static_cast<T*>(d0), static_cast<T*>(d1),
+        S, H, st, scale);
+  } else {
+    static unsigned long long set = 0;
+    constexpr int kSmem = bwd_smem_bytes<HD>(1);
+    auto kernel = flash_bwd_dq<T, HD, CAUSAL>;
+    err = allow_smem(kernel, kSmem, &set);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kBwdThreads, kSmem, stream>>>(
+        qt, kt, vt, gt, lse, dsum, static_cast<T*>(d0), S, H, st, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_bwd_causal(int pass, int causal, const void* q, const void* k,
+                      const void* v, const void* g, const float* lse,
+                      const float* dsum, void* d0, void* d1, int B, int S,
+                      int H, const BwdStrides& st, float scale,
+                      cudaStream_t stream) {
+  return causal ? launch_bwd<T, HD, true>(pass, q, k, v, g, lse, dsum, d0,
+                                          d1, B, S, H, st, scale, stream)
+                : launch_bwd<T, HD, false>(pass, q, k, v, g, lse, dsum, d0,
+                                           d1, B, S, H, st, scale, stream);
 }
 
 }  // namespace
@@ -874,31 +1279,92 @@ int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
 // 0 for f32 (flash_fwd_kernel), 1 for bf16 (flash_fwd_kernel_wgmma);
 // `strides` holds the element strides of the b, s and h axes of q, k, v and
 // out, in that order (12 values; the hd axis is contiguous); `scale` is
-// hd^-0.5 rounded to f32 by the caller. The caller allocates `o` and checks
-// shapes, types, the 16-byte alignment of every row (for bf16 also what the
-// tensor maps need: a 16-byte-aligned base and strides that are multiples
-// of 16 bytes) and the launch limits.
+// hd^-0.5 rounded to f32 by the caller. `lse`, when not null, receives the
+// rows' log-sum-exp of the scaled scores, [B, H, S] f32 (the backward's
+// input). The caller allocates `o` and `lse` and checks shapes, types, the
+// 16-byte alignment of every row (for bf16 also what the tensor maps need:
+// a 16-byte-aligned base and strides that are multiples of 16 bytes) and
+// the launch limits.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int hd, int dtype, int causal,
-                                      const long long* strides, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int B, int S, int H, int hd, int dtype,
+                                      int causal, const long long* strides,
+                                      float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1 && hd == 64)
-    return launch_wgmma_causal<64>(q, k, v, o, B, S, H, causal, strides,
+    return launch_wgmma_causal<64>(q, k, v, o, lse, B, S, H, causal, strides,
                                    scale, s);
   if (dtype == 1 && hd == 128)
-    return launch_wgmma_causal<128>(q, k, v, o, B, S, H, causal, strides,
-                                    scale, s);
+    return launch_wgmma_causal<128>(q, k, v, o, lse, B, S, H, causal,
+                                    strides, scale, s);
   const Strides st = {strides[0], strides[1], strides[2],  strides[3],
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
   if (dtype == 0 && hd == 64)
-    return launch_causal<float, 64>(q, k, v, o, B, S, H, causal, st, scale,
-                                    s);
+    return launch_causal<float, 64>(q, k, v, o, lse, B, S, H, causal, st,
+                                    scale, s);
   if (dtype == 0 && hd == 128)
-    return launch_causal<float, 128>(q, k, v, o, B, S, H, causal, st, scale,
-                                     s);
+    return launch_causal<float, 128>(q, k, v, o, lse, B, S, H, causal, st,
+                                     scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// flash_bwd_dot on `stream`: dsum[b, h, i] = sum_d g[b, i, h, d] o[b, i, h,
+// d] in f32. `strides`: the b, s, h element strides of o, then of g (6
+// values; hd contiguous). Returns as flash_attention_launch.
+extern "C" int flash_attention_bwd_dot_launch(const void* o, const void* g,
+                                              float* dsum, int B, int S,
+                                              int H, int hd, int dtype,
+                                              const long long* strides,
+                                              void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && hd == 64)
+    return launch_bwd_dot<float, 64>(o, g, dsum, B, S, H, strides, s);
+  if (dtype == 0 && hd == 128)
+    return launch_bwd_dot<float, 128>(o, g, dsum, B, S, H, strides, s);
+  if (dtype == 1 && hd == 64)
+    return launch_bwd_dot<__nv_bfloat16, 64>(o, g, dsum, B, S, H, strides, s);
+  if (dtype == 1 && hd == 128)
+    return launch_bwd_dot<__nv_bfloat16, 128>(o, g, dsum, B, S, H, strides,
+                                              s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The two gradient passes on `stream`: pass 0 is flash_bwd_dkdv (d0 = dk,
+// d1 = dv), pass 1 flash_bwd_dq (d0 = dq, d1 unused). q, k, v, g are read
+// through `strides` (the b, s, h element strides of q, k, v, g: 12 values;
+// hd contiguous); lse and dsum are [B, H, S] f32; the gradients are written
+// contiguous [B, S, H, hd] in the inputs' type. Returns as
+// flash_attention_launch.
+extern "C" int flash_attention_bwd_launch(int pass, const void* q,
+                                          const void* k, const void* v,
+                                          const void* g, const float* lse,
+                                          const float* dsum, void* d0,
+                                          void* d1, int B, int S, int H,
+                                          int hd, int dtype, int causal,
+                                          const long long* strides,
+                                          float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (pass != 0 && pass != 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const BwdStrides st = {strides[0], strides[1], strides[2],  strides[3],
+                         strides[4], strides[5], strides[6],  strides[7],
+                         strides[8], strides[9], strides[10], strides[11]};
+  if (dtype == 0 && hd == 64)
+    return launch_bwd_causal<float, 64>(pass, causal, q, k, v, g, lse, dsum,
+                                        d0, d1, B, S, H, st, scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch_bwd_causal<float, 128>(pass, causal, q, k, v, g, lse, dsum,
+                                         d0, d1, B, S, H, st, scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch_bwd_causal<__nv_bfloat16, 64>(pass, causal, q, k, v, g,
+                                                lse, dsum, d0, d1, B, S, H,
+                                                st, scale, s);
+  if (dtype == 1 && hd == 128)
+    return launch_bwd_causal<__nv_bfloat16, 128>(pass, causal, q, k, v, g,
+                                                 lse, dsum, d0, d1, B, S, H,
+                                                 st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

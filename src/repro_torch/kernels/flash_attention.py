@@ -1,5 +1,5 @@
-"""Fused forward attention: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""Fused attention, forward and backward: hand-written CUDA kernels and
+their plain PyTorch versions.
 
 For q, k, v of shape ``[B, S, H, hd]`` (kv heads already expanded), computes
 exact softmax attention, causal or not, with ``scale = hd**-0.5`` applied
@@ -23,6 +23,22 @@ In f32 the kernel and the plain version differ only in the order of f32
 sums. In bf16 the output rounds once, at the end, in both; the bf16 kernel
 also rounds the softmax weights P to bf16 before the PV product, as the
 reference's model attention does.
+
+Both forward kernels also write the rows' log-sum-exp of the scaled scores
+(``lse`` [B, H, S], f32) when asked. The backward has no TPU counterpart:
+the reference's Pallas kernel is forward-only, and its training
+differentiates the plain chunked attention of
+``repro.models.layers.attention_train`` (``layers.py:112``) through XLA.
+The port's model attention runs through the forward kernel, so a gradient
+through it needs kernels of its own: ``flash_bwd_dot`` (``D = rowsum(dO
+O)``), ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (FlashAttention-2's two
+passes, each gradient summed by one CTA in a fixed order: the same bits on
+every run). :class:`FlashAttentionFn` saves ``q, k, v, o, lse`` in the
+forward and launches them in the backward; :func:`flash_attention` takes it
+only when the mode resolves to the kernel and a gradient is needed, so
+serving keeps the forward without the LSE store. On the CPU autograd runs
+through :func:`attention_plain`; :func:`attention_bwd_plain` is the
+backward's explicit formula, the kernels' yardstick on the card.
 """
 from __future__ import annotations
 
@@ -39,19 +55,43 @@ PLAIN_ELEMS = 1 << 26   # largest [B, H, chunk, S] score block (plain form)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = 0     # CUDA kernel launches made by flash_attention (only there)
+BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
+
+LAUNCHES = 0     # forward kernel launches made by flash_attention (only there)
+# backward kernel launches, one count per kernel, made by the backward
+# wrapper (only there)
+BWD_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
 _COUNT_LOCK = threading.Lock()   # launches may come from several threads
 
 
-def attention_plain(q, k, v, *, causal: bool = True):
+def reset_launches() -> None:
+    """Set the forward and backward launch counts to 0."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+        for name in BWD_KERNELS:
+            BWD_LAUNCHES[name] = 0
+
+
+def _chunk(B, S, H) -> int:
+    """Query rows per chunk of the plain forms."""
+    return max(PLAIN_ELEMS // max(B * H * S, 1), 1)
+
+
+def attention_plain(q, k, v, *, causal: bool = True,
+                    return_lse: bool = False):
     """Exact attention by its dense-softmax definition, in f32, in query
     chunks of at most :data:`PLAIN_ELEMS` score elements. Masked scores
-    are set to :data:`NEG` before the softmax, as the reference does."""
+    are set to :data:`NEG` before the softmax, as the reference does.
+    ``return_lse``: also return the rows' log-sum-exp of the scaled scores,
+    [B, H, S] f32. Autograd differentiates it (the CPU training path)."""
     B, S, H, hd = q.shape
     scale = hd ** -0.5
     kf, vf = k.float(), v.float()
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    chunk = max(PLAIN_ELEMS // max(B * H * S, 1), 1)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    chunk = _chunk(B, S, H)
     kpos = torch.arange(S, device=q.device)
     for i0 in range(0, S, chunk):
         qc = q[:, i0:i0 + chunk].float()
@@ -62,10 +102,43 @@ def attention_plain(q, k, v, *, causal: bool = True):
         w = torch.softmax(s, dim=-1)
         out[:, i0:i0 + qc.shape[1]] = torch.einsum(
             "bhqk,bkhd->bqhd", w, vf).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, :, i0:i0 + qc.shape[1]] = torch.logsumexp(s, dim=-1)
+    return (out, lse) if return_lse else out
 
 
-_LAUNCH = None   # the kernel's ctypes entry point, set up at first launch
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
+    """The gradients (dq, dk, dv) of :func:`attention_plain` at output
+    gradient ``do``, by the explicit formula in f32, in the same query
+    chunks: with P = exp(scale q k^T - lse) (masked entries 0) and D =
+    rowsum(do o), dv = P^T do, dS = P (do v^T - D), dq = scale dS k, dk =
+    scale dS^T q. ``o`` and ``lse`` are the forward's; the gradients come
+    back in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5
+    kf, vf = k.float(), v.float()
+    dsum = (do.float() * o.float()).sum(-1).transpose(1, 2)    # [B, H, S]
+    dq = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
+    chunk = _chunk(B, S, H)
+    kpos = torch.arange(S, device=q.device)
+    for i0 in range(0, S, chunk):
+        i1 = min(i0 + chunk, S)
+        qc, gc = q[:, i0:i1].float(), do[:, i0:i1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale
+        p = torch.exp(s - lse[:, :, i0:i1, None])
+        if causal:
+            p = p.masked_fill(kpos[None, :] > kpos[i0:i1, None], 0.0)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, gc)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gc, vf)
+        ds = p * (dp - dsum[:, :, i0:i1, None])
+        dq[:, i0:i1] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_LAUNCH = None   # the kernels' ctypes entry points, set up at first launch
 
 
 def _launcher():
@@ -73,14 +146,23 @@ def _launcher():
     if _LAUNCH is None:
         from repro_torch.kernels import _build
 
-        fn = _build.load("flash_attention").flash_attention_launch
+        lib = _build.load("flash_attention")
         # pointers and the stream as c_void_p: left undeclared, ctypes
         # would pass them as 32-bit ints and cut them
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LAUNCH = fn
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        fwd = lib.flash_attention_launch
+        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [strides, ctypes.c_float, ctypes.c_void_p])
+        dot = lib.flash_attention_bwd_dot_launch
+        dot.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                        + [strides, ctypes.c_void_p])
+        bwd = lib.flash_attention_bwd_launch
+        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * 6
+                        + [strides, ctypes.c_float, ctypes.c_void_p])
+        for fn in (fwd, dot, bwd):
+            fn.restype = ctypes.c_int
+        _LAUNCH = {"fwd": fwd, "dot": dot, "bwd": bwd}
     return _LAUNCH
 
 
@@ -94,63 +176,168 @@ def _rows_aligned(x: torch.Tensor) -> bool:
             and all(s % vec == 0 for s in x.stride()[:3]))
 
 
-def _flash_kernel(q, k, v, causal: bool):
-    """Launch ``csrc/flash_attention.cu`` on the current stream: the
-    ``wgmma`` kernel for bf16, the CUDA-core kernel for f32."""
-    global LAUNCHES
+def _check_inputs(q, others, what: str):
+    """Raise unless every tensor of ``others`` (name, tensor) has q's shape,
+    dtype and device, and the kernels take q's dtype, head dim and grid."""
     B, S, H, hd = q.shape
     dev = q.device
-    for name, x in (("k", k), ("v", v)):
-        if x.device != dev or x.dtype != q.dtype:
+    for name, x in others:
+        if x.device != dev or x.dtype != q.dtype or x.shape != q.shape:
             raise ValueError(
-                f"flash_attention kernel: {name} is {x.dtype} on {x.device}, "
-                f"q is {q.dtype} on {dev}")
+                f"{what} kernel: {name} is {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}, q is {q.dtype} {tuple(q.shape)} on {dev}")
     if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, "
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
+        raise ValueError(f"{what} kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
     if -(-S // BQ) > 65535 or B * H >= 2 ** 31:
-        raise ValueError(f"flash_attention kernel: S={S}, B*H={B * H} "
-                         f"exceed its grid")
+        raise ValueError(f"{what} kernel: S={S}, B*H={B * H} exceed its "
+                         f"grid")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{what} kernel: the driver refused a tensor map "
+                           f"(CUresult {-err})")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _count(name: str | None = None) -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        if name is None:
+            LAUNCHES += 1
+        else:
+            BWD_LAUNCHES[name] += 1
+
+
+def _flash_kernel(q, k, v, causal: bool, want_lse: bool = False):
+    """Launch ``csrc/flash_attention.cu`` on the current stream: the
+    ``wgmma`` kernel for bf16, the CUDA-core kernel for f32. Returns the
+    output, and with ``want_lse`` also the rows' log-sum-exp [B, H, S]
+    f32."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    _check_inputs(q, (("k", k), ("v", v)), "flash_attention")
     # the kernels read through strides; a tensor whose rows are not
     # 16-byte aligned and contiguous is copied into the plain layout first
     q, k, v = (x if _rows_aligned(x)
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if want_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    launch = _launcher()
+    launch = _launcher()["fwd"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B, S, H, hd, KERNEL_DTYPES[q.dtype],
-                     int(causal), strides, hd ** -0.5, stream)
-    if err < 0:
-        raise RuntimeError(f"flash_attention kernel: the driver refused a "
-                           f"tensor map (CUresult {-err})")
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-    return out
+                     out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                     B, S, H, hd, KERNEL_DTYPES[q.dtype], int(causal),
+                     strides, hd ** -0.5, stream)
+    _raise_on(err, "flash_attention")
+    _count()
+    return (out, lse) if want_lse else out
+
+
+def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
+    """Launch the three backward kernels of ``csrc/flash_attention.cu`` on
+    the current stream; returns (dq, dk, dv), contiguous, in q's dtype.
+    They read q, k, v, o and do through their strides with scalar loads,
+    so only a tensor whose head dim is not contiguous (``stride(-1) !=
+    1``) is copied first."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    _check_inputs(q, (("k", k), ("v", v), ("o", o), ("do", do)),
+                  "flash attention backward")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != dev:
+        raise ValueError(f"flash attention backward: lse is {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}, expected a "
+                         f"contiguous float32 {(B, H, S)} on {dev}")
+    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous()
+                      for x in (q, k, v, o, do))
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+                  for _ in range(3))
+    fns = _launcher()
+    dt = KERNEL_DTYPES[q.dtype]
+    dot_strides = (ctypes.c_longlong * 6)(*o.stride()[:3], *do.stride()[:3])
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fns["dot"](o.data_ptr(), do.data_ptr(), dsum.data_ptr(),
+                             B, S, H, hd, dt, dot_strides, stream),
+                  "flash_bwd_dot")
+        _count("flash_bwd_dot")
+        _raise_on(fns["bwd"](0, *ptrs, dk.data_ptr(), dv.data_ptr(), B, S,
+                             H, hd, dt, int(causal), strides, hd ** -0.5,
+                             stream), "flash_bwd_dkdv")
+        _count("flash_bwd_dkdv")
+        _raise_on(fns["bwd"](1, *ptrs, dq.data_ptr(), 0, B, S, H, hd, dt,
+                             int(causal), strides, hd ** -0.5, stream),
+                  "flash_bwd_dq")
+        _count("flash_bwd_dq")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        mode: str | None = None):
+    """The gradients (dq, dk, dv) of attention at output gradient ``do``,
+    given the forward's output ``o`` and log-sum-exp ``lse`` [B, H, S]:
+    the backward kernels on CUDA tensors, :func:`attention_bwd_plain` on
+    CPU tensors (``mode`` as for :func:`flash_attention`)."""
+    if resolve_mode(q, mode) == "kernel":
+        return _flash_bwd_kernel(q, k, v, o, lse, do, causal)
+    return attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with its LSE store, differentiated by the
+    backward kernels; saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash_kernel(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    mode: str | None = None):
+                    mode: str | None = None, return_lse: bool = False):
     """Fused attention. q/k/v: [B, S, H, hd] (kv heads already expanded).
 
     Returns [B, S, H, hd] in q's dtype. ``mode``: None = the CUDA kernel on
     CUDA tensors, the plain version on CPU tensors; "plain"/"kernel" force
-    one (see :func:`repro_torch.kernels.backend.resolve_mode`).
+    one (see :func:`repro_torch.kernels.backend.resolve_mode`). On the
+    kernel, a call that needs a gradient goes through
+    :class:`FlashAttentionFn`; any other launches the forward alone, with
+    no LSE store. ``return_lse``: return (out, lse [B, H, S] f32) instead,
+    with no gradient through the kernel (the comparisons of the LSE).
     """
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention takes q, k, v of one shape "
                          f"[B, S, H, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if resolve_mode(q, mode) == "kernel":
+        if return_lse:
+            return _flash_kernel(q, k, v, causal, want_lse=True)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal)
         return _flash_kernel(q, k, v, causal)
-    return attention_plain(q, k, v, causal=causal)
+    return attention_plain(q, k, v, causal=causal, return_lse=return_lse)

@@ -9,18 +9,25 @@ reference's parameter tree (``embed`` [V, d], ``final_norm`` [d],
 reference tree carries across leaf for leaf
 (:func:`repro_torch.interop.load_params`). Master parameters are f32 and are
 cast to the activation dtype at use; layers run as a Python loop over the
-stacked layer axis. Serving only: parameters take no gradients here.
+stacked layer axis.
 
 Where the reference is functional (``apply(params, batch)``), the port's
-methods read the module's own parameters: ``apply(batch)``,
-``loss(batch)``, ``decode_step(cache, tokens)``. The KV cache is updated in
-place. The families ``moe``, ``vlm``, ``hybrid``, ``ssm`` and ``audio`` are
-not ported yet (ROADMAP Queue 1 item 14) and raise ``NotImplementedError``.
+serving methods read the module's own parameters, which take no gradients
+and build no graph: ``apply(batch)``, ``loss(batch)``,
+``decode_step(cache, tokens)``. The KV cache is updated in place. Training
+passes a parameter tree of its own, ``loss(batch, params, remat=True)``
+(the reference's ``loss(params, batch, remat=True)``): the loss is then
+differentiable in those tensors, and with ``remat`` each layer is
+recomputed in the backward (``torch.utils.checkpoint``, the counterpart of
+the reference's ``jax.checkpoint`` per layer). The families ``moe``,
+``vlm``, ``hybrid``, ``ssm`` and ``audio`` are not ported yet (ROADMAP
+Queue 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
@@ -58,8 +65,8 @@ class DecoderModel(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported to "
                 f"repro_torch yet: the MoE, VLM, hybrid, xLSTM and Whisper "
-                f"families come with a later slice (ROADMAP Queue 1 item "
-                f"14); ported: {PORTED_FAMILIES}")
+                f"families come with a later slice (ROADMAP Queue 1); "
+                f"ported: {PORTED_FAMILIES}")
         self.cfg = cfg
         self.hq, self.hkv, _ = head_plan(cfg.num_heads, cfg.kv_heads, tp)
         dev = resolve_device(device)       # "meta" allocates nothing
@@ -100,18 +107,55 @@ class DecoderModel(nn.Module):
                     p.normal_(0.0, scales[name], generator=generator)
         return self
 
+    def param_tree(self) -> dict:
+        """The module's parameters as the reference's nested dict (the
+        tensors themselves, not copies)."""
+        tree = {"embed": self.embed, "final_norm": self.final_norm,
+                "ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn)}
+        if len(self.mlp):
+            tree["mlp"] = dict(self.mlp)
+        return tree
+
     def _layer(self, l: int):
         return ({k: v[l] for k, v in self.attn.items()},
                 {k: v[l] for k, v in self.mlp.items()})
 
-    # -- forward (prefill / scoring) -----------------------------------------
+    # -- forward (prefill / scoring / training) ------------------------------
 
-    def _embed_inputs(self, batch):
+    def _embed_inputs(self, embed, batch):
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = self.embed[tokens].to(L.dtype_of(self.cfg))
+        x = embed[tokens].to(L.dtype_of(self.cfg))
         B, S = tokens.shape
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         return x, pos
+
+    def _block(self, x, pos, ln1, ln2, attn, mlp):
+        cfg = self.cfg
+        h = L.rmsnorm(x, ln1, cfg.norm_eps)
+        x = x + L.attention_train(attn, h, cfg, pos)
+        h = L.rmsnorm(x, ln2, cfg.norm_eps)
+        return x + L.mlp(mlp, h)
+
+    def _hidden(self, params, batch, remat: bool):
+        """Final hidden states [B,S,d] of ``params``. The stacked leaves are
+        unbound once (their backward is one stack, not a full-size zero
+        tensor a layer); with ``remat`` each layer is recomputed in the
+        backward."""
+        cfg = self.cfg
+        x, pos = self._embed_inputs(params["embed"], batch)
+        Ln = cfg.num_layers
+
+        def layers(group):
+            per = {k: v.unbind(0) for k, v in group.items()}
+            return [{k: v[l] for k, v in per.items()} for l in range(Ln)]
+
+        ln1, ln2 = params["ln1"].unbind(0), params["ln2"].unbind(0)
+        attn, mlp = layers(params["attn"]), layers(params.get("mlp", {}))
+        for l in range(Ln):
+            args = (x, pos, ln1[l], ln2[l], attn[l], mlp[l])
+            x = (checkpoint(self._block, *args, use_reentrant=False)
+                 if remat else self._block(*args))
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
     def apply(self, batch):
         """The reference's name for the forward (it shadows
@@ -121,21 +165,24 @@ class DecoderModel(nn.Module):
     @torch.no_grad()
     def forward(self, batch):
         """Full-sequence forward -> final hidden states [B,S,d]."""
-        cfg = self.cfg
-        x, pos = self._embed_inputs(batch)
-        for l in range(cfg.num_layers):
-            attn, mlp = self._layer(l)
-            h = L.rmsnorm(x, self.ln1[l], cfg.norm_eps)
-            x = x + L.attention_train(attn, h, cfg, pos)
-            h = L.rmsnorm(x, self.ln2[l], cfg.norm_eps)
-            x = x + L.mlp(mlp, h)
-        return L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return self._hidden(self.param_tree(), batch, remat=False)
 
-    @torch.no_grad()
-    def loss(self, batch):
-        """Mean next-token cross-entropy (f32) over the batch's labels."""
-        h = self.apply(batch)
-        logits = L.unembed(h, self.embed)
+    def loss(self, batch, params=None, remat: bool = True):
+        """Mean next-token cross-entropy (f32) over the batch's labels.
+
+        ``params`` None: the module's own parameters, with no graph (the
+        serving and scoring loss; ``remat`` does not apply). Otherwise a
+        parameter tree of the module's layout, in any float dtype (bf16
+        live parameters under mixed precision): the loss is
+        differentiable in its tensors."""
+        if params is None:
+            with torch.no_grad():
+                return self._loss(self.param_tree(), batch, remat=False)
+        return self._loss(params, batch, remat)
+
+    def _loss(self, params, batch, remat: bool):
+        h = self._hidden(params, batch, remat)
+        logits = L.unembed(h, params["embed"])
         labels = torch.as_tensor(batch["labels"], device=self.device)
         return L.softmax_xent(logits, labels)
 

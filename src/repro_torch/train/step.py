@@ -1,0 +1,105 @@
+"""Train step: microbatched gradient accumulation + AdamW (the port of
+``repro.train.step``).
+
+The state is the reference's dict, ``{"params", "opt": {"m", "v", "step"[,
+"master"]}}``, of tensors on the model's device, so the port's
+``CheckpointManager`` and ``runtime.fault.run_with_restarts`` take it as
+they are. A state read back from a checkpoint (numpy leaves, bf16 leaves as
+CPU tensors) is moved to the model's device by the step itself.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.train.optimizer import (adamw_init, adamw_update,
+                                         cast_params, compress_grads,
+                                         lr_schedule, tree_leaves, tree_map,
+                                         tree_unflatten)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: Any
+
+    def tree(self):
+        return {"params": self.params, "opt": self.opt}
+
+
+def init_state(model, generator: torch.Generator,
+               mixed_precision: bool = False) -> dict:
+    """The model's parameters drawn from ``generator`` (``model.init``),
+    copied out of the module into a fresh state with zero AdamW moments;
+    with ``mixed_precision`` the live parameters are bf16 and the
+    optimizer keeps an f32 master."""
+    model.init(generator)
+    params = tree_map(lambda p: p.detach().clone(), model.param_tree())
+    opt = adamw_init(params, mixed_precision=mixed_precision)
+    if mixed_precision:
+        params = cast_params(params, torch.bfloat16)
+    return {"params": params, "opt": opt}
+
+
+def on_device(tree, device):
+    """Every leaf of ``tree`` as a tensor on ``device`` (numpy arrays and
+    scalars converted, tensors moved; a leaf already there is kept)."""
+    return tree_map(lambda x: torch.as_tensor(x, device=device), tree)
+
+
+def _split(x, microbatches: int):
+    x = np.asarray(x)
+    return x.reshape((microbatches, x.shape[0] // microbatches)
+                     + x.shape[1:])
+
+
+def loss_and_grads(model, params, batch, microbatches: int = 1):
+    """The mean loss of ``batch`` and its gradients in ``params`` (per-layer
+    remat). With ``microbatches`` > 1 the batch's leading axis is split
+    into equal parts whose gradients are summed into f32 accumulators, and
+    the sums divided, as the reference's scan does."""
+
+    def value_and_grad(mb):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = model.loss(mb, params=live, remat=True)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.detach(), tree_unflatten(live, grads)
+
+    if microbatches == 1:
+        return value_and_grad(batch)
+    mbs = {k: _split(v, microbatches) for k, v in batch.items()}
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    lsum = 0.0
+    for i in range(microbatches):
+        loss, g = value_and_grad({k: v[i] for k, v in mbs.items()})
+        gsum = tree_map(torch.add, gsum, g)
+        lsum = lsum + loss
+    return lsum / microbatches, tree_map(lambda g: g / microbatches, gsum)
+
+
+def make_train_step(model, *, microbatches: int = 1, peak_lr: float = 3e-4,
+                    total_steps: int = 10_000, warmup: int = 200,
+                    grad_compress: bool = False):
+    """Returns ``train_step(state, batch) -> (state, metrics)``: the loss
+    and its gradients (:func:`loss_and_grads`), then one AdamW step at the
+    warmup+cosine learning rate. ``metrics`` holds the loss, the gradients'
+    global norm and the learning rate, as 0-d tensors."""
+
+    def train_step(state, batch):
+        state = on_device(state, model.device)
+        params = state["params"]
+        loss, grads = loss_and_grads(model, params, batch, microbatches)
+        grads = compress_grads(grads, grad_compress)
+        lr = lr_schedule(state["opt"]["step"] + 1, peak=peak_lr,
+                         warmup=warmup, total=total_steps)
+        new_params, new_opt, gnorm = adamw_update(
+            params, grads, state["opt"], lr)
+        metrics = {"loss": loss, "gnorm": gnorm, "lr": lr}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step

@@ -4,7 +4,18 @@ tests/test_kernels.py runs it) and its dense jnp oracle, at the reference
 sweep's five shapes and tolerances (2e-5 for f32, 2e-2 for bf16); an
 emulation of the bf16 CUDA kernel's arithmetic (P rounded to bf16 before
 PV) against the same interpreter; the wrapper's dispatch and checks; and
-the hand-written CUDA kernels against the plain version on the card."""
+the hand-written CUDA kernels against the plain version on the card.
+
+The backward: the plain version's explicit formula
+(``attention_bwd_plain``) and torch autograd through ``attention_plain``
+against ``jax.vjp`` of repro's dense oracle and of its model attention
+(``repro.models.layers._gqa_scores_out``), at the sweep's shapes, f32 and
+bf16, within the sweep's tolerances (the reference's bf16 forms round the
+scores, or the softmax weights, to bf16: 2e-2 covers it as it does the
+forward); the plain LSE against ``jax.nn.logsumexp`` of the reference's
+scores (2e-5: f32 sums in another order); and on the card, the kernels'
+LSE and backward against the plain versions (f32 allclose 1e-4, bf16
+2e-2 in relative norm, the LSE 1e-4 absolute)."""
 import numpy as np
 import pytest
 import torch
@@ -13,10 +24,12 @@ from repro_torch.kernels import flash_attention as tf
 from repro_torch.kernels.ref import flash_attention_ref as t_ref
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from repro.kernels.flash_attention import flash_attention as r_flash
     from repro.kernels.ref import flash_attention_ref as r_ref
+    from repro.models.layers import _gqa_scores_out as r_gqa
 except ImportError:
     # the GPU host has no JAX; there `-m cuda` selects only the kernel
     # tests below, which need neither jax nor repro
@@ -205,3 +218,145 @@ def test_cuda_kernel_matches_plain():
         tf.flash_attention(*[x[..., :32].contiguous() for x in (q, k, v)])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tf.flash_attention(*[x.half() for x in (q, k, v)])
+
+
+# -- backward ----------------------------------------------------------------
+
+BWD_F32_TOL = 1e-4        # kernels vs plain on the card (f32, allclose)
+LSE_TOL = 1e-4            # kernels' LSE vs plain on the card (absolute)
+
+
+@pytest.mark.parametrize("reference", ["oracle", "model_attention"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
+def test_plain_backward_matches_jax_grad(B, S, H, hd, causal, dtype,
+                                         reference):
+    xs = _inputs(B, S, H, hd, seed=B * S + H + 3)
+    g = np.random.default_rng(S).standard_normal((B, S, H, hd)) \
+        .astype(np.float32)
+    fn = r_ref if reference == "oracle" else r_gqa
+    _, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, causal=causal),
+                     *_jax(xs, dtype))
+    want = vjp(jnp.asarray(g, getattr(jnp, dtype)))
+    q, k, v = _torch(xs, dtype)
+    do = torch.from_numpy(g).to(q.dtype)
+    o, lse = tf.attention_plain(q, k, v, causal=causal, return_lse=True)
+    explicit = tf.attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(
+        tf.flash_attention(*leaves, causal=causal), leaves, do)
+    tol = TOL[dtype]
+    for got in (explicit, auto):
+        for a, b in zip(got, want):
+            assert a.dtype == q.dtype and a.shape == q.shape
+            np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
+def test_plain_lse_matches_jax_logsumexp(B, S, H, hd, causal):
+    xs = _inputs(B, S, H, hd, seed=B * S + H + 4)
+    q, k, _ = (jnp.asarray(x) for x in xs)
+    s = jnp.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, None], s,
+                      -1e30)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    _, lse = tf.flash_attention(*_torch(xs, "float32"), causal=causal,
+                                return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+
+
+def test_backward_dispatch_on_the_cpu():
+    """On CPU tensors every entry point takes the plain version and counts
+    no launch; asking for the kernels raises."""
+    q, k, v = (x.requires_grad_() for x in _torch(_inputs(1, 24, 2, 64, 6),
+                                                  "float32"))
+    tf.reset_launches()
+    o, lse = tf.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(o, tf.attention_plain(q, k, v))
+    do = torch.ones_like(o)
+    got = tf.flash_attention_bwd(q, k, v, o, lse, do)
+    want = tf.attention_bwd_plain(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.autograd.grad(tf.flash_attention(q, k, v).sum(), (q, k, v))
+    assert tf.LAUNCHES == 0
+    assert tf.BWD_LAUNCHES == dict.fromkeys(tf.BWD_KERNELS, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.flash_attention_bwd(q, k, v, o, lse, do, mode="kernel")
+
+
+@pytest.mark.parametrize("chunk_rows", [7, 45])
+def test_plain_backward_chunks_change_nothing(chunk_rows, monkeypatch):
+    """The plain backward's query chunks sum dk and dv chunk by chunk; the
+    gradients stay within f32 reordering of the unchunked ones."""
+    q, k, v, do = _torch(_inputs(2, 45, 3, 16, seed=8) + [
+        np.random.default_rng(9).standard_normal((2, 45, 3, 16))
+        .astype(np.float32)], "float32")
+    o, lse = tf.attention_plain(q, k, v, return_lse=True)
+    whole = tf.attention_bwd_plain(q, k, v, o, lse, do)
+    monkeypatch.setattr(tf, "PLAIN_ELEMS", 2 * 3 * 45 * chunk_rows)
+    chunked = tf.attention_bwd_plain(q, k, v, o, lse, do)
+    for a, b in zip(chunked, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_matches_plain():
+    """The forward kernels' LSE and the backward kernels against the plain
+    versions on the card: the sweep's shapes and their bf16 twins, the
+    model's shape in both types, strided views and output gradients (one
+    transposed, read in place; one with a strided head dim, copied), and
+    autograd through FlashAttentionFn, one launch of each backward kernel
+    per backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m cuda on the GPU host)")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = SWEEP + BF16_TWINS + [(4, 2048, 16, 64, True, dt)
+                                  for dt in ("bfloat16", "float32")]
+
+    def check(q, k, v, do, causal):
+        o, lse = tf.flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, lse_p = tf.flash_attention(q, k, v, causal=causal, mode="plain",
+                                      return_lse=True)
+        assert float((lse - lse_p).abs().max()) <= LSE_TOL
+        got = tf.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = tf.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      mode="plain")
+        for a, b in zip(got, want):
+            assert a.dtype == q.dtype and a.shape == q.shape
+            if q.dtype == torch.float32:
+                np.testing.assert_allclose(_np(a.cpu()), _np(b.cpu()),
+                                           rtol=BWD_F32_TOL, atol=BWD_F32_TOL)
+            else:
+                assert float((a.float() - b.float()).norm()
+                             / b.float().norm()) <= TOL["bfloat16"]
+
+    tf.reset_launches()
+    for B, S, H, hd, causal, dtype in cases:
+        q, k, v, do = (x.to(dev) for x in _torch(
+            _inputs(B, S, H, hd, seed=S) + _inputs(B, S, H, hd, seed=S + 1)
+            [:1], dtype))
+        check(q, k, v, do, causal)
+    qkv = torch.randn(2, 300, 3, 4, 128, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = qkv.to(getattr(torch, dtype)).unbind(2)
+        do_t = torch.randn(2, 4, 300, 128, device=dev).to(q.dtype) \
+            .transpose(1, 2)
+        do_s = torch.randn(2, 300, 4, 256, device=dev).to(q.dtype)[..., ::2]
+        for do in (do_t, do_s):
+            check(q, k, v, do, causal=True)
+    n = len(cases) + 4
+    assert tf.BWD_LAUNCHES == dict.fromkeys(tf.BWD_KERNELS, n)
+    x = torch.randn(2, 300, 3, 4, 64, device=dev, requires_grad=True)
+    w = torch.randn(2, 300, 4, 64, device=dev)
+    got = torch.autograd.grad((tf.flash_attention(*x.unbind(2)) * w).sum(),
+                              x)[0]
+    assert tf.BWD_LAUNCHES == dict.fromkeys(tf.BWD_KERNELS, n + 1)
+    want = torch.autograd.grad((tf.flash_attention(
+        *x.unbind(2), mode="plain") * w).sum(), x)[0]
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                               rtol=BWD_F32_TOL, atol=BWD_F32_TOL)

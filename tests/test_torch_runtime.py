@@ -226,6 +226,14 @@ def test_checkpoint_loads_in_the_other_package(tmp_path, writer):
 
 
 def test_checkpoint_bf16_leaf_raises_naming_it(tmp_path):
-    state = {"params": {"w": torch.zeros(2, dtype=torch.bfloat16)}}
+    """A leaf numpy has no dtype for raises, naming the leaf. Since bf16
+    leaves are stored as the reference stores them (raw words, manifest
+    "bfloat16"; tests/test_torch_train.py), such a leaf is an fp8 one, and
+    a bf16 leaf is saved."""
+    state = {"params": {"w": torch.zeros(2, dtype=torch.float8_e4m3fn)}}
     with pytest.raises(TypeError, match="params/w"):
         t_ckpt.save_checkpoint(state, 0, str(tmp_path))
+    state = {"params": {"w": torch.zeros(2, dtype=torch.bfloat16)}}
+    got, _ = t_ckpt.load_checkpoint(
+        t_ckpt.save_checkpoint(state, 1, str(tmp_path)))
+    assert got["params"]["w"].dtype == torch.bfloat16
