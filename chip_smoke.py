@@ -80,10 +80,13 @@ reference package ``repro``. Phases, each fatal on failure:
    and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
    S=2048, H=8), the kernel's, the plain version's and PyTorch's
    ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
-   then the row LSE of both forward kernels and the three backward kernels
-   (``flash_bwd_dot``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) against the
-   plain versions at the same shapes, on strided views and output
-   gradients and through the autograd Function, with the backward's times
+   then the row LSE of both forward kernels and the three backward stages
+   (``flash_bwd_dot``, then bf16: ``flash_bwd_dkdv_wgmma`` and
+   ``flash_bwd_dq_wgmma`` on the tensor cores; f32: ``flash_bwd_dkdv`` and
+   ``flash_bwd_dq`` on the CUDA cores) against the plain versions at the
+   same shapes and the training cell's (B=8, S=256, H=16, hd=64, bf16), on
+   strided views and output gradients and through the autograd Function,
+   each backward bitwise equal to a second one, with the backward's times
    beside the plain backward's and SDPA's backward;
 13. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
@@ -188,6 +191,11 @@ LSE_TOL = 1e-4
 # [train]: the train CLI's defaults at full width (launch/train.py)
 TRAIN_ARCH = "smollm-360m"
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
+# the backward's timed shapes: FLASH_TIMED's and the training cell's (16
+# heads of 64 after head_plan, causal, bf16), where the kernels run 3,200
+# times a [train] run
+FLASH_BWD_TIMED = {**FLASH_TIMED,
+                   "bfloat16_train": (TRAIN_B, TRAIN_S, 16, 64, "bfloat16")}
 RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
 RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
@@ -1912,8 +1920,9 @@ def phase_flash(dev):
 def check_bwd(label, q, k, v, causal, do=None):
     """The forward kernels' LSE against the plain version's, then the
     backward kernels against attention_bwd_plain on the kernel's (o, lse)
-    and one output gradient. Returns (LSE max abs error, the gradients'
-    max abs error)."""
+    and one output gradient, and against themselves: a second backward of
+    the same inputs is bitwise equal. Returns (LSE max abs error, the
+    gradients' max abs error)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1926,9 +1935,12 @@ def check_bwd(label, q, k, v, causal, do=None):
         g = torch.Generator(device=q.device).manual_seed(q.shape[1] + 7)
         do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     want = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   mode="plain")
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two flash backwards of the same inputs differ ({label})")
     lse_err = float((lse - lse_p).abs().max())
     check(lse.shape == lse_p.shape and bool(torch.isfinite(lse).all())
           and lse_err <= LSE_TOL, f"flash LSE != plain ({label}): "
@@ -1952,10 +1964,13 @@ def check_bwd(label, q, k, v, causal, do=None):
 
 def phase_flash_bwd(dev):
     """[flash], backward: the LSE of both forward kernels and the three
-    backward kernels against the plain versions at the sweep's shapes, their
-    bf16 twins, the timed shapes, strided inputs and output gradients, and
-    through the autograd Function; times at the shapes of
-    ``FLASH_TIMED``."""
+    backward stages (bf16: ``flash_bwd_dot``, ``flash_bwd_dkdv_wgmma``,
+    ``flash_bwd_dq_wgmma``; f32: ``flash_bwd_dot``, ``flash_bwd_dkdv``,
+    ``flash_bwd_dq``) against the plain versions at the sweep's shapes,
+    their bf16 twins, the timed shapes, strided inputs and output gradients
+    (transposed: read in place; strided head dim or rows not 16-byte
+    aligned: copied), and through the autograd Function; times at the
+    shapes of ``FLASH_BWD_TIMED``."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1963,14 +1978,15 @@ def phase_flash_bwd(dev):
     cases = [(f"sweep {c}", c) for c in FLASH_SWEEP]
     cases += [(f"bf16 twin {c[:5]}", c) for c in FLASH_BF16_TWINS]
     cases += [(key, (B, S, H, hd, True, dt))
-              for key, (B, S, H, hd, dt) in FLASH_TIMED.items()]
+              for key, (B, S, H, hd, dt) in FLASH_BWD_TIMED.items()]
     errs = {}
     for label, (B, S, H, hd, causal, dt) in cases:
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
         errs[label] = check_bwd(label, q, k, v, causal)
     # strided: q, k, v as slices of one projection; dO as a transposed
-    # [B, H, S, hd] tensor (read in place) and with a strided head dim
-    # (copied first)
+    # [B, H, S, hd] tensor (read in place), with a strided head dim (copied
+    # first) and with rows hd + 4 elements apart (in bf16 not a multiple of
+    # 16 bytes: the bf16 passes' tensor maps need a copy)
     for dt in ("bfloat16", "float32"):
         B, S, H, hd = 2, 300, 4, 128
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1980,8 +1996,15 @@ def phase_flash_bwd(dev):
             .to(getattr(torch, dt)).transpose(1, 2)
         do_s = torch.randn((B, S, H, 2 * hd), generator=g, device=dev) \
             .to(getattr(torch, dt))[..., ::2]
+        do_u = torch.randn((B, S, H, hd + 4), generator=g, device=dev) \
+            .to(getattr(torch, dt))[..., :hd]
+        check(do_u.stride(-1) == 1 and (dt == "float32"
+                                        or not fa._rows_aligned(do_u)),
+              "the unaligned dO must have a contiguous head dim and, in "
+              "bf16, rows that are not 16-byte aligned")
         for causal in (True, False):
-            for what, do in (("transposed dO", do_t), ("strided dO", do_s)):
+            for what, do in (("transposed dO", do_t), ("strided dO", do_s),
+                             ("unaligned dO", do_u)):
                 label = f"strided {dt} views, {what}, causal={causal}"
                 errs[label] = check_bwd(label, q, k, v, causal, do)
     # autograd through FlashAttentionFn against autograd through the plain
@@ -2002,23 +2025,25 @@ def phase_flash_bwd(dev):
           f"plain version: {err}")
     log("[flash] backward: LSE == plain within " + f"{LSE_TOL} and dq, dk, "
         f"dv == attention_bwd_plain (f32 allclose {BWD_F32_TOL}, bf16 "
-        f"relative norm {FLASH_TOL['bfloat16']}) on the sweep, its bf16 "
-        f"twins, the timed shapes, strided views and dO, and through the "
+        f"relative norm {FLASH_TOL['bfloat16']}) and bitwise equal from run "
+        f"to run on the sweep, its bf16 twins, the timed shapes (the "
+        f"training cell's too), strided views and dO, and through the "
         f"autograd Function (max |diff| {float((got - want).abs().max()):.3g}"
         f"); (max |LSE diff|, max |grad diff|): "
         + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in errs.items()))
 
     rows = {}
-    for key, (B, S, H, hd, dt) in FLASH_TIMED.items():
+    for key, (B, S, H, hd, dt) in FLASH_BWD_TIMED.items():
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
         do = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 4, dev=dev)[0]
+        names = fa.BWD_KERNEL_NAMES[getattr(torch, dt)]
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
         reps = 20
         event_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
                                                           do), reps=reps)
         per_kernel = profiled_kernels_ms(
             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), reps,
-            fa.BWD_KERNELS, PROFILE_OUT)
+            names, PROFILE_OUT)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, mode="plain"), reps=3, warm=1)
         # yardstick, not used by the port: the backward of PyTorch's fused
@@ -2538,7 +2563,8 @@ def main() -> int:
     serve_run = phase_serve(dev)
     train_run = phase_train(dev)
 
-    from repro_torch.kernels.flash_attention import BWD_KERNELS as bwd_kernels
+    from repro_torch.kernels.flash_attention import (
+        BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
 
     main_mu = gain_rows[0]
     plan_row, large_row = deficit_rows
@@ -2619,10 +2645,12 @@ def main() -> int:
                 "(src/repro/models/layers.py:112); the port's attention "
                 "runs through the forward kernel, whose gradient these "
                 "kernels compute",
-        "kernels": list(bwd_kernels),
+        "kernels": list(bwd_names[torch.bfloat16]),
+        "kernels_float32": list(bwd_names[torch.float32]),
         "launches": sum(train_run["launches"][k] for k in bwd_kernels),
-        "launches_by_kernel": {k: train_run["launches"][k]
-                               for k in bwd_kernels},
+        "launches_by_kernel": {
+            name: train_run["launches"][k]
+            for k, name in zip(bwd_kernels, bwd_names[torch.bfloat16])},
         "launches_by_path": {"train": sum(train_run["launches"][k]
                                           for k in bwd_kernels)},
         **{k: bwd_rows["bfloat16"][k] for k in (
@@ -2632,6 +2660,7 @@ def main() -> int:
                         "torch.nn.functional.scaled_dot_product_attention",
         "float32": bwd_rows["float32"],
         "bfloat16_hd128": bwd_rows["bfloat16_hd128"],
+        "bfloat16_train": bwd_rows["bfloat16_train"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

@@ -518,6 +518,32 @@ struct Mma<128> {
   }
 };
 
+// f32 fragment values x[8 kk .. 8 kk + 7] as the bf16 A operand of k-step kk
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// d (+)= a b^T over HD for two K-major operands of 64-column panels: a's
+// rows at `a` (panel stride pa), b's at `b` (panel stride pb)
+template <int N, int HD>
+__device__ __forceinline__ void mma_abt(float (&d)[N / 2], uint32_t a,
+                                        int pa, uint32_t b, int pb) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {    // 16 head dims a k-step
+    const uint32_t col = (kk % 4) * 32;      // within a 64-column panel
+    Mma<N>::ss(d, sw128_desc(a + (kk / 4) * pa + col, 16),
+               sw128_desc(b + (kk / 4) * pb + col, 16), kk > 0);
+  }
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -565,13 +591,7 @@ __device__ __forceinline__ void softmax_step(
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
+  pack_a<BK>(pa, sc);
 }
 
 template <int HD, bool CAUSAL>
@@ -660,13 +680,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_kernel_wgmma(
 
   // S = Q K^T of the tile in stage st, issued and committed, not waited for
   auto issue_qk = [&](int st) {
-    const uint32_t ka = sk + st * L::kTile;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {   // 16 head dims a k-step
-      const uint32_t col = (kk % 4) * 32;     // within a 64-column panel
-      Mma<BK>::ss(s, sw128_desc(qa + (kk / 4) * L::kQPanel + col, 16),
-                  sw128_desc(ka + (kk / 4) * L::kKVPanel + col, 16), kk > 0);
-    }
+    mma_abt<BK, HD>(s, qa, L::kQPanel, sk + st * L::kTile, L::kKVPanel);
     wgmma_commit();
   };
   // the softmax of the key tile at k0 into P fragments p; edge tiles (keys
@@ -882,6 +896,7 @@ int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
                                           scale, stream);
 }
 
+
 // ---- backward: FlashAttention-2 in two deterministic passes -------------
 //
 // Given q, k, v, the forward's output o and row log-sum-exp lse (natural
@@ -891,30 +906,61 @@ int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
 //   D = rowsum(g o),  dv = P^T g,  dP = g v^T,  dS = P (dP - D),
 //   dq = scale dS k,  dk = scale dS^T q.
 //
-// flash_bwd_dot writes D (one warp a row). flash_bwd_dkdv gives each CTA a
-// tile of kBwdB keys of one (b, h): it holds K and V in shared memory and
-// walks the query tiles (from the diagonal on when causal), accumulating dK
-// and dV in f32 registers. flash_bwd_dq gives each CTA a tile of kBwdB
-// queries: it holds Q, g, lse and D and walks the key tiles up to the
+// flash_bwd_dot writes D (a row's 16-byte loads across 4 to 32 lanes of a
+// warp, so every lane has a whole 16 bytes of o and of g in flight); for
+// bf16 it also writes lse in
+// log2 units, both into rows padded to a multiple of 128 (D = 0 and lse =
+// +inf past S, so a padded query row has P = 0). Then a dK/dV pass and a
+// dQ pass: the dK/dV pass gives each CTA a tile of keys of one (b, h),
+// holds K and V and walks the query tiles (from the diagonal on when
+// causal), accumulating dK and dV; the dQ pass gives each CTA a tile of
+// queries, holds Q, g, lse and D and walks the key tiles up to the
 // diagonal, accumulating dQ. Each gradient is summed by one CTA in a fixed
-// order and written once: no atomics, the same bits on every run. P is
-// recomputed in f32 from lse (the bf16 forward rounds P to bf16 before PV;
-// that gap is inside the bf16 tolerance).
+// order and written once: no atomics, the same bits on every run. Both
+// passes recompute QK^T and g V^T (seven products against the bound's
+// five; a one-pass form with an atomic dQ would give other bits each run).
 //
 // Bound on this card: operations, the five products QK^T, g V^T, P^T g,
 // dS^T q and dS k over the visible (q, k) pairs (0.087 ms in bf16 at B = 4,
 // S = 2048, H = 16, hd = 64, causal, at 989 TFLOP/s; 1.28 ms at the f32
-// rate). This first form runs every product on the CUDA cores in f32 (bf16
-// inputs are widened as they are staged), recomputes QK^T and g V^T in both
-// passes (seven products), and stages tiles as f32 rows padded to HD + 1
-// floats, so a warp's 16 row reads of one column fall in 16 banks. Each of
-// 256 threads owns a 4 x 4 block of a 64 x 64 score tile (rows ty + 16 r,
-// columns tx + 16 c) and a 4 x HD/16 block of the gradient tile. Tensor
-// cores (wgmma) and a TMA ring are the next step.
+// rate). Two kernels each pass, one per input type:
+//
+// * bf16: flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma, on the tensor
+//   cores, built as the forward's wgmma kernel is: three warpgroups, one
+//   producer thread issuing TMA loads (4-D maps over the tensors' strides,
+//   128-byte swizzle, rows past S zero-filled) into a kBwdStages-deep ring
+//   under full and empty mbarriers, setmaxnreg moving registers to the two
+//   consumer warpgroups. dK/dV pass: 128 keys a CTA, 64 per consumer
+//   warpgroup, K and V resident; the ring brings 64-query tiles of Q and
+//   g with their lse and D rows (cp.async.bulk). With keys as wgmma's M,
+//   S^T = K Q^T and dP^T = V g^T are m64n64 products from shared memory;
+//   P^T = exp2(S^T scale log2 e - lse log2 e) runs on the fragment (masked
+//   above the diagonal on diagonal tiles only); dV += P^T g and dK += dS^T
+//   Q take P^T and dS^T = P^T (dP^T - D), rounded to bf16, as register A
+//   operands, with g and Q read MN-major through a transposed descriptor,
+//   as the forward's P V reads V. P never goes through shared memory. dQ
+//   pass: 128 queries a CTA, Q and g resident, lse and D in registers; the
+//   ring brings K and V tiles (128 keys at hd 64, 64 at hd 128); S = Q K^T
+//   and dP = g V^T from shared memory, dQ += dS K with dS in registers and
+//   K MN-major. Keys past S are masked on the ragged tile. Each epilogue
+//   scales, rounds, stages the tile in the warpgroup's own consumed rows
+//   and writes it with TMA stores, which clip rows past S. Both grids
+//   launch the longest walks first. A warpgroup's products run one after
+//   another within a tile, and the two warpgroups overlap each other: a
+//   form that issued tile t + 1's S^T and dP^T behind tile t's dK measured
+//   slower on the H100. A persistent grid is the next step. P and dS round
+//   to bf16 before their products (f32 accumulation), as the forward rounds
+//   P before PV.
+// * f32: flash_bwd_dkdv and flash_bwd_dq on the CUDA cores (TF32 would
+//   break the 1e-4 f32 gate): every product in f32, tiles staged as f32
+//   rows padded to HD + 1 floats, so a warp's 16 row reads of one column
+//   fall in 16 banks. Each of 256 threads owns a 4 x 4 block of a 64 x 64
+//   score tile (rows ty + 16 r, columns tx + 16 c) and a 4 x HD/16 block of
+//   the gradient tile.
 
-constexpr int kBwdB = 64;          // queries, and keys, per tile
+constexpr int kBwdB = 64;          // queries, and keys, per tile (f32)
 constexpr int kBwdThreads = 256;   // 16 x 16
-constexpr int kDotRows = 8;        // rows per CTA of flash_bwd_dot
+constexpr int kDotWarps = 8;       // warps per CTA of flash_bwd_dot
 constexpr int kLDP = kBwdB + 1;    // shared row stride of a score tile
 
 struct BwdStrides {   // element strides of the b, s and h axes of q, k, v, g
@@ -925,46 +971,76 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(32 * kDotRows) flash_bwd_dot(
-    const T* __restrict__ o, const T* __restrict__ g,
-    float* __restrict__ dsum, int B, int S, int H, long long ob,
-    long long os, long long oh, long long gb, long long gs, long long gh) {
-  const long long row = (long long)blockIdx.x * kDotRows + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * H * S) return;
-  // row = (b H + h) S + i, the layout of D and lse
-  const int i = (int)(row % S);
-  const int h = (int)((row / S) % H);
-  const int b = (int)(row / ((long long)S * H));
-  const T* orow = o + b * ob + i * os + h * oh;
-  const T* grow = g + b * gb + i * gs + h * gh;
+// the dot of 16 bytes of a and of b, in f32
+__device__ __forceinline__ float dot16(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 y = *reinterpret_cast<const float4*>(b);
+  return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, x.x * y.x)));
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
   float acc = 0.0f;
 #pragma unroll
-  for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f32(grow[d]), to_f32(orow[d]), acc);
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 w = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(u.y, w.y, fmaf(u.x, w.x, acc));
+  }
+  return acc;
+}
+
+// D of the rows (b H + h) pitch + i: rowsum(g o) for i < S, 0 past it; with
+// lse2, also lse log2 e there (+inf past S). A row is kLanes lanes of one
+// warp, each with one 16-byte load of o and of g (rows 16-byte aligned).
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kDotWarps) flash_bwd_dot(
+    const T* __restrict__ o, const T* __restrict__ g,
+    const float* __restrict__ lse, float* __restrict__ dsum,
+    float* __restrict__ lse2, int B, int S, int H, int pitch, long long ob,
+    long long os, long long oh, long long gb, long long gs, long long gh) {
+  constexpr int kVec = 16 / (int)sizeof(T);   // elements a 16-byte load
+  constexpr int kLanes = HD / kVec;           // lanes a row
+  const long long row = ((long long)blockIdx.x * 32 * kDotWarps +
+                         threadIdx.x) / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const bool in = row < (long long)B * H * pitch;
+  const int i = (int)(row % pitch);
+  const long long bh = row / pitch;
+  float acc = 0.0f;
+  if (in && i < S) {
+    const int h = (int)(bh % H);
+    const int b = (int)(bh / H);
+    acc = dot16(o + b * ob + i * os + h * oh + lane * kVec,
+                g + b * gb + i * gs + h * gh + lane * kVec);
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = kLanes / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) dsum[row] = acc;
+  if (!in || lane != 0) return;
+  dsum[row] = acc;                              // 0 past S
+  if (lse2 != nullptr)
+    lse2[row] = i < S ? lse[bh * S + i] * 1.4426950408889634f
+                      : __int_as_float(0x7f800000);   // +inf
 }
 
 // rows [r0, r0 + kBwdB) of one (b, h) slice (src points at row 0 of it; ss
 // is the row stride) into a shared f32 tile of row stride HD + 1, rows past
 // S as zeros
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long ss, int r0, int S) {
   for (int idx = threadIdx.x; idx < kBwdB * HD; idx += kBwdThreads) {
     const int r = idx / HD;
     const int d = idx % HD;
     const int s = r0 + r;
-    dst[r * (HD + 1) + d] = s < S ? to_f32(src[(long long)s * ss + d]) : 0.0f;
+    dst[r * (HD + 1) + d] = s < S ? src[(long long)s * ss + d] : 0.0f;
   }
 }
 
@@ -1079,13 +1155,13 @@ constexpr int bwd_smem_bytes(int score_tiles) {
          (int)sizeof(float);
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ dsum,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int H, BwdStrides st,
-    float scale) {
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+    BwdStrides st, float scale) {
   constexpr int kTile = kBwdB * (HD + 1);
   extern __shared__ float4 bwd_smem4[];
   float* ks = reinterpret_cast<float*>(bwd_smem4);
@@ -1103,11 +1179,11 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
   const int k0 = kt * kBwdB;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const T* qb = q + b * st.qb + h * st.qh;
-  const T* gb = g + b * st.gb + h * st.gh;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* gb = g + b * st.gb + h * st.gh;
   const long long rows = ((long long)b * H + h) * S;
-  load_tile<T, HD>(ks, k + b * st.kb + h * st.kh, st.ks, k0, S);
-  load_tile<T, HD>(vs, v + b * st.vb + h * st.vh, st.vs, k0, S);
+  load_tile<HD>(ks, k + b * st.kb + h * st.kh, st.ks, k0, S);
+  load_tile<HD>(vs, v + b * st.vb + h * st.vh, st.vs, k0, S);
 
   float dka[4][HD / 16], dva[4][HD / 16];
 #pragma unroll
@@ -1119,8 +1195,8 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
   for (int qt = CAUSAL ? kt : 0; qt < n_q; ++qt) {
     const int i0 = qt * kBwdB;
     __syncthreads();                  // the previous tiles are consumed
-    load_tile<T, HD>(qs, qb, st.qs, i0, S);
-    load_tile<T, HD>(gs, gb, st.gs, i0, S);
+    load_tile<HD>(qs, qb, st.qs, i0, S);
+    load_tile<HD>(gs, gb, st.gs, i0, S);
     load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
     __syncthreads();
     scores<HD, CAUSAL>(ps, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S, scale,
@@ -1136,18 +1212,18 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
     const long long at = (((long long)b * S + j) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < HD / 16; ++c) {
-      store_f32(dk + at + tx + 16 * c, scale * dka[r][c]);
-      store_f32(dv + at + tx + 16 * c, dva[r][c]);
+      dk[at + tx + 16 * c] = scale * dka[r][c];
+      dv[at + tx + 16 * c] = dva[r][c];
     }
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ dsum,
-    T* __restrict__ dq, int S, int H, BwdStrides st, float scale) {
+    float* __restrict__ dq, int S, int H, BwdStrides st, float scale) {
   constexpr int kTile = kBwdB * (HD + 1);
   extern __shared__ float4 bwd_smem4[];
   float* qs = reinterpret_cast<float*>(bwd_smem4);
@@ -1164,11 +1240,11 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
   const int i0 = qt * kBwdB;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const T* kb = k + b * st.kb + h * st.kh;
-  const T* vb = v + b * st.vb + h * st.vh;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
   const long long rows = ((long long)b * H + h) * S;
-  load_tile<T, HD>(qs, q + b * st.qb + h * st.qh, st.qs, i0, S);
-  load_tile<T, HD>(gs, g + b * st.gb + h * st.gh, st.gs, i0, S);
+  load_tile<HD>(qs, q + b * st.qb + h * st.qh, st.qs, i0, S);
+  load_tile<HD>(gs, g + b * st.gb + h * st.gh, st.gs, i0, S);
   load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
 
   float dqa[4][HD / 16];
@@ -1181,8 +1257,8 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBwdB;
     __syncthreads();                  // the previous tiles are consumed
-    load_tile<T, HD>(ks, kb, st.ks, k0, S);
-    load_tile<T, HD>(vs, vb, st.vs, k0, S);
+    load_tile<HD>(ks, kb, st.ks, k0, S);
+    load_tile<HD>(vs, vb, st.vs, k0, S);
     __syncthreads();
     scores<HD, CAUSAL>(nullptr, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S,
                        scale, ty, tx);
@@ -1196,7 +1272,434 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
     const long long at = (((long long)b * S + i) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < HD / 16; ++c)
-      store_f32(dq + at + tx + 16 * c, scale * dqa[r][c]);
+      dq[at + tx + 16 * c] = scale * dqa[r][c];
+  }
+}
+
+// ---- bf16 backward: wgmma products fed by a TMA ring ---------------------
+
+constexpr int kBwdStages = 3;     // depth of both passes' rings
+constexpr int kBwdKeys = 128;     // keys per CTA of the dK/dV pass
+constexpr int kBwdQ = 64;         // queries per tile of its ring
+constexpr int kRowsPad = 128;     // lse and D rows padded to a multiple
+
+// one contiguous run of `bytes` from global memory into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// keeps the registers of a wgmma A operand live, and in place, until the
+// products that read them are waited for
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// the accumulator fragment of a 64 x HD tile, scaled and rounded to bf16,
+// into 64 rows at `dst` (panel stride `panel`) in the TMA's 128-byte swizzle
+template <int HD>
+__device__ __forceinline__ void stage_bf16(uint32_t dst, int panel,
+                                           const float (&acc)[HD / 2],
+                                           float mul, int warp, int g,
+                                           int t4) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      const uint32_t addr = dst + (j / 8) * panel + r * 128 +
+                            (((j % 8) ^ (r & 7)) << 4) + 4 * t4;
+      const uint32_t val = pack_bf16(acc[4 * j + 2 * half] * mul,
+                                     acc[4 * j + 2 * half + 1] * mul);
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(val)
+                   : "memory");
+    }
+  }
+}
+
+template <int HD>
+struct BwdKVLayout {                  // shared memory of the dK/dV pass
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kKVPanel = kBwdKeys * 128;   // one panel of K or V
+  static constexpr int kKVTile = kPanels * kKVPanel;
+  static constexpr int kQPanel = kBwdQ * 128;       // one panel of Q or g
+  static constexpr int kQTile = kPanels * kQPanel;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVTile;
+  static constexpr int kQ = 2 * kKVTile;                  // the Q ring
+  static constexpr int kG = kQ + kBwdStages * kQTile;     // the g ring
+  static constexpr int kRows = kG + kBwdStages * kQTile;  // lse2 and D rows
+  static constexpr int kRowBytes = 2 * kBwdQ * 4;         // a stage's rows
+  static constexpr int kBar = kRows + kBwdStages * kRowBytes;
+  static constexpr int kBytes = kBar + 8 * (2 * kBwdStages + 1) + 1024;
+};
+
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkdv_wgmma(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap gmap,
+    const __grid_constant__ CUtensorMap dkmap,
+    const __grid_constant__ CUtensorMap dvmap,
+    const float* __restrict__ lse2, const float* __restrict__ dsum, int S,
+    int pitch, int H, float scale) {
+  using L = BwdKVLayout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_raw + (base - raw);   // generic view of base
+  const uint32_t sk = base + L::kK, sv = base + L::kV;
+  const uint32_t sq = base + L::kQ, sg = base + L::kG;
+  const uint32_t full = base + L::kBar;
+  const uint32_t empty = full + 8 * kBwdStages;
+  const uint32_t kvbar = empty + 8 * kBwdStages;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kc = blockIdx.y * kBwdKeys;     // causal: the longest walks first
+  const long long rows = ((long long)b * H + h) * pitch;
+  // query tiles from the diagonal on: tiles wholly before a key tile see
+  // none of its keys
+  const int t0 = CAUSAL ? kc / kBwdQ : 0;
+  const int n_tiles = (S + kBwdQ - 1) / kBwdQ - t0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers / 32);   // one arrival a warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {    // the producer: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(kvbar, 2 * L::kKVTile);
+      for (int p = 0; p < L::kPanels; ++p)
+        for (int half = 0; half < kBwdKeys / 64; ++half) {
+          const uint32_t off = p * L::kKVPanel + half * 64 * 128;
+          tma_load(sk + off, &kmap, kvbar, 64 * p, h, kc + 64 * half, b);
+          tma_load(sv + off, &vmap, kvbar, 64 * p, h, kc + 64 * half, b);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kBwdStages;
+        const int i0 = (t0 + t) * kBwdQ;
+        mbar_wait(empty + 8 * st, ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * L::kQTile + L::kRowBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(sq + st * L::kQTile + p * L::kQPanel, &qmap, full + 8 * st,
+                   64 * p, h, i0, b);
+          tma_load(sg + st * L::kQTile + p * L::kQPanel, &gmap, full + 8 * st,
+                   64 * p, h, i0, b);
+        }
+        const uint32_t rs = base + L::kRows + st * L::kRowBytes;
+        bulk_load(rs, lse2 + rows + i0, kBwdQ * 4, full + 8 * st);
+        bulk_load(rs + kBwdQ * 4, dsum + rows + i0, kBwdQ * 4, full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128;   // consumer warpgroup: 64 keys
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int kw = kc + 64 * wg;        // this warpgroup's first key
+  const bool live = kw < S;
+  const int key0 = kw + 16 * warp + g;   // keys key0 and key0 + 8
+  const float sl2 = scale * 1.4426950408889634f;
+  const uint32_t ka = sk + wg * 64 * 128;   // this warpgroup's K and V rows
+  const uint32_t va = sv + wg * 64 * 128;
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.0f;
+  float s[32], dp[32];               // S^T and dP^T: 64 keys x 64 queries
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+  uint32_t pa[4][4], dsa[4][4];      // P^T and dS^T in bf16, 4 k-steps
+
+  mbar_wait(kvbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kBwdStages;
+    const int i0 = (t0 + t) * kBwdQ;
+    mbar_wait(full + 8 * st, (t / kBwdStages) & 1);
+    // a tile whose queries all precede this warpgroup's keys is consumed
+    // without a product
+    if (live && !(CAUSAL && kw > i0 + kBwdQ - 1)) {
+      const uint32_t qs = sq + st * L::kQTile;
+      const uint32_t gs = sg + st * L::kQTile;
+      const float* lrow =
+          reinterpret_cast<const float*>(gbase + L::kRows + st * L::kRowBytes);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_abt<64, HD>(s, ka, L::kKVPanel, qs, L::kQPanel);    // S^T = K Q^T
+      wgmma_commit();
+      mma_abt<64, HD>(dp, va, L::kKVPanel, gs, L::kQPanel);   // dP^T = V g^T
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      // P^T = exp2(S^T scale log2 e - lse2) with lse2 of this thread's
+      // query columns 8 j + 2 t4 + {0, 1}; above the diagonal 0
+      const bool diag = CAUSAL && kw + 63 > i0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lrow + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = ex2(fmaf(s[i], sl2, -((e & 1) ? l2.y : l2.x)));
+          if (diag && key0 + 8 * (e / 2) > i0 + 8 * j + 2 * t4 + (e & 1))
+            p = 0.0f;
+          s[i] = p;
+        }
+      }
+      pack_a<64>(pa, s);
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdQ / 16; ++kk)   // dV += P^T g
+        Mma<HD>::rs(dv, pa[kk], sw128_desc(gs + kk * 16 * 128, L::kQPanel));
+      wgmma_commit();
+      wgmma_wait<1>();                          // dP^T is done
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {             // dS^T = P^T (dP^T - D)
+        const float2 d =
+            *reinterpret_cast<const float2*>(lrow + kBwdQ + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dp[i] = s[i] * (dp[i] - ((e & 1) ? d.y : d.x));
+        }
+      }
+      pack_a<64>(dsa, dp);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdQ / 16; ++kk)   // dK += dS^T Q
+        Mma<HD>::rs(dk, dsa[kk], sw128_desc(qs + kk * 16 * 128, L::kQPanel));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(dsa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);   // the stage is consumed
+  }
+  if (!live) return;
+
+  // epilogue: dK scale and dV in bf16, staged in this warpgroup's own K and
+  // V rows (consumed), then one TMA store per panel, clipped at S
+  stage_bf16<HD>(ka, L::kKVPanel, dk, scale, warp, g, t4);
+  stage_bf16<HD>(va, L::kKVPanel, dv, 1.0f, warp, g, t4);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (tid == 0) {
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_store(&dkmap, ka + p * L::kKVPanel, 64 * p, h, kw, b);
+      tma_store(&dvmap, va + p * L::kKVPanel, 64 * p, h, kw, b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+template <int HD>
+struct BwdQLayout {                   // shared memory of the dQ pass
+  static constexpr int kBK = HD == 64 ? 128 : 64;   // keys a ring tile
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kQPanel = kWgBQ * 128;       // one panel of Q or g
+  static constexpr int kKVPanel = kBK * 128;        // one panel of K or V
+  static constexpr int kTile = kPanels * kKVPanel;
+  static constexpr int kQ = 0;
+  static constexpr int kG = kPanels * kQPanel;
+  static constexpr int kK = 2 * kPanels * kQPanel;  // the K ring
+  static constexpr int kV = kK + kBwdStages * kTile;  // the V ring
+  static constexpr int kBar = kV + kBwdStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (2 * kBwdStages + 1) + 1024;
+};
+
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap gmap,
+    const __grid_constant__ CUtensorMap dqmap,
+    const float* __restrict__ lse2, const float* __restrict__ dsum, int S,
+    int pitch, int H, float scale) {
+  using L = BwdQLayout<HD>;
+  constexpr int BK = L::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + L::kQ, sg = base + L::kG;
+  const uint32_t sk = base + L::kK, sv = base + L::kV;
+  const uint32_t full = base + L::kBar;
+  const uint32_t empty = full + 8 * kBwdStages;
+  const uint32_t qbar = empty + 8 * kBwdStages;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;  // longest first
+  const int q_last = min(q0 + kWgBQ, S) - 1;
+  // key tiles wholly above the diagonal are never loaded
+  const int n_tiles = CAUSAL ? q_last / BK + 1 : (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers / 32);   // one arrival a warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {    // the producer: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, 2 * L::kPanels * L::kQPanel);
+      for (int p = 0; p < L::kPanels; ++p)
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t off = p * L::kQPanel + half * 64 * 128;
+          tma_load(sq + off, &qmap, qbar, 64 * p, h, q0 + 64 * half, b);
+          tma_load(sg + off, &gmap, qbar, 64 * p, h, q0 + 64 * half, b);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kBwdStages;
+        mbar_wait(empty + 8 * st, ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * L::kTile);
+        for (int p = 0; p < L::kPanels; ++p)
+          for (int half = 0; half < BK / 64; ++half) {
+            const uint32_t off = st * L::kTile + p * L::kKVPanel +
+                                 half * 64 * 128;
+            tma_load(sk + off, &kmap, full + 8 * st, 64 * p, h,
+                     t * BK + 64 * half, b);
+            tma_load(sv + off, &vmap, full + 8 * st, 64 * p, h,
+                     t * BK + 64 * half, b);
+          }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128;   // consumer warpgroup: 64 query rows
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int wg_first = q0 + 64 * wg;
+  const int wg_last = wg_first + 63;
+  const int row0 = wg_first + 16 * warp + g;   // rows row0 and row0 + 8
+  const float sl2 = scale * 1.4426950408889634f;
+  const uint32_t qa = sq + wg * 64 * 128;      // this warpgroup's Q, g rows
+  const uint32_t ga = sg + wg * 64 * 128;
+  // tiles wholly above this warpgroup's rows (when causal), and every tile
+  // of a warpgroup wholly past S, are consumed without a product
+  const int n_mine = wg_first >= S ? 0
+                     : CAUSAL ? min(n_tiles, wg_last / BK + 1) : n_tiles;
+  const long long rows = ((long long)b * H + h) * pitch;
+  float l2[2], dd[2];                 // lse2 and D of rows row0, row0 + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l2[r] = lse2[rows + row0 + 8 * r];
+    dd[r] = dsum[rows + row0 + 8 * r];
+  }
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+  float s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.0f;
+  uint32_t dsa[BK / 16][4];           // dS in bf16
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_mine; ++t) {
+    const int st = t % kBwdStages;
+    const int k0 = t * BK;
+    const uint32_t ks = sk + st * L::kTile;
+    mbar_wait(full + 8 * st, (t / kBwdStages) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt<BK, HD>(s, qa, L::kQPanel, ks, L::kKVPanel);    // S = Q K^T
+    wgmma_commit();
+    mma_abt<BK, HD>(dp, ga, L::kQPanel, sv + st * L::kTile,
+                    L::kKVPanel);                           // dP = g V^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    // edge tiles (keys past S or above a row of this warpgroup) are masked
+    const bool edge = k0 + BK > S || (CAUSAL && k0 + BK - 1 > wg_first);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) & 1;
+      float p = ex2(fmaf(s[i], sl2, -l2[r]));
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+        if (key >= S || (CAUSAL && key > row0 + 8 * r)) p = 0.0f;
+      }
+      s[i] = p;
+    }
+    wgmma_wait<0>();                            // dP is done
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - dd[(i / 2) & 1]);
+    pack_a<BK>(dsa, dp);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)        // dQ += dS K
+      Mma<HD>::rs(dq, dsa[kk], sw128_desc(ks + kk * 16 * 128, L::kKVPanel));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);   // the stage is consumed
+  }
+  for (int t = n_mine; t < n_tiles; ++t) {
+    const int st = t % kBwdStages;
+    mbar_wait(full + 8 * st, (t / kBwdStages) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+  if (wg_first >= S) return;
+
+  // epilogue: dQ scale in bf16, staged in this warpgroup's Q rows
+  // (consumed), then one TMA store per panel, clipped at S
+  stage_bf16<HD>(qa, L::kQPanel, dq, scale, warp, g, t4);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (tid == 0) {
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_store(&dqmap, qa + p * L::kQPanel, 64 * p, h, wg_first, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -1217,58 +1720,115 @@ cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
 }
 
 template <typename T, int HD>
-int launch_bwd_dot(const void* o, const void* g, float* dsum, int B, int S,
-                   int H, const long long* st, cudaStream_t stream) {
-  const long long rows = (long long)B * H * S;
-  const unsigned grid = (unsigned)((rows + kDotRows - 1) / kDotRows);
-  flash_bwd_dot<T, HD><<<grid, 32 * kDotRows, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(g), dsum, B, S, H,
-      st[0], st[1], st[2], st[3], st[4], st[5]);
+int launch_bwd_dot(const void* o, const void* g, const float* lse,
+                   float* dsum, float* lse2, int B, int S, int H, int pitch,
+                   const long long* st, cudaStream_t stream) {
+  constexpr int kRowsPerCta = 32 * kDotWarps / (HD * (int)sizeof(T) / 16);
+  const long long rows = (long long)B * H * pitch;
+  const unsigned grid = (unsigned)((rows + kRowsPerCta - 1) / kRowsPerCta);
+  flash_bwd_dot<T, HD><<<grid, 32 * kDotWarps, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(g), lse, dsum, lse2, B,
+      S, H, pitch, st[0], st[1], st[2], st[3], st[4], st[5]);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 int launch_bwd(int pass, const void* q, const void* k, const void* v,
                const void* g, const float* lse, const float* dsum, void* d0,
                void* d1, int B, int S, int H, const BwdStrides& st,
                float scale, cudaStream_t stream) {
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kBwdB - 1) / kBwdB));
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(g);
   cudaError_t err;
   if (pass == 0) {
     static unsigned long long set = 0;
     constexpr int kSmem = bwd_smem_bytes<HD>(2);
-    auto kernel = flash_bwd_dkdv<T, HD, CAUSAL>;
+    auto kernel = flash_bwd_dkdv<HD, CAUSAL>;
     err = allow_smem(kernel, kSmem, &set);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kBwdThreads, kSmem, stream>>>(
-        qt, kt, vt, gt, lse, dsum, static_cast<T*>(d0), static_cast<T*>(d1),
-        S, H, st, scale);
+        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0),
+        static_cast<float*>(d1), S, H, st, scale);
   } else {
     static unsigned long long set = 0;
     constexpr int kSmem = bwd_smem_bytes<HD>(1);
-    auto kernel = flash_bwd_dq<T, HD, CAUSAL>;
+    auto kernel = flash_bwd_dq<HD, CAUSAL>;
     err = allow_smem(kernel, kSmem, &set);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kBwdThreads, kSmem, stream>>>(
-        qt, kt, vt, gt, lse, dsum, static_cast<T*>(d0), S, H, st, scale);
+        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0), S, H, st, scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_bwd_causal(int pass, int causal, const void* q, const void* k,
-                      const void* v, const void* g, const float* lse,
-                      const float* dsum, void* d0, void* d1, int B, int S,
-                      int H, const BwdStrides& st, float scale,
+template <int HD, bool CAUSAL>
+int launch_bwd_wgmma(int pass, const void* q, const void* k, const void* v,
+                     const void* g, const float* lse2, const float* dsum,
+                     void* d0, void* d1, int B, int S, int H, int pitch,
+                     const long long* strides, float scale,
+                     cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return (int)err;
+  // q, k, v, g through their strides; the gradients contiguous
+  const long long out_st[3] = {(long long)S * H * HD, (long long)H * HD, HD};
+  const void* ptrs[6] = {q, k, v, g, d0, d1};
+  CUtensorMap maps[6];
+  const int n_maps = pass == 0 ? 6 : 5;
+  for (int i = 0; i < n_maps; ++i) {
+    const CUresult res = encode_map(encode, &maps[i], ptrs[i], B, S, H, HD,
+                                    i < 4 ? strides + 3 * i : out_st, 64);
+    if (res != CUDA_SUCCESS) return -(int)res;
+  }
+  if (pass == 0) {
+    using L = BwdKVLayout<HD>;
+    static unsigned long long set = 0;
+    auto kernel = flash_bwd_dkdv_wgmma<HD, CAUSAL>;
+    err = allow_smem(kernel, L::kBytes, &set);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)(B * H),
+                    (unsigned)((S + kBwdKeys - 1) / kBwdKeys));
+    kernel<<<grid, kWgThreads, L::kBytes, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], lse2, dsum, S,
+        pitch, H, scale);
+  } else {
+    using L = BwdQLayout<HD>;
+    static unsigned long long set = 0;
+    auto kernel = flash_bwd_dq_wgmma<HD, CAUSAL>;
+    err = allow_smem(kernel, L::kBytes, &set);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)(B * H), (unsigned)((S + kWgBQ - 1) / kWgBQ));
+    kernel<<<grid, kWgThreads, L::kBytes, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], maps[4], lse2, dsum, S, pitch, H,
+        scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd_causal(int pass, int causal, int dtype, const void* q,
+                      const void* k, const void* v, const void* g,
+                      const float* lse, const float* dsum, void* d0,
+                      void* d1, int B, int S, int H, int pitch,
+                      const long long* strides, float scale,
                       cudaStream_t stream) {
-  return causal ? launch_bwd<T, HD, true>(pass, q, k, v, g, lse, dsum, d0,
-                                          d1, B, S, H, st, scale, stream)
-                : launch_bwd<T, HD, false>(pass, q, k, v, g, lse, dsum, d0,
-                                           d1, B, S, H, st, scale, stream);
+  if (dtype == 1)
+    return causal ? launch_bwd_wgmma<HD, true>(pass, q, k, v, g, lse, dsum,
+                                               d0, d1, B, S, H, pitch,
+                                               strides, scale, stream)
+                  : launch_bwd_wgmma<HD, false>(pass, q, k, v, g, lse, dsum,
+                                                d0, d1, B, S, H, pitch,
+                                                strides, scale, stream);
+  const BwdStrides st = {strides[0], strides[1], strides[2],  strides[3],
+                         strides[4], strides[5], strides[6],  strides[7],
+                         strides[8], strides[9], strides[10], strides[11]};
+  return causal ? launch_bwd<HD, true>(pass, q, k, v, g, lse, dsum, d0, d1,
+                                       B, S, H, st, scale, stream)
+                : launch_bwd<HD, false>(pass, q, k, v, g, lse, dsum, d0, d1,
+                                        B, S, H, st, scale, stream);
 }
 
 }  // namespace
@@ -1310,33 +1870,46 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// flash_bwd_dot on `stream`: dsum[b, h, i] = sum_d g[b, i, h, d] o[b, i, h,
-// d] in f32. `strides`: the b, s, h element strides of o, then of g (6
-// values; hd contiguous). Returns as flash_attention_launch.
+// flash_bwd_dot on `stream`: dsum[(b H + h) pitch + i] = sum_d g[b, i, h, d]
+// o[b, i, h, d] in f32 for i < S, 0 for S <= i < pitch; when `lse2` is not
+// null also lse2[(b H + h) pitch + i] = lse[b, h, i] log2 e (+inf past S),
+// the bf16 passes' input. `strides`: the b, s, h element strides of o, then
+// of g (6 values; hd contiguous, every row 16-byte aligned). Returns as
+// flash_attention_launch.
 extern "C" int flash_attention_bwd_dot_launch(const void* o, const void* g,
-                                              float* dsum, int B, int S,
+                                              const float* lse, float* dsum,
+                                              float* lse2, int B, int S,
                                               int H, int hd, int dtype,
+                                              int pitch,
                                               const long long* strides,
                                               void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (pitch < S) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && hd == 64)
-    return launch_bwd_dot<float, 64>(o, g, dsum, B, S, H, strides, s);
+    return launch_bwd_dot<float, 64>(o, g, lse, dsum, lse2, B, S, H, pitch,
+                                     strides, s);
   if (dtype == 0 && hd == 128)
-    return launch_bwd_dot<float, 128>(o, g, dsum, B, S, H, strides, s);
+    return launch_bwd_dot<float, 128>(o, g, lse, dsum, lse2, B, S, H, pitch,
+                                      strides, s);
   if (dtype == 1 && hd == 64)
-    return launch_bwd_dot<__nv_bfloat16, 64>(o, g, dsum, B, S, H, strides, s);
+    return launch_bwd_dot<__nv_bfloat16, 64>(o, g, lse, dsum, lse2, B, S, H,
+                                             pitch, strides, s);
   if (dtype == 1 && hd == 128)
-    return launch_bwd_dot<__nv_bfloat16, 128>(o, g, dsum, B, S, H, strides,
-                                              s);
+    return launch_bwd_dot<__nv_bfloat16, 128>(o, g, lse, dsum, lse2, B, S, H,
+                                              pitch, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The two gradient passes on `stream`: pass 0 is flash_bwd_dkdv (d0 = dk,
-// d1 = dv), pass 1 flash_bwd_dq (d0 = dq, d1 unused). q, k, v, g are read
+// The two gradient passes on `stream`: pass 0 is the dK/dV pass (d0 = dk,
+// d1 = dv), pass 1 the dQ pass (d0 = dq, d1 unused). q, k, v, g are read
 // through `strides` (the b, s, h element strides of q, k, v, g: 12 values;
-// hd contiguous); lse and dsum are [B, H, S] f32; the gradients are written
-// contiguous [B, S, H, hd] in the inputs' type. Returns as
+// hd contiguous; for bf16 also what the tensor maps need, as for
+// flash_attention_launch); the gradients are written contiguous [B, S, H,
+// hd] in the inputs' type. `lse` and `dsum` are flash_bwd_dot's rows of
+// pitch `pitch`: for f32 (flash_bwd_dkdv, flash_bwd_dq) the natural-log LSE
+// with pitch == S; for bf16 (flash_bwd_dkdv_wgmma, flash_bwd_dq_wgmma) its
+// lse2, with pitch a multiple of 128 (kRowsPad) of at least S. Returns as
 // flash_attention_launch.
 extern "C" int flash_attention_bwd_launch(int pass, const void* q,
                                           const void* k, const void* v,
@@ -1344,27 +1917,19 @@ extern "C" int flash_attention_bwd_launch(int pass, const void* q,
                                           const float* dsum, void* d0,
                                           void* d1, int B, int S, int H,
                                           int hd, int dtype, int causal,
-                                          const long long* strides,
+                                          int pitch, const long long* strides,
                                           float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (pass != 0 && pass != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 ? pitch != S : (pitch < S || pitch % kRowsPad != 0))
+    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const BwdStrides st = {strides[0], strides[1], strides[2],  strides[3],
-                         strides[4], strides[5], strides[6],  strides[7],
-                         strides[8], strides[9], strides[10], strides[11]};
-  if (dtype == 0 && hd == 64)
-    return launch_bwd_causal<float, 64>(pass, causal, q, k, v, g, lse, dsum,
-                                        d0, d1, B, S, H, st, scale, s);
-  if (dtype == 0 && hd == 128)
-    return launch_bwd_causal<float, 128>(pass, causal, q, k, v, g, lse, dsum,
-                                         d0, d1, B, S, H, st, scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch_bwd_causal<__nv_bfloat16, 64>(pass, causal, q, k, v, g,
-                                                lse, dsum, d0, d1, B, S, H,
-                                                st, scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch_bwd_causal<__nv_bfloat16, 128>(pass, causal, q, k, v, g,
-                                                 lse, dsum, d0, d1, B, S, H,
-                                                 st, scale, s);
+  if (hd == 64)
+    return launch_bwd_causal<64>(pass, causal, dtype, q, k, v, g, lse, dsum,
+                                 d0, d1, B, S, H, pitch, strides, scale, s);
+  if (hd == 128)
+    return launch_bwd_causal<128>(pass, causal, dtype, q, k, v, g, lse, dsum,
+                                  d0, d1, B, S, H, pitch, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

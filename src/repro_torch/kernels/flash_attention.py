@@ -30,10 +30,14 @@ the reference's Pallas kernel is forward-only, and its training
 differentiates the plain chunked attention of
 ``repro.models.layers.attention_train`` (``layers.py:112``) through XLA.
 The port's model attention runs through the forward kernel, so a gradient
-through it needs kernels of its own: ``flash_bwd_dot`` (``D = rowsum(dO
-O)``), ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (FlashAttention-2's two
-passes, each gradient summed by one CTA in a fixed order: the same bits on
-every run). :class:`FlashAttentionFn` saves ``q, k, v, o, lse`` in the
+through it needs kernels of its own, in three stages: ``flash_bwd_dot``
+(``D = rowsum(dO O)``), then FlashAttention-2's two passes, a dK/dV pass
+and a dQ pass, each gradient summed by one CTA in a fixed order (no
+atomics: the same bits on every run). bf16 inputs go to
+``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma`` (``wgmma`` on the
+tensor cores, fed by a TMA ring; P and dS rounded to bf16 before their
+products), f32 inputs to ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (the CUDA
+cores, in f32). :class:`FlashAttentionFn` saves ``q, k, v, o, lse`` in the
 forward and launches them in the backward; :func:`flash_attention` takes it
 only when the mode resolves to the kernel and a gradient is needed, so
 serving keeps the forward without the LSE store. On the CPU autograd runs
@@ -56,6 +60,14 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
+# the kernel each backward stage launches, by input type (the names the
+# profiler shows; the stages' counts stay under BWD_KERNELS)
+BWD_KERNEL_NAMES = {
+    torch.bfloat16: ("flash_bwd_dot", "flash_bwd_dkdv_wgmma",
+                     "flash_bwd_dq_wgmma"),
+    torch.float32: BWD_KERNELS,
+}
+ROWS_PAD = 128   # the bf16 passes' lse and D rows: padded to a multiple
 
 LAUNCHES = 0     # forward kernel launches made by flash_attention (only there)
 # backward kernel launches, one count per kernel, made by the backward
@@ -154,11 +166,11 @@ def _launcher():
         fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [strides, ctypes.c_float, ctypes.c_void_p])
         dot = lib.flash_attention_bwd_dot_launch
-        dot.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        dot.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [strides, ctypes.c_void_p])
         bwd = lib.flash_attention_bwd_launch
         bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * 6
+                        + [ctypes.c_int] * 7
                         + [strides, ctypes.c_float, ctypes.c_void_p])
         for fn in (fwd, dot, bwd):
             fn.restype = ctypes.c_int
@@ -247,9 +259,12 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool = False):
 def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
     """Launch the three backward kernels of ``csrc/flash_attention.cu`` on
     the current stream; returns (dq, dk, dv), contiguous, in q's dtype.
-    They read q, k, v, o and do through their strides with scalar loads,
-    so only a tensor whose head dim is not contiguous (``stride(-1) !=
-    1``) is copied first."""
+    The kernels read q, k, v, o and do through their strides
+    (``flash_bwd_dot`` with 16-byte loads, the bf16 passes through TMA
+    tensor maps), so a tensor is copied first unless :func:`_rows_aligned`
+    (a transposed dO is read in place). For bf16, ``flash_bwd_dot`` also
+    writes lse in log2 units; both its outputs have rows of ``S`` rounded
+    up to :data:`ROWS_PAD` (D = 0 and lse = +inf past S)."""
     B, S, H, hd = q.shape
     dev = q.device
     _check_inputs(q, (("k", k), ("v", v), ("o", o), ("do", do)),
@@ -259,9 +274,13 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
         raise ValueError(f"flash attention backward: lse is {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}, expected a "
                          f"contiguous float32 {(B, H, S)} on {dev}")
-    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous()
+    q, k, v, o, do = (x if _rows_aligned(x)
+                      else x.clone(memory_format=torch.contiguous_format)
                       for x in (q, k, v, o, do))
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    pitch = -(-S // ROWS_PAD) * ROWS_PAD if bf16 else S
+    dsum = torch.empty((B, H, pitch), dtype=torch.float32, device=dev)
+    lse2 = torch.empty_like(dsum) if bf16 else None
     dq, dk, dv = (torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
                   for _ in range(3))
     fns = _launcher()
@@ -269,21 +288,24 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
     dot_strides = (ctypes.c_longlong * 6)(*o.stride()[:3], *do.stride()[:3])
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    rows = lse2 if bf16 else lse      # the passes' LSE rows
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr())
+            rows.data_ptr(), dsum.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(fns["dot"](o.data_ptr(), do.data_ptr(), dsum.data_ptr(),
-                             B, S, H, hd, dt, dot_strides, stream),
+        _raise_on(fns["dot"](o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                             dsum.data_ptr(),
+                             0 if lse2 is None else lse2.data_ptr(), B, S, H,
+                             hd, dt, pitch, dot_strides, stream),
                   "flash_bwd_dot")
         _count("flash_bwd_dot")
         _raise_on(fns["bwd"](0, *ptrs, dk.data_ptr(), dv.data_ptr(), B, S,
-                             H, hd, dt, int(causal), strides, hd ** -0.5,
-                             stream), "flash_bwd_dkdv")
+                             H, hd, dt, int(causal), pitch, strides,
+                             hd ** -0.5, stream), "flash_bwd_dkdv")
         _count("flash_bwd_dkdv")
         _raise_on(fns["bwd"](1, *ptrs, dq.data_ptr(), 0, B, S, H, hd, dt,
-                             int(causal), strides, hd ** -0.5, stream),
-                  "flash_bwd_dq")
+                             int(causal), pitch, strides, hd ** -0.5,
+                             stream), "flash_bwd_dq")
         _count("flash_bwd_dq")
     return dq, dk, dv
 

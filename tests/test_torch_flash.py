@@ -48,6 +48,12 @@ BF16_TWINS = [c[:5] + ("bfloat16",) for c in SWEEP if c[5] == "float32"]
 # keys per tile of the bf16 kernel (csrc/flash_attention.cu, Layout<HD>::kBK)
 WGMMA_BK = {64: 128, 128: 64}
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+# the bf16 backward kernels' tiles (csrc/flash_attention.cu): queries per
+# ring tile of the dK/dV pass (kBwdQ) and keys per ring tile of the dQ pass
+# (BwdQLayout<HD>::kBK)
+WGMMA_BWD_BQ = 64
+WGMMA_BWD_BK = {64: 128, 128: 64}
 
 
 def _inputs(B, S, H, hd, seed):
@@ -89,13 +95,15 @@ def test_plain_matches_jnp_oracle(B, S, H, hd, causal, dtype):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
-def _emulate_bf16_kernel(q, k, v, causal):
+def _emulate_bf16_kernel(q, k, v, causal, return_lse=False):
     """The bf16 kernel's arithmetic in torch: key tiles of WGMMA_BK[hd], an
     online softmax in f32 in base 2 (the running max, from NEG, of the raw
     dots times scale * log2 e; P = exp2(dot * scale * log2 e - max)),
     masked scores as an explicit 0, P rounded to bf16 before the PV product
     with f32 accumulation, l the f32 sum of the unrounded P, and
-    acc / max(l, 1e-30) rounded once. Only this test file uses it."""
+    acc / max(l, 1e-30) rounded once. ``return_lse``: also the rows' LSE
+    as the kernel stores it, (max + log2 l) ln 2, [B, H, S] f32. Only this
+    test file uses it."""
     B, S, H, hd = q.shape
     bk = WGMMA_BK[hd]
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B,H,S,hd]
@@ -119,7 +127,10 @@ def _emulate_bf16_kernel(q, k, v, causal):
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p.bfloat16().float() @ vt
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
+    if return_lse:
+        return out, ((m + torch.log2(l)) * LN2)[..., 0]
+    return out
 
 
 @pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
@@ -252,6 +263,65 @@ def test_plain_backward_matches_jax_grad(B, S, H, hd, causal, dtype,
             np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol)
 
 
+def _emulate_bf16_bwd_kernels(q, k, v, o, lse, do, causal):
+    """The bf16 backward kernels' arithmetic in torch: D = rowsum(do o) and
+    lse2 = lse * log2 e in f32 (flash_bwd_dot); P = exp2(dot * scale *
+    log2 e - lse2) from the raw f32 dots (the fused multiply-add rounded
+    once), masked entries 0; dS = P (dP - D) from the f32 P; P and dS
+    rounded to bf16 before their products, with f32 sums over the dK/dV
+    pass's query tiles of WGMMA_BWD_BQ and the dQ pass's key tiles of
+    WGMMA_BWD_BK[hd]; dq and dk times scale, then each gradient rounded
+    once. Only this test file uses it."""
+    B, S, H, hd = q.shape
+    qf, kf, vf, gf = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    dsum = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    lse2 = lse[..., None] * torch.tensor(LOG2E, dtype=torch.float32)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    sl2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    s = qf @ kf.transpose(-1, -2)                       # [B, H, S, S]
+    p = torch.exp2((s.double() * sl2.double() - lse2.double()).float())
+    if causal:
+        p = p.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), 0.0)
+    ds = p * (gf @ vf.transpose(-1, -2) - dsum)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for i0 in range(0, S, WGMMA_BWD_BQ):        # the dK/dV pass's ring
+        i1 = min(i0 + WGMMA_BWD_BQ, S)
+        dv += pb[..., i0:i1, :].transpose(-1, -2) @ gf[..., i0:i1, :]
+        dk += dsb[..., i0:i1, :].transpose(-1, -2) @ qf[..., i0:i1, :]
+    bk = WGMMA_BWD_BK[hd]
+    for k0 in range(0, S, bk):                  # the dQ pass's ring
+        dq += dsb[..., k0:k0 + bk] @ kf[..., k0:k0 + bk, :]
+    return tuple(x.transpose(1, 2).to(q.dtype)
+                 for x in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("reference", ["oracle", "model_attention"])
+@pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
+def test_bf16_bwd_kernel_arithmetic_matches_jax_grad(B, S, H, hd, causal,
+                                                     reference):
+    """Rounding P and dS to bf16 before their products, as the bf16
+    backward kernels do, on the (o, lse) of the bf16 forward kernel's
+    arithmetic, keeps the gradients within the sweep's bf16 tolerance of
+    jax.vjp of the reference's attention (computed as
+    test_plain_backward_matches_jax_grad computes it)."""
+    xs = _inputs(B, S, H, hd, seed=B * S + H + 3)
+    g = np.random.default_rng(S).standard_normal((B, S, H, hd)) \
+        .astype(np.float32)
+    fn = r_ref if reference == "oracle" else r_gqa
+    _, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, causal=causal),
+                     *_jax(xs, "bfloat16"))
+    want = vjp(jnp.asarray(g, jnp.bfloat16))
+    q, k, v = _torch(xs, "bfloat16")
+    do = torch.from_numpy(g).to(torch.bfloat16)
+    o, lse = _emulate_bf16_kernel(q, k, v, causal, return_lse=True)
+    got = _emulate_bf16_bwd_kernels(q, k, v, o, lse, do, causal)
+    tol = TOL["bfloat16"]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("B,S,H,hd,causal", [c[:5] for c in SWEEP])
 def test_plain_lse_matches_jax_logsumexp(B, S, H, hd, causal):
     xs = _inputs(B, S, H, hd, seed=B * S + H + 4)
@@ -307,16 +377,20 @@ def test_plain_backward_chunks_change_nothing(chunk_rows, monkeypatch):
 def test_cuda_backward_matches_plain():
     """The forward kernels' LSE and the backward kernels against the plain
     versions on the card: the sweep's shapes and their bf16 twins, the
-    model's shape in both types, strided views and output gradients (one
-    transposed, read in place; one with a strided head dim, copied), and
-    autograd through FlashAttentionFn, one launch of each backward kernel
-    per backward."""
+    model's shape in both types and in bf16 at hd=128, the training cell's
+    shape (B=8, S=256, H=16, bf16), strided views and output gradients (one
+    transposed, read in place; one with a strided head dim and one whose
+    rows are not 16-byte aligned, both copied), each backward bitwise equal
+    to a second one of the same inputs, and autograd through
+    FlashAttentionFn, one launch of each backward kernel per backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m cuda on the GPU host)")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = SWEEP + BF16_TWINS + [(4, 2048, 16, 64, True, dt)
                                   for dt in ("bfloat16", "float32")]
+    cases += [(4, 2048, 8, 128, True, "bfloat16"),
+              (8, 256, 16, 64, True, "bfloat16")]
 
     def check(q, k, v, do, causal):
         o, lse = tf.flash_attention(q, k, v, causal=causal, return_lse=True)
@@ -324,6 +398,8 @@ def test_cuda_backward_matches_plain():
                                       return_lse=True)
         assert float((lse - lse_p).abs().max()) <= LSE_TOL
         got = tf.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = tf.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         want = tf.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                       mode="plain")
         for a, b in zip(got, want):
@@ -347,9 +423,13 @@ def test_cuda_backward_matches_plain():
         do_t = torch.randn(2, 4, 300, 128, device=dev).to(q.dtype) \
             .transpose(1, 2)
         do_s = torch.randn(2, 300, 4, 256, device=dev).to(q.dtype)[..., ::2]
-        for do in (do_t, do_s):
+        # rows 132 elements apart: 264 bytes in bf16, not a multiple of 16
+        do_u = torch.randn(2, 300, 4, 132, device=dev).to(q.dtype)[..., :128]
+        assert do_u.stride(-1) == 1 and (q.dtype == torch.float32
+                                         or not tf._rows_aligned(do_u))
+        for do in (do_t, do_s, do_u):
             check(q, k, v, do, causal=True)
-    n = len(cases) + 4
+    n = 2 * (len(cases) + 6)         # check() runs two backwards
     assert tf.BWD_LAUNCHES == dict.fromkeys(tf.BWD_KERNELS, n)
     x = torch.randn(2, 300, 3, 4, 64, device=dev, requires_grad=True)
     w = torch.randn(2, 300, 4, 64, device=dev)

@@ -352,6 +352,12 @@ def test_cancel_stops_inflight_solve_within_rung_budget(engine):
                 and time.monotonic() < deadline:
             time.sleep(0.005)
         latency = time.monotonic() - t0
+        # the solve worker drops inflight_solves in its own thread; the
+        # dispatcher bumps cancelled_solves only at _watch's next poll of
+        # the future (up to 50 ms later): wait for it before reading
+        while svc.stats()["cancelled_solves"] == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
         stats = svc.stats()
         with pytest.raises(t_serve.TicketCancelled):
             t.result(timeout=5)
