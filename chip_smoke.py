@@ -59,8 +59,9 @@ reference package ``repro``. Phases, each fatal on failure:
    below the winner's, every winner schedule costs the same through the
    deficit kernel; the span split, and the device's idle share over the
    profiled seed round;
-11. the planning service (``PlanService``, ``[service]``): (a) the four
-   matrix tickets admitted to a service with a write-ahead journal, which
+11. the planning service (``PlanService``, ``[service]``): (a) the first
+   ``SERVICE_TICKETS`` matrix tickets (two of the four, a depth cut)
+   admitted to a service with a write-ahead journal, which
    is killed before it serves them; a second service on the journal
    replays them as one coalesced batch (two workers), each ticket bitwise
    equal to the cold plan's row, none degraded, the journal empty after
@@ -109,17 +110,34 @@ reference package ``repro``. Phases, each fatal on failure:
    kernels against the plain attention, in an f32 copy of the config
    elementwise and in bf16 against the f32 gradients; (c) an 8-step run
    under injected failures, restarted from checkpoints, equal to an
-   uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``:
+   uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``,
+   one step (a cut of three):
    bf16 live parameters, the checkpoint's bf16 leaves read back bit for
-   bit.
+   bit;
+16. the other model families at full width (``[families]``): granite-moe
+   (32 experts, top 8), Qwen2-VL-7B (M-RoPE over embeddings, 28 -> 32 q
+   heads over 4 kv heads of 128), Jamba (one group of 8 layers: attention,
+   7 Mamba, MoE of 16 experts top 2 on odd layers; the depth cut), xLSTM-125M
+   and Whisper large-v3 (32 + 32 layers), one at a time, each freed before
+   the next: (a) the loss of a B=1 synthetic batch (S=2048; Whisper 1,500
+   frames and tokens) through the kernel, cold and warm, its bf16 hidden
+   states and loss against plain attention within 2e-2 relative, one
+   launch per self-attention layer and no call of the plain attention, a
+   profiled warm forward; (b) ``launch.serve.serve`` (the MoE at the CLI's
+   traffic, the others 4 requests of 8 new tokens; Whisper: ``prefill`` of
+   1,500 frames and 16 greedy decode steps); (c) forward == decode in f32
+   within 2e-2 (MoE at capacity factor 8); (e) peak device memory; then
+   (d) the kernel at their new shapes (non-causal S=1500, H=32, hd=64;
+   causal S=1500, H=32, hd=64; causal S=2048, H=32, hd=128) against the
+   plain version, with its time, bound and SDPA's time.
 
-Each path (4, 5, 8, 9, 10, 11, 13, 14, 15) is driven with the kernels' launch
-counts set to 0 just before it and read just after; a kernel the path runs
-that was never launched fails the run. f32 matrix products on the card run
-in full f32: TF32 is switched off for matmuls and cuDNN before any phase.
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before either is printed.
+Each path (4, 5, 8, 9, 10, 11, 13, 14, 15, 16) is driven with the
+kernels' launch counts set to 0 just before it and read just after; a
+kernel the path runs that was never launched fails the run. f32 matrix
+products on the card run in full f32: TF32 is switched off for matmuls
+and cuDNN before any phase. The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before either is printed.
 """
 from __future__ import annotations
 
@@ -142,8 +160,9 @@ FACTOR = 2.0             # deadline = 2 x ASAP makespan
 SCENARIOS = ("S1", "S2", "S3", "S4")
 J = 48                   # profile intervals
 PROFILE_SEED = 17
-MAPPING_TASKS = 650      # workflow tasks of the [mapping] cell (depth cut)
-CPU_PROFILES = 2         # profiles of the [cpu] re-plan (a cut of the four)
+MAPPING_TASKS = 500      # workflow tasks of the [mapping] cell (depth cut)
+CPU_PROFILES = 1         # profiles of the [cpu] re-plan (a cut of the four)
+SERVICE_TICKETS = 2      # matrix tickets [service] (a) replays (a cut of 4)
 PROFILE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM published f32 rate (no tensor cores)
@@ -199,7 +218,7 @@ FLASH_BWD_TIMED = {**FLASH_TIMED,
 RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
 RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
-MP_STEPS = 3                 # (d): --mp, checkpoints at steps 0 and 2
+MP_STEPS = 1                 # (d): --mp, one step, its checkpoint (a cut of 3)
 # (b) first step, kernel vs plain attention, f32 copy of the config: the
 # loss and the gradients differ only by the order of f32 sums in the two
 # attentions, carried through 32 layers: elementwise
@@ -214,6 +233,27 @@ MP_STEPS = 3                 # (d): --mp, checkpoints at steps 0 and 2
 # config, same parameters and batch) than the plain bf16 gradient is,
 # within BF16_MODEL_SLACK; the loss within BF16_MODEL_TOL
 F32_GRAD_TOL = 1e-4
+# [families]: (sequence length of the B=1 forward, serve traffic: requests,
+# slots, max_new, max_len) a configuration, at full width (family_config);
+# the MoE takes the serve CLI's traffic, the others a shorter mix to hold
+# the time budget; Whisper is not served by the batcher (its prefill and
+# WHISPER_DECODE_STEPS greedy steps instead)
+FAMILY_CELLS = {
+    "granite-moe-1b-a400m": (2048, (16, 4, 32, 512)),
+    "qwen2-vl-7b": (2048, (4, 4, 8, 512)),
+    "jamba-v0.1-52b": (2048, (4, 4, 8, 512)),
+    "xlstm-125m": (2048, (4, 4, 8, 512)),
+    "whisper-large-v3": (1500, None),
+}
+WHISPER_DECODE_STEPS = 16
+# (d) the flash kernel at the shapes the families give it (B, S, H, hd,
+# causal): Whisper's encoder (bidirectional, S=1500 frames, 20 heads padded
+# to 32) and decoder, Qwen2-VL's and Jamba's attention (32 q heads of 128)
+FLASH_FAMILY_SHAPES = {
+    "whisper_encoder": (1, 1500, 32, 64, False),
+    "whisper_decoder": (1, 1500, 32, 64, True),
+    "hd128_h32": (1, 2048, 32, 128, True),
+}
 
 
 class SmokeFailure(Exception):
@@ -1413,10 +1453,10 @@ SERVICE_SPANS = ("rung:heuristic", "solve", "plan", "prepare_graph",
 
 
 def service_replay(plat, insts, grid, cold, cold_s):
-    """[service] (a): four matrix tickets admitted to a journaled service
-    that is killed before it serves them; a second service on the same
-    journal replays them as one coalesced batch, bitwise equal to the cold
-    plan's rows, with nothing degraded."""
+    """[service] (a): the first ``SERVICE_TICKETS`` matrix tickets admitted
+    to a journaled service that is killed before it serves them; a second
+    service on the same journal replays them as one coalesced batch,
+    bitwise equal to the cold plan's rows, with nothing degraded."""
     import tempfile
 
     import numpy as np
@@ -1425,6 +1465,8 @@ def service_replay(plat, insts, grid, cold, cold_s):
     from repro_torch.api import Planner, PlanRequest
     from repro_torch.serve import PlanService, TicketJournal
 
+    n_tickets = SERVICE_TICKETS
+    insts, grid = insts[:n_tickets], grid[:n_tickets]
     with tempfile.TemporaryDirectory() as jdir:
         a = PlanService(Planner(plat, engine="torch"), journal_dir=jdir,
                         workers=2)
@@ -1454,9 +1496,10 @@ def service_replay(plat, insts, grid, cold, cold_s):
             obs.set_tracer(prev)
         left = len(TicketJournal(jdir))
     check(left == 0, f"[service] {left} journal entries left after close()")
-    check(stats["batches"] == 1 and stats["coalesced_requests"] == 4,
+    check(stats["batches"] == 1
+          and stats["coalesced_requests"] == n_tickets,
           f"[service] replay ran {stats['batches']} batches of "
-          f"{stats['coalesced_requests']} tickets, not one of 4")
+          f"{stats['coalesced_requests']} tickets, not one of {n_tickets}")
     check(stats["failed"] == 0 and stats["degraded"] == 0,
           f"[service] failed {stats['failed']}, degraded "
           f"{stats['degraded']}")
@@ -1479,10 +1522,10 @@ def service_replay(plat, insts, grid, cold, cold_s):
         costed += check_costs_through_kernel(res, [insts[i]], [grid[i]],
                                              "service")[0]
     lat = stats["latency"]
-    log(f"[service] (a) 4 matrix tickets journaled, the service killed, "
-        f"replayed by a second service (workers=2): {secs:.3f} s from its "
-        f"start to the last delivery ([plan] cold {cold_s:.3f} s); batches "
-        f"{stats['batches']}, coalesced requests "
+    log(f"[service] (a) {n_tickets} matrix tickets journaled, the service "
+        f"killed, replayed by a second service (workers=2): {secs:.3f} s "
+        f"from its start to the last delivery ([plan] cold {cold_s:.3f} "
+        f"s); batches {stats['batches']}, coalesced requests "
         f"{stats['coalesced_requests']}, coalesce ratio "
         f"{stats['coalesce_ratio']}, replayed {stats['replayed']}, latency "
         f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms; every "
@@ -1823,6 +1866,63 @@ def close_err(got, want, tol) -> float:
     return float(((g - w).abs() - tol * w.abs()).max())
 
 
+def flash_row(dev, B, S, H, hd, causal, dt) -> dict:
+    """The forward kernel at one shape: checked against the plain version
+    (allclose at the sweep's tolerance), then its device time (profiler,
+    else a CUDA-graph replay) beside its eager CUDA-event time, the plain
+    version's, PyTorch's ``scaled_dot_product_attention``'s and the
+    bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention(q, k, v, causal=causal, mode="plain")
+    err = close_err(got, want, FLASH_TOL[dt])
+    shape = (f"B={B} S={S} H={H} hd={hd} "
+             f"{'causal' if causal else 'non-causal'} {dt}")
+    check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dt],
+          f"flash kernel != plain ({shape}): {err} > {FLASH_TOL[dt]}")
+    max_err = float((got.float() - want.float()).abs().max())
+
+    def kernel():
+        fa.flash_attention(q, k, v, causal=causal)
+
+    reps = 50
+    event_ms = cuda_ms(kernel, reps=reps)
+    replay_ms = graph_ms(kernel, reps=reps)
+    device_ms = profiled_ms(kernel, reps, "flash_fwd_kernel", PROFILE_OUT)
+    plain_ms = cuda_ms(lambda: fa.flash_attention(
+        q, k, v, causal=causal, mode="plain"), reps=5, warm=2)
+    # yardstick, not used by the port: PyTorch's fused attention on the
+    # [B, H, S, hd] layout it takes
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+
+    sdpa_diff = float((sdpa().transpose(1, 2).float()
+                       - got.float()).abs().max())
+    sdpa_ms = cuda_ms(sdpa, reps=reps)
+    bound, by = flash_bound_ms(B, S, H, hd, causal, dt)
+    ms, ms_from = ((device_ms, "profiler") if device_ms is not None
+                   else (replay_ms, "graph"))
+    log(f"[flash] {shape}: kernel {ms:.4f} ms ({ms_from}; profiler "
+        f"{device_ms}, graph replay {replay_ms:.4f}, eager events "
+        f"{event_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {sdpa_ms:.4f} ms (max |sdpa - "
+        f"kernel| {sdpa_diff:.3g}), bound {bound:.4f} ms ({by}), "
+        f"{100 * bound / ms:.2f}% of bound, {ms / sdpa_ms:.2f}x the PyTorch "
+        f"call")
+    return {"shape": shape, "max_abs_err": max_err, "ms": ms,
+            "ms_from": ms_from, "profiler_ms": device_ms,
+            "graph_ms": replay_ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "library_ms": sdpa_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
 def phase_flash(dev):
     """The flash-attention kernels against their plain version on the card;
     times at the shapes of ``FLASH_TIMED``."""
@@ -1868,52 +1968,8 @@ def phase_flash(dev):
         "|kernel - plain|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
-    rows = {}
-    for key, (B, S, H, hd, dt) in FLASH_TIMED.items():
-        q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H, dev=dev)
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention(q, k, v, causal=True, mode="plain")
-        err = close_err(got, want, FLASH_TOL[dt])
-        check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dt],
-              f"flash kernel != plain ({key}): {err} > {FLASH_TOL[dt]}")
-        max_err = float((got.float() - want.float()).abs().max())
-
-        def kernel():
-            fa.flash_attention(q, k, v, causal=True)
-
-        reps = 50
-        event_ms = cuda_ms(kernel, reps=reps)
-        replay_ms = graph_ms(kernel, reps=reps)
-        device_ms = profiled_ms(kernel, reps, "flash_fwd_kernel", PROFILE_OUT)
-        plain_ms = cuda_ms(lambda: fa.flash_attention(
-            q, k, v, causal=True, mode="plain"), reps=5, warm=2)
-        # yardstick, not used by the port: PyTorch's fused attention on the
-        # [B, H, S, hd] layout it takes
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)
-
-        sdpa_diff = float((sdpa().transpose(1, 2).float()
-                           - fa.flash_attention(q, k, v).float()).abs().max())
-        sdpa_ms = cuda_ms(sdpa, reps=reps)
-        bound, by = flash_bound_ms(B, S, H, hd, True, dt)
-        ms, ms_from = ((device_ms, "profiler") if device_ms is not None
-                       else (replay_ms, "graph"))
-        rows[key] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
-                     "max_abs_err": max_err, "ms": ms,
-                     "ms_from": ms_from, "profiler_ms": device_ms,
-                     "graph_ms": replay_ms, "event_ms": event_ms,
-                     "plain_ms": plain_ms, "library_ms": sdpa_ms,
-                     "bound_ms": bound, "bound_by": by}
-        log(f"[flash] B={B} S={S} H={H} hd={hd} causal {dt}: kernel "
-            f"{ms:.4f} ms ({ms_from}; profiler {device_ms}, graph replay "
-            f"{replay_ms:.4f}, eager events {event_ms:.4f}), plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} "
-            f"ms (max |sdpa - kernel| {sdpa_diff:.3g}), bound {bound:.4f} ms "
-            f"({by}), {100 * bound / ms:.2f}% of bound, {ms / sdpa_ms:.2f}x "
-            f"the PyTorch call")
+    rows = {key: flash_row(dev, B, S, H, hd, True, dt)
+            for key, (B, S, H, hd, dt) in FLASH_TIMED.items()}
     return rows, phase_flash_bwd(dev)
 
 
@@ -2270,6 +2326,336 @@ def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
             "decode_diff": diff}
 
 
+def family_config(arch):
+    """The full-width configuration of ``arch`` as ``[families]`` runs it:
+    every width as published; the hybrid cut to one group of
+    ``attn_every`` layers (all of Jamba's 32 layers are 194 GiB in f32)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch]
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=cfg.attn_every)
+    return cfg
+
+
+def flash_per_forward(cfg) -> int:
+    """Flash launches of one forward: one per self-attention layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.num_layers
+    return cfg.num_layers
+
+
+@contextlib.contextmanager
+def counting_plain_attention(counter: list):
+    """Count the calls of the plain attention in ``counter[0]``: a family
+    forward through the kernel must make none."""
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa.attention_plain
+
+    def counted(*args, **kwargs):
+        counter[0] += 1
+        return real(*args, **kwargs)
+
+    fa.attention_plain = counted
+    try:
+        yield
+    finally:
+        fa.attention_plain = real
+
+
+@contextlib.contextmanager
+def routing(log: list, replay: bool = False):
+    """Record every MoE routing of a forward into ``log`` (the dict
+    ``models.moe.route`` returns, layer by layer), or with ``replay`` hand
+    a forward the routings of ``log`` in order instead of its own."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    it = iter(list(log))
+
+    def route(*args):
+        if replay:
+            return next(it)
+        out = real(*args)
+        log.append(out)
+        return out
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def routed_apart(a: list, b: list) -> int:
+    """(token, MoE layer) pairs whose kept experts differ between two
+    forwards' routings."""
+    import torch
+
+    n = 0
+    for ra, rb in zip(a, b):
+        nt = int(ra["st"].max()) + 1
+        E = int(max(ra["se"].max(), rb["se"].max())) + 1
+        kept = []
+        for r in (ra, rb):
+            m = torch.zeros((nt, E), dtype=torch.bool, device=r["st"].device)
+            m[r["st"][r["keep"]], r["se"][r["keep"]]] = True
+            kept.append(m)
+        n += int((kept[0] != kept[1]).any(dim=1).sum())
+    return n
+
+
+def family_cell(dev, arch, plain_calls):
+    """One configuration of ``[families]``: (a) the loss forward through
+    the kernel, cold and warm, and its final hidden states against plain
+    attention of the same parameters, by the rule of ``[model]`` (f32:
+    elementwise within ``F32_MODEL_TOL``; bf16: no further from the f32
+    plain forward than the plain bf16 forward is, within
+    ``BF16_MODEL_SLACK``; the bf16 losses within ``BF16_MODEL_TOL``), with
+    a profiled warm forward; (b) the serve entry point (Whisper: prefill,
+    then greedy decode steps); (c) forward == decode in f32; (e) the peak
+    device memory. An MoE's comparison forwards take the routing of the
+    kernel's bf16 forward (:func:`routing`)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model, param_count
+    from repro_torch.models import layers as L
+
+    cfg = family_config(arch)
+    S, traffic = FAMILY_CELLS[arch]
+    n_attn = flash_per_forward(cfg)
+    moe = cfg.moe is not None
+    t_cell = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def through_kernel(fn, what, launches=n_attn):
+        before, plain_before = fa.LAUNCHES, plain_calls[0]
+        out, secs = timed(fn)
+        check(fa.LAUNCHES - before == launches, f"[families] {arch}: {what} "
+              f"launched the flash kernel {fa.LAUNCHES - before} times, not "
+              f"{launches}")
+        check(plain_calls[0] == plain_before, f"[families] {arch}: {what} "
+              f"ran the plain attention")
+        return out, secs
+
+    def build(c):
+        return build_model(c, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+
+    # (a) the bf16 forward through the kernel and plain. A token whose
+    # router logits round apart in two forwards can take another expert
+    # (or be dropped at capacity), which moves its hidden state far more
+    # than the attention's rounding does, so every comparison forward of an
+    # MoE is handed the kernel forward's routing: they measure the
+    # attention alone. How far apart the routings would be is reported.
+    model, init_s = timed(lambda: build(cfg))
+    n_params = param_count(model)
+    batch = SyntheticTokens(cfg, ShapeConfig("families", "prefill", S, 1),
+                            seed=SEED).batch(0)
+    loss_cold, cold_s = through_kernel(lambda: float(model.loss(batch)),
+                                       "the cold loss")
+    loss_warm, warm_s = through_kernel(lambda: float(model.loss(batch)),
+                                       "the warm loss")
+    routes, own = [], []
+    with routing(routes):
+        h16, apply_s = through_kernel(lambda: model.apply(batch),
+                                      "the forward")
+    with plain_attention(), routing(routes, replay=True):
+        h16p, plain_s = timed(lambda: model.apply(batch))
+    apart = None
+    if moe:
+        with plain_attention(), routing(own):
+            rel_own = rel_err(h16, model.apply(batch))
+        apart = routed_apart(routes, own)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    loss_p = float(L.softmax_xent(L.unembed(h16p, model.embed), labels))
+    check(h16.shape == (1, S, cfg.d_model) and h16.dtype == torch.bfloat16
+          and bool(torch.isfinite(h16).all()) and math.isfinite(loss_warm),
+          f"[families] {arch}: hidden states {h16.dtype} "
+          f"{tuple(h16.shape)} or loss {loss_warm} not finite bf16")
+    rel16 = rel_err(h16, h16p)
+    rel_loss = abs(loss_warm - loss_p) / abs(loss_p)
+    check(rel_loss <= BF16_MODEL_TOL, f"[families] {arch}: bf16 loss "
+          f"through the kernel {loss_warm} != plain {loss_p}")
+    fwd = device_breakdown(lambda: model.loss(batch), 1, PROFILE_OUT)
+
+    # (b) serving
+    if traffic is None:            # Whisper: prefill, then greedy decode
+        cache = model.init_cache(1, WHISPER_DECODE_STEPS + 1, enc_len=S)
+        cache, prefill_s = through_kernel(
+            lambda: model.prefill(cache, batch["enc_embeds"]),
+            "the prefill", cfg.encoder_layers)
+        tok = torch.as_tensor(batch["dec_tokens"][:, 0], device=dev)
+        plain_before = plain_calls[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WHISPER_DECODE_STEPS):
+            logits, cache = model.decode_step(cache, tok)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        check(plain_calls[0] == plain_before and cache["len"] ==
+              WHISPER_DECODE_STEPS, f"[families] {arch}: decode")
+        serving = {"prefill_s": prefill_s, "steps": WHISPER_DECODE_STEPS,
+                   "seconds": dec_s,
+                   "ms_per_step": 1e3 * dec_s / WHISPER_DECODE_STEPS,
+                   "tokens_per_s": WHISPER_DECODE_STEPS / dec_s}
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    if traffic is not None:
+        requests, slots, max_new, max_len = traffic
+        plain_before = plain_calls[0]
+        out = serve(cfg, requests, slots, max_new, max_len, device=dev)
+        reqs = out["requests"]
+        check(len(reqs) == requests and all(r.done and r.out for r in reqs)
+              and out["steps"] < max_len and plain_calls[0] == plain_before,
+              f"[families] {arch}: {sum(r.done for r in reqs)} of "
+              f"{requests} requests finished in {out['steps']} steps")
+        serving = {"steps": out["steps"], "seconds": out["seconds"],
+                   "ms_per_step": 1e3 * out["seconds"] / out["steps"],
+                   "tokens_per_s": out["tokens"] / out["seconds"]}
+        del out, reqs
+        torch.cuda.empty_cache()
+
+    # (a), f32: the same parameters (the same seed) in f32, through the
+    # kernel and plain, on the bf16 kernel forward's routing
+    model = build(dataclasses.replace(cfg, dtype="float32"))
+    with routing(routes, replay=True):
+        h32, _ = through_kernel(lambda: model.apply(batch),
+                                "the f32 forward")
+    with plain_attention(), routing(routes, replay=True):
+        h32p = model.apply(batch)
+    err32 = close_err(h32, h32p, F32_MODEL_TOL)
+    max32 = float((h32 - h32p).abs().max())
+    to_f32, plain_to_f32 = rel_err(h16, h32p), rel_err(h16p, h32p)
+    del h32, h32p, h16, h16p
+    check(err32 <= F32_MODEL_TOL, f"[families] {arch}: f32 kernel forward "
+          f"!= plain forward: |h - h_plain| - tol |h_plain| reaches {err32} "
+          f"> {F32_MODEL_TOL}")
+    check(to_f32 <= BF16_MODEL_SLACK * plain_to_f32, f"[families] {arch}: "
+          f"the bf16 kernel forward is {to_f32} from the f32 forward, the "
+          f"plain bf16 forward {plain_to_f32}")
+
+    # (c) forward == step-by-step decode at full width in f32, MoE at
+    # capacity factor 8 (capacity drops differ between an S-token and a
+    # 1-token call)
+    if moe:
+        model.cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    B, n = 2, 8
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, cfg.vocab, (B, n)).astype(np.int32)
+    if cfg.family == "audio":
+        enc = rng.normal(0, 1, (B, S, cfg.d_model)).astype(np.float32)
+        h, _ = through_kernel(lambda: model.apply(
+            {"enc_embeds": enc, "dec_tokens": tok}), "the f32 forward")
+        cache, _ = through_kernel(lambda: model.prefill(
+            model.init_cache(B, n + 2, enc_len=S), enc), "the f32 prefill",
+            cfg.encoder_layers)
+    else:
+        h, _ = through_kernel(lambda: model.apply({"tokens": tok}),
+                              "the f32 forward")
+        cache = model.init_cache(B, n + 2)
+    full = L.unembed(h, model.embed)
+    plain_before = plain_calls[0]
+    dec = torch.stack([model.decode_step(cache, tok[:, t])[0]
+                       for t in range(n)], dim=1)
+    check(plain_calls[0] == plain_before, f"[families] {arch}: decode ran "
+          f"the plain attention")
+    err = close_err(dec, full, DECODE_TOL)
+    diff = float((dec - full).abs().max())
+    check(err <= DECODE_TOL, f"[families] {arch}: decode logits != forward "
+          f"logits: {err}")
+    del model, cache, h, full, dec
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_cell
+    log(f"[families] {arch} ({cfg.family}, {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}): {n_params / 1e6:.3f}M params (f32 "
+        f"master, {cfg.dtype} activations), init {init_s:.3f} s; (a) loss "
+        f"on B=1 S={S}: cold {cold_s:.3f} s, warm {warm_s:.3f} s, loss "
+        f"{loss_warm:.6f} (plain {loss_p:.6f}, relative {rel_loss:.3g} <= "
+        f"{BF16_MODEL_TOL}; ln V {math.log(cfg.vocab):.6f}); forward to "
+        f"hidden states {apply_s:.3f} s through the kernel ({n_attn} "
+        f"launches), {plain_s:.3f} s plain; kernel vs plain: f32 max "
+        f"{max32:.4g} (allclose {F32_MODEL_TOL}), bf16 relative {rel16:.4g}, "
+        f"bf16 to f32 {to_f32:.4g} (plain bf16 {plain_to_f32:.4g}, <= "
+        f"{BF16_MODEL_SLACK}x)"
+        + (f"; on the kernel forward's routing (the plain bf16 forward on "
+           f"its own routing: {rel_own:.4g} relative, {apart} of "
+           f"{len(routes) * S} (token, layer) routings apart)"
+           if moe else ""))
+    log(f"[families] {arch} (a) warm loss forward: {breakdown_text(fwd)}")
+    if traffic is None:
+        log(f"[families] {arch} (b) prefill of {S} frames {prefill_s:.3f} s "
+            f"({cfg.encoder_layers} flash launches, cross K/V of "
+            f"{cfg.num_layers} layers cached), then {WHISPER_DECODE_STEPS} "
+            f"greedy decode steps in {dec_s:.3f} s "
+            f"({serving['ms_per_step']:.3f} ms per step)")
+    else:
+        log(f"[families] {arch} (b) serve: {requests} requests on {slots} "
+            f"slots, max_new {max_new}, max_len {max_len}: all finished in "
+            f"{serving['steps']} decode steps, {serving['seconds']:.3f} s "
+            f"({serving['tokens_per_s']:.1f} slot tokens/s, "
+            f"{serving['ms_per_step']:.3f} ms per step)")
+    log(f"[families] {arch} (c) forward == decode in f32 (B={B}, {n} steps"
+        + (", capacity factor 8" if moe else "")
+        + f"): max |decode - forward| {diff:.4g} (tolerance {DECODE_TOL}); "
+        f"(e) peak memory {peak_gb:.2f} GiB; the cell {secs:.3f} s")
+    return {"params": n_params, "cold_s": cold_s, "warm_s": warm_s,
+            "apply_s": apply_s, "plain_s": plain_s, "bf16_rel_err": rel16,
+            "f32_max_abs_diff": max32, "bf16_to_f32": to_f32,
+            "plain_bf16_to_f32": plain_to_f32, "rel_loss": rel_loss,
+            "routed_apart": apart, "forward": fwd, "serve": serving,
+            "decode_diff": diff, "peak_gib": peak_gb, "seconds": secs}
+
+
+def phase_families(dev):
+    """[families]: the MoE, VLM, hybrid, xLSTM and Whisper configurations at
+    full width on the card (:func:`family_cell`, one at a time, each freed
+    before the next), then (d) the flash kernel at the shapes they give
+    it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    fa.LAUNCHES = 0
+    plain_calls = [0]
+    cells = {}
+    with counting_plain_attention(plain_calls):
+        for arch in FAMILY_CELLS:
+            before = fa.LAUNCHES
+            cells[arch] = family_cell(dev, arch, plain_calls)
+            cells[arch]["launches"] = fa.LAUNCHES - before
+    launches = fa.LAUNCHES
+    rows = {key: flash_row(dev, *shape, "bfloat16")
+            for key, shape in FLASH_FAMILY_SHAPES.items()}
+    secs = time.perf_counter() - t_phase
+    log(f"[families] flash launches {launches}: "
+        + ", ".join(f"{arch} {cell['launches']} ("
+                    f"{flash_per_forward(family_config(arch))} a forward)"
+                    for arch, cell in cells.items())
+        + f"; the phase {secs:.3f} s in all")
+    return {"launches": launches, "cells": cells, "flash": rows,
+            "seconds": secs}
+
+
 def leaf_pairs(a, b, prefix=""):
     """(path, leaf of a, leaf of b) over two nested dicts of one
     structure."""
@@ -2562,6 +2948,7 @@ def main() -> int:
     model_run = phase_model(dev)
     serve_run = phase_serve(dev)
     train_run = phase_train(dev)
+    families_run = phase_families(dev)
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
@@ -2624,17 +3011,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": model_run["launches"] + serve_run["launches"]
-        + serve_run["eq_launches"] + train_run["launches"]["flash_fwd"],
+        + serve_run["eq_launches"] + train_run["launches"]["flash_fwd"]
+        + families_run["launches"],
         "launches_by_path": {"model": model_run["launches"],
                              "serve": serve_run["launches"],
                              "forward_vs_decode": serve_run["eq_launches"],
-                             "train": train_run["launches"]["flash_fwd"]},
+                             "train": train_run["launches"]["flash_fwd"],
+                             "families": families_run["launches"]},
         **{k: flash_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "float32": flash_rows["float32"],
         "bfloat16_hd128": flash_rows["bfloat16_hd128"],
+        "families_shapes": families_run["flash"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",

@@ -6,7 +6,11 @@
 The flags are the reference's (``repro.launch.serve``), quirk included:
 ``--reduced`` is a ``store_true`` flag that defaults to true, so the CLI
 always serves the reduced configuration. :func:`serve` takes any
-configuration, full width included.
+decoder configuration (the dense, MoE, VLM, hybrid and xLSTM families),
+full width included. Whisper (``family == "audio"``) is not served: its
+``init_cache`` needs the encoder's length, which the continuous batcher's
+``init_cache(batch_size, max_len)`` does not give, in the reference as
+here, so :func:`serve` raises for it.
 """
 from __future__ import annotations
 
@@ -38,6 +42,11 @@ def serve(cfg, requests: int, slots: int, max_new: int, max_len: int,
     finished requests, the parameter count, the decode steps, the tokens
     stepped (steps x slots) and the serving wall time in seconds.
     """
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the continuous batcher serves decoder families; "
+            f"the encoder-decoder's cache needs the encoder length (use "
+            f"EncDecModel.prefill and decode_step)")
     dev = resolve_device(device)
     model = build_model(cfg, tp=16, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))

@@ -9,7 +9,9 @@ path a single card runs; ``--mesh single|multi`` select the reference's
 production meshes, which belong to the multi-device slice (ROADMAP Queue
 1) and raise ``NotImplementedError``. The driver wires: config -> model ->
 train step -> deterministic data -> checkpoint manager -> (optional)
-CarbonGate. :func:`train` takes any configuration, full width included.
+CarbonGate. :func:`train` takes any dense configuration, full width
+included; the other families' training is a later slice (ROADMAP Queue 1)
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,6 +62,11 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
     plan's cost and ASAP cost and the simulated seconds it held chunks
     back.
     """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training of the {cfg.family!r} family is a later "
+            f"slice of the port (ROADMAP Queue 1: its gradients held "
+            f"against jax.grad); the port trains the dense family")
     dev = resolve_device(device)
     model = build_model(cfg, tp=16, device=dev)
     data = SyntheticTokens(cfg, ShapeConfig("cli", "train", seq, batch),

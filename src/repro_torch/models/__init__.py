@@ -1,1 +1,6 @@
-from repro_torch.models.model_zoo import build_model, param_count  # noqa: F401
+from repro_torch.models.model_zoo import (  # noqa: F401
+    active_param_count,
+    build_model,
+    model_flops,
+    param_count,
+)

@@ -1,5 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, attention, SwiGLU MLP (the dense
-decoder's counterparts of ``repro.models.layers``).
+"""Shared model layers: RMSNorm, RoPE / M-RoPE, GQA attention, SwiGLU MLP
+(the counterparts of ``repro.models.layers``).
 
 Functions over explicit parameter dicts of one layer, in the reference's
 layouts (``wq`` [d, H, hd], ``wo`` [H, hd, d], ...). Master parameters stay
@@ -7,9 +7,13 @@ f32 and are cast to the activation dtype at use, as in the reference. The
 forward's attention goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention` (the CUDA kernel
 on the card, its plain version on the CPU), which computes the same exact
-softmax attention as the reference's query-chunked jnp form; the decode
-step's one-query attention over the cache stays plain torch, as it is jnp
-in the reference. M-RoPE (the VLM family) is not ported yet.
+softmax attention as the reference's query-chunked jnp form, causal or
+not. Attention whose query and key lengths differ (Whisper's
+cross-attention) and the decode step's one-query attention over the cache
+stay plain torch (:func:`gqa_scores_out`), as they are jnp in the
+reference. Positions: standard RoPE (``rope == "std"``), Qwen2-VL's M-RoPE
+(``"mrope"``, [3, B, S] positions) or none (``"abs"``: Whisper adds
+learned positions to its inputs).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ def rmsnorm(x, w, eps=1e-6):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (standard)
+# Rotary embeddings (standard + Qwen2-VL M-RoPE)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
@@ -65,18 +69,68 @@ def apply_rope(x, pos, theta):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, pos3, theta, sections):
+    """Qwen2-VL M-RoPE: pos3 [3,B,S] (t/h/w); sections sum to head_dim//2.
+    Frequency band i of the rotation takes its angle from position stream
+    ``j`` where band i lies in section j."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    cs = [_rope_cos_sin(pos3[i], hd, theta) for i in range(3)]
+    parts_cos, parts_sin = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        parts_cos.append(cs[i][0][..., off:off + sec])
+        parts_sin.append(cs[i][1][..., off:off + sec])
+        off += sec
+    cos = torch.cat(parts_cos, dim=-1)[:, :, None, :]
+    sin = torch.cat(parts_sin, dim=-1)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def _rope(q, k, cfg, pos):
+    """q and k rotated by ``cfg.rope``: ``"std"`` (pos [B,S]), ``"mrope"``
+    (pos [3,B,S]); unrotated with ``pos`` None or any other rope (``"abs"``),
+    as in the reference."""
+    if pos is None:
+        return q, k
+    if cfg.rope == "mrope":
+        return (apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections))
     if cfg.rope == "std":
         return apply_rope(q, pos, cfg.rope_theta), \
             apply_rope(k, pos, cfg.rope_theta)
-    raise NotImplementedError(
-        f"rope={cfg.rope!r} is not ported to repro_torch yet (M-RoPE and "
-        f"absolute positions come with the VLM and Whisper families)")
+    return q, k
 
 
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
+
+def attn_shapes(cfg, layers, hq, hkv) -> dict:
+    """Stacked attention parameters: name -> (shape, init), ``init`` a
+    normal draw's standard deviation or ``("fill", v)``; head counts padded
+    by the TP head plan, as in the reference's ``init_attn``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {"wq": ((layers, d, hq, hd), d ** -0.5),
+         "wk": ((layers, d, hkv, hd), d ** -0.5),
+         "wv": ((layers, d, hkv, hd), d ** -0.5),
+         "wo": ((layers, hq, hd, d), (hq * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        p.update(bq=((layers, hq, hd), ("fill", 0.0)),
+                 bk=((layers, hkv, hd), ("fill", 0.0)),
+                 bv=((layers, hkv, hd), ("fill", 0.0)))
+    return p
+
+
+def mlp_shapes(d, ff, layers) -> dict:
+    """Stacked SwiGLU parameters, as :func:`attn_shapes`."""
+    return {"w1": ((layers, d, ff), d ** -0.5),
+            "w3": ((layers, d, ff), d ** -0.5),
+            "w2": ((layers, ff, d), ff ** -0.5)}
+
 
 def _proj(x, w):
     """einsum("bsd,dhk->bshk") as one matmul: x [B,S,d], w [d,H,hd]."""
@@ -113,26 +167,44 @@ def _expand_kv(k, v, hq):
     return k, v
 
 
-def _gqa_scores_out(q, k, v, kv_len_mask):
-    """Exact non-causal attention of q [B,Sq,Hq,hd] over k/v [B,Sk,Hkv,hd],
-    keys masked by ``kv_len_mask`` [B,Sk] (the decode step)."""
+def gqa_scores_out(q, k, v, causal=False, kv_len_mask=None):
+    """Exact attention of q [B,Sq,Hq,hd] over k/v [B,Sk,Hkv,hd] by its
+    definition (the reference's ``_gqa_scores_out``): scores in f32, masked
+    to -1e30 where a key lies after its query (``causal``) or outside
+    ``kv_len_mask`` [B,Sk], softmax, weights in
+    v's dtype. The attention of differing lengths (cross-attention) and of
+    the decode step."""
     hd = q.shape[-1]
     k, v = _expand_kv(k, v, q.shape[2])
     s = torch.einsum("bqhd,bshd->bhqs", q, k).float()
     s = s * (hd ** -0.5)
-    s = torch.where(kv_len_mask[:, None, None, :], s,
-                    torch.full((), NEG, device=s.device))
+    neg = torch.full((), NEG, device=s.device)
+    if causal:
+        qpos = torch.arange(q.shape[1], device=s.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=s.device)[None, :]
+        s = torch.where(kpos <= qpos, s, neg)
+    if kv_len_mask is not None:
+        s = torch.where(kv_len_mask[:, None, None, :], s, neg)
     w = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", w, v)
 
 
-def attention_train(p, x, cfg, pos):
-    """Full-sequence causal attention: projections, RoPE, kv heads
-    expanded, then the fused attention kernel. pos: [B,S]."""
+def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
+    """Full-sequence attention: projections, rotary positions (``pos``
+    [B,S], [3,B,S] or None), kv heads expanded, then the fused attention
+    kernel, causal or not. ``kv_override`` (k, v) replaces the layer's own
+    keys and values (cross-attention); where their length differs from the
+    queries' the attention is :func:`gqa_scores_out`, as the kernel takes
+    q, k, v of one shape."""
     q, k, v = _qkv(p, x, cfg)
+    if kv_override is not None:
+        k, v = kv_override
     q, k = _rope(q, k, cfg, pos)
-    k, v = _expand_kv(k, v, q.shape[2])
-    o = flash_attention(q, k, v, causal=True)
+    if k.shape[1] != q.shape[1]:
+        o = gqa_scores_out(q, k, v, causal)
+    else:
+        k, v = _expand_kv(k, v, q.shape[2])
+        o = flash_attention(q, k, v, causal=causal)
     return _out_proj(o, p["wo"].to(x.dtype))
 
 
@@ -144,14 +216,19 @@ def attention_decode(p, x, cfg, pos, cache_k, cache_v, cache_len):
     clamped ``dynamic_update_slice`` does) and returns (out, cache_k,
     cache_v)."""
     q, k, v = _qkv(p, x, cfg)
-    q, k = _rope(q, k, cfg, pos[:, None])
+    if cfg.rope == "mrope":
+        pos3 = pos[None, :, None].expand(3, pos.shape[0], 1)
+        q, k = _rope(q, k, cfg, pos3)
+    else:
+        q, k = _rope(q, k, cfg, pos[:, None])
     Smax = cache_k.shape[1]
     at = min(max(int(cache_len), 0), Smax - 1)
     cache_k[:, at] = k[:, 0].to(cache_k.dtype)
     cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     valid = torch.arange(Smax, device=x.device)[None, :] <= int(cache_len)
     valid = valid.expand(x.shape[0], Smax)
-    o = _gqa_scores_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype), valid)
+    o = gqa_scores_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                       kv_len_mask=valid)
     return _out_proj(o, p["wo"].to(x.dtype)), cache_k, cache_v
 
 

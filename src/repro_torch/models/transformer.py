@@ -1,161 +1,283 @@
-"""Decoder-only stack, dense family (the counterpart of
-``repro.models.transformer.DecoderModel`` for ``family == "dense"``).
+"""Decoder-only stacks: dense / vlm / moe / hybrid (Jamba) / ssm (xLSTM), the
+counterpart of ``repro.models.transformer.DecoderModel``.
 
 The model is an ``nn.Module`` that owns its parameters, laid out as the
-reference's parameter tree (``embed`` [V, d], ``final_norm`` [d],
-``ln1``/``ln2`` [L, d], ``attn.{wq,wk,wv}`` [L, d, H, hd], ``attn.wo``
-[L, H, hd, d], ``attn.{bq,bk,bv}`` [L, H, hd], ``mlp.{w1,w3}`` [L, d, ff],
-``mlp.w2`` [L, ff, d]; head counts padded by the TP head plan), so a
-reference tree carries across leaf for leaf
-(:func:`repro_torch.interop.load_params`). Master parameters are f32 and are
-cast to the activation dtype at use; layers run as a Python loop over the
-stacked layer axis.
+reference's parameter tree: ``embed`` [V, d], ``final_norm`` [d], and per
+family
+
+* dense, vlm, moe: ``ln1``/``ln2`` [L, d], ``attn.{wq,wk,wv}`` [L, d, H,
+  hd], ``attn.wo`` [L, H, hd, d], ``attn.{bq,bk,bv}`` [L, H, hd] (QKV
+  bias), ``mlp.{w1,w3}`` [L, d, ff], ``mlp.w2`` [L, ff, d] (when d_ff),
+  ``moe.gate`` [L, d, E], ``moe.{w1,w3}`` [L, E, d, ff_e], ``moe.w2``
+  (when MoE; with both, Arctic's dense residual branch);
+* hybrid: ``groups`` with ``ln1``/``ln2`` [G, per, d], ``attn`` [G, ...],
+  ``mamba`` [G (per - 1), ...], ``mlp`` and ``moe`` [G per/2, ...] (one
+  attention layer at j == 0 of each group of ``attn_every``, Mamba at the
+  others; MoE at odd j, the MLP at even j);
+* ssm: ``blocks.mlstm`` and ``blocks.slstm`` stacked over their layers;
+
+head counts padded by the TP head plan. A reference tree carries across
+leaf for leaf (:func:`repro_torch.interop.load_params`). Master parameters
+are f32 and are cast to the activation dtype at use; layers run as a
+Python loop over the stacked layer axis (the reference's ``scan``).
 
 Where the reference is functional (``apply(params, batch)``), the port's
 serving methods read the module's own parameters, which take no gradients
 and build no graph: ``apply(batch)``, ``loss(batch)``,
-``decode_step(cache, tokens)``. The KV cache is updated in place. Training
+``decode_step(cache, tokens)``. The cache is updated in place. Training
 passes a parameter tree of its own, ``loss(batch, params, remat=True)``
 (the reference's ``loss(params, batch, remat=True)``): the loss is then
-differentiable in those tensors, and with ``remat`` each layer is
-recomputed in the backward (``torch.utils.checkpoint``, the counterpart of
-the reference's ``jax.checkpoint`` per layer). The families ``moe``,
-``vlm``, ``hybrid``, ``ssm`` and ``audio`` are not ported yet (ROADMAP
-Queue 1) and raise ``NotImplementedError``.
+differentiable in those tensors, and with ``remat`` each layer (each group
+of the hybrid) is recomputed in the backward (``torch.utils.checkpoint``,
+the counterpart of the reference's ``jax.checkpoint``). The VLM takes
+``embeds`` [B, S, d] (its stubbed frontend) and M-RoPE ``positions``
+[3, B, S]; a token batch without positions gets the three streams equal to
+the token index (text only). Whisper is
+:class:`repro_torch.models.whisper.EncDecModel`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.sharding.ctx import head_plan
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
-def param_shapes(cfg, hq: int, hkv: int) -> dict:
-    """The dense decoder's parameter tree as nested dicts of shapes."""
-    d, hd, Ln = cfg.d_model, cfg.head_dim, cfg.num_layers
-    attn = {"wq": (Ln, d, hq, hd), "wk": (Ln, d, hkv, hd),
-            "wv": (Ln, d, hkv, hd), "wo": (Ln, hq, hd, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(Ln, hq, hd), bk=(Ln, hkv, hd), bv=(Ln, hkv, hd))
-    tree = {"embed": (cfg.vocab, d), "final_norm": (d,),
-            "ln1": (Ln, d), "ln2": (Ln, d), "attn": attn}
+def param_specs(cfg, hq: int, hkv: int) -> dict:
+    """The decoder's parameter tree: nested dicts of (shape, init) leaves,
+    ``init`` a normal draw's standard deviation, ``("fill", v)`` or
+    ``("A_log",)`` (the reference's initial values)."""
+    d, Ln = cfg.d_model, cfg.num_layers
+    tree = {"embed": ((cfg.vocab, d), 0.02),
+            "final_norm": ((d,), ("fill", 1.0))}
+    if cfg.family == "ssm":
+        n_s = len(cfg.slstm_layers)
+        tree["blocks"] = {"mlstm": X.mlstm_shapes(cfg, Ln - n_s),
+                          "slstm": X.slstm_shapes(cfg, n_s)}
+        return tree
+    if cfg.family == "hybrid":
+        per = cfg.attn_every
+        G = _groups(cfg)
+        n_moe = per // 2
+        tree["groups"] = {
+            "ln1": ((G, per, d), ("fill", 1.0)),
+            "ln2": ((G, per, d), ("fill", 1.0)),
+            "attn": L.attn_shapes(cfg, G, hq, hkv),
+            "mamba": M.mamba_shapes(d, cfg.mamba, G * (per - 1)),
+            "mlp": L.mlp_shapes(d, cfg.d_ff, G * (per - n_moe)),
+            "moe": MOE.moe_shapes(d, cfg.moe, G * n_moe),
+        }
+        return tree
+    tree["ln1"] = ((Ln, d), ("fill", 1.0))
+    tree["ln2"] = ((Ln, d), ("fill", 1.0))
+    tree["attn"] = L.attn_shapes(cfg, Ln, hq, hkv)
     if cfg.d_ff:
-        tree["mlp"] = {"w1": (Ln, d, cfg.d_ff), "w3": (Ln, d, cfg.d_ff),
-                       "w2": (Ln, cfg.d_ff, d)}
+        tree["mlp"] = L.mlp_shapes(d, cfg.d_ff, Ln)
+    if cfg.moe is not None:
+        tree["moe"] = MOE.moe_shapes(d, cfg.moe, Ln)
     return tree
 
 
-def _parameter(shape, device):
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                    device=device), requires_grad=False)
+def _groups(cfg) -> int:
+    """Groups of a hybrid stack (one attention layer each)."""
+    assert cfg.num_layers % cfg.attn_every == 0
+    return cfg.num_layers // cfg.attn_every
 
 
-class DecoderModel(nn.Module):
-    """Dense decoder: init / apply / loss / init_cache / decode_step."""
+class ParamTree(nn.Module):
+    """Parameters laid out as a nested dict: a leaf is an f32
+    ``nn.Parameter`` that takes no gradient, a dict a child ``ParamTree``;
+    ``tree[name]`` reads either. The ``state_dict`` names are the tree's
+    dotted paths."""
+
+    def __init__(self, specs: dict, device):
+        super().__init__()
+        self._specs = specs
+        for name, spec in specs.items():
+            if isinstance(spec, dict):
+                self.add_module(name, ParamTree(spec, device))
+            else:
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(spec[0], dtype=torch.float32, device=device),
+                    requires_grad=False))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def items(self):
+        return [(k, self[k]) for k in self._specs]
+
+    def param_tree(self) -> dict:
+        """The parameters as nested dicts (the tensors themselves, not
+        copies)."""
+        return {k: v.param_tree() if isinstance(v, ParamTree) else v
+                for k, v in self.items()}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """Random parameters from ``generator`` (on the parameters'
+        device), leaf by leaf in tree order, with the reference's scales
+        and constants. Returns the module."""
+        for name, spec in self._specs.items():
+            p = self[name]
+            if isinstance(spec, dict):
+                p.init(generator)
+            elif not isinstance(spec[1], tuple):
+                p.normal_(0.0, spec[1], generator=generator)
+            elif spec[1][0] == "fill":
+                p.fill_(spec[1][1])
+            else:                                    # A_log: log(1..d_state)
+                ds = p.shape[-1]
+                p.copy_(torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                               device=p.device)))
+        return self
+
+
+def unbind_layers(group: dict, n: int) -> list[dict]:
+    """A dict of stacked leaves as ``n`` per-layer dicts. Each leaf is
+    unbound once (its backward is one stack, not a full-size zero tensor a
+    layer)."""
+    per = {k: v.unbind(0) for k, v in group.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _as_tensor(x, device):
+    """A batch leaf (numpy, a list or a tensor) as a tensor on ``device``."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
+                           device=device)
+
+
+class DecoderModel(ParamTree):
+    """Decoder stack: init / apply / loss / init_cache / decode_step."""
 
     def __init__(self, cfg, tp: int = 16, device=None):
-        super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported to "
-                f"repro_torch yet: the MoE, VLM, hybrid, xLSTM and Whisper "
-                f"families come with a later slice (ROADMAP Queue 1); "
-                f"ported: {PORTED_FAMILIES}")
+            raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not a "
+                             f"decoder family; one of {PORTED_FAMILIES}")
+        hq, hkv, _ = head_plan(cfg.num_heads, cfg.kv_heads, tp)
+        super().__init__(param_specs(cfg, hq, hkv),
+                         resolve_device(device))      # "meta": no memory
         self.cfg = cfg
-        self.hq, self.hkv, _ = head_plan(cfg.num_heads, cfg.kv_heads, tp)
-        dev = resolve_device(device)       # "meta" allocates nothing
-        shapes = param_shapes(cfg, self.hq, self.hkv)
-        for name in ("embed", "final_norm", "ln1", "ln2"):
-            setattr(self, name, _parameter(shapes[name], dev))
-        self.attn = nn.ParameterDict(
-            {k: _parameter(s, dev) for k, s in shapes["attn"].items()})
-        self.mlp = nn.ParameterDict(
-            {k: _parameter(s, dev) for k, s in shapes.get("mlp", {}).items()})
+        self.hq, self.hkv = hq, hkv
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    # -- params ------------------------------------------------------------
+    # -- shared blocks -------------------------------------------------------
 
-    @torch.no_grad()
-    def init(self, generator: torch.Generator):
-        """Random parameters from ``generator`` (on the model's device), with
-        the reference's scales: embed N(0, 0.02^2); q/k/v and w1/w3 scaled
-        by d^-0.5, wo by (H hd)^-0.5, w2 by ff^-0.5; norms 1, biases 0.
-        Returns the model."""
+    def _ffn(self, mlp, moe, h):
         cfg = self.cfg
-        d = cfg.d_model
-        self.embed.normal_(0.0, 0.02, generator=generator)
-        for name in ("final_norm", "ln1", "ln2"):
-            getattr(self, name).fill_(1.0)
-        scales = {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
-                  "wo": (self.hq * cfg.head_dim) ** -0.5,
-                  "w1": d ** -0.5, "w3": d ** -0.5,
-                  "w2": (cfg.d_ff or 1) ** -0.5}
-        for group in (self.attn, self.mlp):
-            for name, p in group.items():
-                if name in ("bq", "bk", "bv"):
-                    p.zero_()
-                else:
-                    p.normal_(0.0, scales[name], generator=generator)
-        return self
+        if moe:
+            y = MOE.moe_ffn(moe, h, cfg.moe)
+            if mlp and cfg.moe.dense_residual and cfg.d_ff:
+                y = y + L.mlp(mlp, h)
+            return y
+        return L.mlp(mlp, h)
 
-    def param_tree(self) -> dict:
-        """The module's parameters as the reference's nested dict (the
-        tensors themselves, not copies)."""
-        tree = {"embed": self.embed, "final_norm": self.final_norm,
-                "ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn)}
-        if len(self.mlp):
-            tree["mlp"] = dict(self.mlp)
-        return tree
-
-    def _layer(self, l: int):
-        return ({k: v[l] for k, v in self.attn.items()},
-                {k: v[l] for k, v in self.mlp.items()})
-
-    # -- forward (prefill / scoring / training) ------------------------------
-
-    def _embed_inputs(self, embed, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = embed[tokens].to(L.dtype_of(self.cfg))
-        B, S = tokens.shape
-        pos = torch.arange(S, device=self.device)[None].expand(B, S)
-        return x, pos
-
-    def _block(self, x, pos, ln1, ln2, attn, mlp):
+    def _block(self, x, pos, ln1, ln2, attn, mlp, moe):
         cfg = self.cfg
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
         x = x + L.attention_train(attn, h, cfg, pos)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        return x + L.mlp(mlp, h)
+        return x + self._ffn(mlp, moe, h)
+
+    def _group(self, x, pos, ln1, ln2, attn, mambas, mlps, moes):
+        """One hybrid group: attention at j == 0, Mamba after; MoE at odd
+        j, the MLP at even j."""
+        cfg = self.cfg
+        for j in range(cfg.attn_every):
+            h = L.rmsnorm(x, ln1[j], cfg.norm_eps)
+            if j == 0:
+                x = x + L.attention_train(attn, h, cfg, pos)
+            else:
+                x = x + M.mamba_train(mambas[j - 1], h, cfg.mamba)
+            h = L.rmsnorm(x, ln2[j], cfg.norm_eps)
+            if j % 2 == 1:
+                x = x + self._ffn({}, moes[j // 2], h)
+            else:
+                x = x + L.mlp(mlps[j // 2], h)
+        return x
+
+    # -- forward (prefill / scoring / training) ------------------------------
+
+    def _embed_inputs(self, embed, batch):
+        cfg = self.cfg
+        dt = L.dtype_of(cfg)
+        if "embeds" in batch:                        # the VLM's stub frontend
+            x = _as_tensor(batch["embeds"], self.device).to(dt)
+        else:
+            tokens = _as_tensor(batch["tokens"], self.device).long()
+            x = embed[tokens].to(dt)
+        B, S = x.shape[:2]
+        if cfg.rope == "mrope" and "positions" in batch:
+            pos = _as_tensor(batch["positions"], self.device).long()
+        else:
+            pos = torch.arange(S, device=self.device)[None].expand(B, S)
+            if cfg.rope == "mrope":
+                pos = pos[None].expand(3, B, S)
+        return x, pos
 
     def _hidden(self, params, batch, remat: bool):
-        """Final hidden states [B,S,d] of ``params``. The stacked leaves are
-        unbound once (their backward is one stack, not a full-size zero
-        tensor a layer); with ``remat`` each layer is recomputed in the
-        backward."""
+        """Final hidden states [B,S,d] of ``params``; with ``remat`` each
+        layer (each hybrid group) is recomputed in the backward."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params["embed"], batch)
-        Ln = cfg.num_layers
 
-        def layers(group):
-            per = {k: v.unbind(0) for k, v in group.items()}
-            return [{k: v[l] for k, v in per.items()} for l in range(Ln)]
+        def run(fn, *args):
+            return (checkpoint(fn, *args, use_reentrant=False) if remat
+                    else fn(*args))
 
-        ln1, ln2 = params["ln1"].unbind(0), params["ln2"].unbind(0)
-        attn, mlp = layers(params["attn"]), layers(params.get("mlp", {}))
-        for l in range(Ln):
-            args = (x, pos, ln1[l], ln2[l], attn[l], mlp[l])
-            x = (checkpoint(self._block, *args, use_reentrant=False)
-                 if remat else self._block(*args))
+        if cfg.family == "ssm":
+            x = self._xlstm(params["blocks"], x)
+        elif cfg.family == "hybrid":
+            g = params["groups"]
+            G, per = _groups(cfg), cfg.attn_every
+            n_moe = per // 2
+            ln1, ln2 = g["ln1"].unbind(0), g["ln2"].unbind(0)
+            attn = unbind_layers(g["attn"], G)
+            mamba = unbind_layers(g["mamba"], G * (per - 1))
+            mlp = unbind_layers(g["mlp"], G * (per - n_moe))
+            moe = unbind_layers(g["moe"], G * n_moe)
+            for gi in range(G):
+                x = run(self._group, x, pos, ln1[gi], ln2[gi], attn[gi],
+                        mamba[gi * (per - 1):(gi + 1) * (per - 1)],
+                        mlp[gi * (per - n_moe):(gi + 1) * (per - n_moe)],
+                        moe[gi * n_moe:(gi + 1) * n_moe])
+        else:
+            Ln = cfg.num_layers
+            ln1, ln2 = params["ln1"].unbind(0), params["ln2"].unbind(0)
+            attn = unbind_layers(params["attn"], Ln)
+            mlp = unbind_layers(params.get("mlp", {}), Ln)
+            moe = unbind_layers(params.get("moe", {}), Ln)
+            for l in range(Ln):
+                x = run(self._block, x, pos, ln1[l], ln2[l], attn[l], mlp[l],
+                        moe[l])
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+    def _xlstm(self, blocks, x):
+        cfg = self.cfg
+        n_s = len(cfg.slstm_layers)
+        mlstm = unbind_layers(blocks["mlstm"], cfg.num_layers - n_s)
+        slstm = unbind_layers(blocks["slstm"], n_s)
+        i_m = i_s = 0
+        for l in range(cfg.num_layers):
+            if l in cfg.slstm_layers:
+                x = X.slstm_train(slstm[i_s], x, cfg)
+                i_s += 1
+            else:
+                x = X.mlstm_train(mlstm[i_m], x, cfg)
+                i_m += 1
+        return x
 
     def apply(self, batch):
         """The reference's name for the forward (it shadows
@@ -183,19 +305,47 @@ class DecoderModel(nn.Module):
     def _loss(self, params, batch, remat: bool):
         h = self._hidden(params, batch, remat)
         logits = L.unembed(h, params["embed"])
-        labels = torch.as_tensor(batch["labels"], device=self.device)
+        labels = _as_tensor(batch["labels"], self.device)
         return L.softmax_xent(logits, labels)
 
     # -- serving -------------------------------------------------------------
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        """Zeroed KV cache [L, B, max_len, Hkv, hd] in the activation dtype,
-        and its shared length (a host int)."""
+        """The zeroed decode state and its shared length (a host int):
+        dense/vlm/moe: KV [L, B, max_len, Hkv, hd] in the activation dtype;
+        hybrid: KV of the G attention layers, the Mamba layers' ``conv``
+        [n, B, d_conv - 1, d_inner] (activation dtype) and ``ssm`` [n, B,
+        d_inner, d_state] (f32); ssm: the mLSTM memories ``C`` [n_m, B, H,
+        hd, hd] and ``n`` [n_m, B, H, hd], the sLSTM states ``c_s``/``h_s``
+        [n_s, B, H, hd], all f32."""
         cfg = self.cfg
-        kv = (cfg.num_layers, batch_size, max_len, self.hkv, cfg.head_dim)
         dt = L.dtype_of(cfg)
-        return {"k": torch.zeros(kv, dtype=dt, device=self.device),
-                "v": torch.zeros(kv, dtype=dt, device=self.device),
+
+        def zeros(shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        kv_len = (batch_size, max_len, self.hkv, cfg.head_dim)
+        if cfg.family == "ssm":
+            n_s = len(cfg.slstm_layers)
+            n_m = cfg.num_layers - n_s
+            H, hd = cfg.num_heads, cfg.head_dim
+            f32 = torch.float32
+            return {"C": zeros((n_m, batch_size, H, hd, hd), f32),
+                    "n": zeros((n_m, batch_size, H, hd), f32),
+                    "c_s": zeros((n_s, batch_size, H, hd), f32),
+                    "h_s": zeros((n_s, batch_size, H, hd), f32), "len": 0}
+        if cfg.family == "hybrid":
+            G = _groups(cfg)
+            di = cfg.mamba.expand * cfg.d_model
+            n_mamba = G * (cfg.attn_every - 1)
+            return {"k": zeros((G,) + kv_len), "v": zeros((G,) + kv_len),
+                    "conv": zeros((n_mamba, batch_size, cfg.mamba.d_conv - 1,
+                                   di)),
+                    "ssm": zeros((n_mamba, batch_size, di,
+                                  cfg.mamba.d_state), torch.float32),
+                    "len": 0}
+        Ln = cfg.num_layers
+        return {"k": zeros((Ln,) + kv_len), "v": zeros((Ln,) + kv_len),
                 "len": 0}
 
     @torch.no_grad()
@@ -203,19 +353,86 @@ class DecoderModel(nn.Module):
         """One decode step for all batch rows. tokens [B] -> (logits f32
         [B,V], cache); the cache is updated in place and returned."""
         cfg = self.cfg
-        tokens = torch.as_tensor(tokens, device=self.device).long()
+        tokens = _as_tensor(tokens, self.device).long()
         x = self.embed[tokens][:, None].to(L.dtype_of(cfg))     # [B,1,d]
-        B = x.shape[0]
-        pos = torch.full((B,), cache["len"], device=self.device)
-        for l in range(cfg.num_layers):
-            attn, mlp = self._layer(l)
-            h = L.rmsnorm(x, self.ln1[l], cfg.norm_eps)
-            a, _, _ = L.attention_decode(attn, h, cfg, pos, cache["k"][l],
-                                         cache["v"][l], cache["len"])
-            x = x + a
-            h = L.rmsnorm(x, self.ln2[l], cfg.norm_eps)
-            x = x + L.mlp(mlp, h)
+        pos = torch.full((x.shape[0],), cache["len"], device=self.device)
+        if cfg.family == "ssm":
+            x = self._decode_xlstm(cache, x)
+        elif cfg.family == "hybrid":
+            x = self._decode_hybrid(cache, x, pos)
+        else:
+            x = self._decode_stack(cache, x, pos)
         h = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         logits = L.unembed(h, self.embed)[:, 0]
         cache["len"] += 1
         return logits.float(), cache
+
+    def _attn_decode(self, attn, x, ln, pos, cache, i):
+        h = L.rmsnorm(x, ln, self.cfg.norm_eps)
+        a, _, _ = L.attention_decode(attn, h, self.cfg, pos, cache["k"][i],
+                                     cache["v"][i], cache["len"])
+        return x + a
+
+    def _decode_stack(self, cache, x, pos):
+        cfg = self.cfg
+        Ln = cfg.num_layers
+        attn = unbind_layers(self.attn.param_tree(), Ln)
+        mlp = unbind_layers(self.mlp.param_tree() if cfg.d_ff else {}, Ln)
+        moe = unbind_layers(self.moe.param_tree() if cfg.moe else {}, Ln)
+        for l in range(Ln):
+            x = self._attn_decode(attn[l], x, self.ln1[l], pos, cache, l)
+            h = L.rmsnorm(x, self.ln2[l], cfg.norm_eps)
+            x = x + self._ffn(mlp[l], moe[l], h)
+        return x
+
+    def _decode_hybrid(self, cache, x, pos):
+        cfg = self.cfg
+        g = self.groups
+        i_mamba = i_mlp = i_moe = 0
+        for gi in range(_groups(cfg)):
+            for j in range(cfg.attn_every):
+                if j == 0:
+                    attn = {k: v[gi] for k, v in g.attn.items()}
+                    x = self._attn_decode(attn, x, g.ln1[gi, j], pos, cache,
+                                          gi)
+                else:
+                    h = L.rmsnorm(x, g.ln1[gi, j], cfg.norm_eps)
+                    pl = {k: v[i_mamba] for k, v in g.mamba.items()}
+                    a, st = M.mamba_decode(
+                        pl, h, cfg.mamba, {"conv": cache["conv"][i_mamba],
+                                           "ssm": cache["ssm"][i_mamba]})
+                    cache["conv"][i_mamba] = st["conv"]
+                    cache["ssm"][i_mamba] = st["ssm"]
+                    x = x + a
+                    i_mamba += 1
+                h = L.rmsnorm(x, g.ln2[gi, j], cfg.norm_eps)
+                if j % 2 == 1:
+                    pl = {k: v[i_moe] for k, v in g.moe.items()}
+                    x = x + self._ffn({}, pl, h)
+                    i_moe += 1
+                else:
+                    pl = {k: v[i_mlp] for k, v in g.mlp.items()}
+                    x = x + L.mlp(pl, h)
+                    i_mlp += 1
+        return x
+
+    def _decode_xlstm(self, cache, x):
+        cfg = self.cfg
+        b = self.blocks
+        i_m = i_s = 0
+        for l in range(cfg.num_layers):
+            if l in cfg.slstm_layers:
+                pl = {k: v[i_s] for k, v in b.slstm.items()}
+                x, st = X.slstm_decode(pl, x, cfg, {"c": cache["c_s"][i_s],
+                                                    "h": cache["h_s"][i_s]})
+                cache["c_s"][i_s] = st["c"]
+                cache["h_s"][i_s] = st["h"]
+                i_s += 1
+            else:
+                pl = {k: v[i_m] for k, v in b.mlstm.items()}
+                x, st = X.mlstm_decode(pl, x, cfg, {"C": cache["C"][i_m],
+                                                    "n": cache["n"][i_m]})
+                cache["C"][i_m] = st["C"]
+                cache["n"][i_m] = st["n"]
+                i_m += 1
+        return x

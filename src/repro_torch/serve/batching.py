@@ -7,7 +7,10 @@ Greedy sampling; per-request max_tokens/eos. The slot tokens live on the
 model's device and the argmax runs there: each step copies the B argmax
 tokens to the host, which decides every slot's next token (prompt
 teacher-forcing, generation, eos and budgets as in the reference), and
-sends the B next tokens back in one copy.
+sends the B next tokens back in one copy. The model is any decoder of
+:func:`repro_torch.models.build_model` (its ``init_cache(batch_size,
+max_len)`` and ``decode_step``); Whisper's cache also needs the encoder
+length, so it is not served here, as in the reference.
 """
 from __future__ import annotations
 

@@ -7,10 +7,11 @@ so every leaf matters: the forward's final hidden states, the loss, and 8
 decode steps of logits and KV cache. Tolerances (f32; the frameworks sum in
 other orders through 4 layers, measured at a few 1e-6): hidden states and
 cache 5e-5, loss and decode logits 1e-5. Beside them: the copied configs,
-the head plan of all ten full-width configs, the full-width Qwen1.5-0.5B
-parameter shapes without allocating (``jax.eval_shape`` against the port's
-model on the ``meta`` device), the loader's checks, and the families not
-ported yet.
+the head plan of all ten full-width configs, the full-width parameter
+shapes of every arch without allocating (``jax.eval_shape`` against the
+port's model on the ``meta`` device), the loader's checks, and the refusal
+of ``launch.train.train`` for the families whose training is not ported
+yet. The other families' parity is in tests/test_torch_families.py.
 """
 import dataclasses
 
@@ -168,23 +169,38 @@ def test_head_plan_matches(arch):
                 == r_head_plan(cfg.num_heads, cfg.kv_heads, tp))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "smollm-360m"])
+# exact full-width parameter counts (head plan padding included); Jamba at
+# one group of 8 layers, the depth chip_smoke.py runs
+FULL_WIDTH_PARAMS = {
+    "arctic-480b": 477_134_701_568, "granite-34b": 46_947_932_160,
+    "granite-moe-1b-a400m": 1_334_628_352,
+    "jamba-v0.1-52b": 13_026_799_616, "qwen1.5-0.5b": 463_987_712,
+    "qwen2-vl-7b": 7_173_393_920, "qwen2.5-3b": 3_085_938_688,
+    "smollm-360m": 377_549_760, "whisper-large-v3": 2_436_967_424,
+    "xlstm-125m": 75_280_168,
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_full_width_param_shapes(arch):
     """The reference's full-width parameter tree (shapes only, from
     jax.eval_shape) fits the port's model on the meta device leaf for
     leaf; nothing is allocated."""
-    cfg = ARCHS[arch]
+    cfg, tcfg = ARCHS[arch], TC.ARCHS[arch]
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=cfg.attn_every)
+        tcfg = dataclasses.replace(tcfg, num_layers=tcfg.attn_every)
     tree = jax.eval_shape(
         lambda: r_build(cfg, tp=16).init(jax.random.PRNGKey(0)))
-    model = t_build(TC.ARCHS[arch], tp=16, device="meta")
+    model = t_build(tcfg, tp=16, device="meta")
     assert model.device.type == "meta"
     flat = interop.flatten_params(tree)
     interop.check_params(model, flat)
     assert param_count(model) == sum(int(np.prod(x.shape))
                                      for x in flat.values())
-    if arch == "qwen1.5-0.5b":
-        assert param_count(model) == 463_987_712
-        assert (model.hq, model.hkv) == (16, 16)
+    assert param_count(model) == FULL_WIDTH_PARAMS[arch]
+    assert (model.hq, model.hkv) == r_head_plan(cfg.num_heads,
+                                                cfg.kv_heads, 16)[:2]
 
 
 def test_load_params_checks_the_tree():
@@ -207,9 +223,14 @@ def test_load_params_checks_the_tree():
 
 @pytest.mark.parametrize("arch", sorted(a for a in ARCHS
                                         if ARCHS[a].family != "dense"))
-def test_unported_families_raise(arch):
+def test_train_refuses_unported_families(arch, tmp_path):
+    """Training of the non-dense families is a later slice:
+    ``launch.train.train`` raises before it builds anything."""
+    from repro_torch.launch.train import train
+
     with pytest.raises(NotImplementedError, match=ARCHS[arch].family):
-        t_build(TC.ARCHS[arch], device="meta")
+        train(TC.reduced(TC.ARCHS[arch]), steps=1, ckpt_dir=str(tmp_path),
+              device="cpu")
 
 
 def test_entry_points_need_the_card(monkeypatch):
