@@ -88,7 +88,9 @@ reference package ``repro``. Phases, each fatal on failure:
    same shapes and the training cell's (B=8, S=256, H=16, hd=64, bf16), on
    strided views and output gradients and through the autograd Function,
    each backward bitwise equal to a second one, with the backward's times
-   beside the plain backward's and SDPA's backward;
+   beside the plain backward's and SDPA's backward, also at Whisper's
+   encoder (non-causal) and decoder (causal) shapes, B=1, S=1500, H=32,
+   hd=64 (``FLASH_BWD_TIMED``);
 13. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
@@ -96,7 +98,10 @@ reference package ``repro``. Phases, each fatal on failure:
    against plain-attention forwards of the same parameters (f32:
    elementwise within 1e-4; bf16: within 2e-2 in relative norm, and no
    further from the f32 forward than the plain bf16 forward is); forward
-   seconds cold and warm (``[model]``);
+   seconds cold and warm (``[model]``). The plain attention of every
+   comparison is the model's CPU path on the card,
+   ``layers.attention_plain_model`` (the reference model's arithmetic:
+   scores and P rounded to bf16), through :func:`plain_attention`;
 14. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
    requests on 4 slots, 32 new tokens, max_len 512, every request finished;
    then the forward's logits against step-by-step decode logits at full
@@ -107,8 +112,9 @@ reference package ``repro``. Phases, each fatal on failure:
    64 forward and 32 of each backward flash launch a step, cold and warm
    step seconds, tokens/s, and one profiled warm step's device busy time
    and idle share; (b) the first step's loss and gradients through the
-   kernels against the plain attention, in an f32 copy of the config
-   elementwise and in bf16 against the f32 gradients; (c) an 8-step run
+   kernels against the plain attention (:func:`first_step`), in an f32
+   copy of the config elementwise and in bf16 against the f32 gradients;
+   (c) an 8-step run
    under injected failures, restarted from checkpoints, equal to an
    uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``,
    one step (a cut of three):
@@ -123,15 +129,29 @@ reference package ``repro``. Phases, each fatal on failure:
    frames and tokens) through the kernel, cold and warm, its bf16 hidden
    states and loss against plain attention within 2e-2 relative, one
    launch per self-attention layer and no call of the plain attention, a
-   profiled warm forward; (b) ``launch.serve.serve`` (the MoE at the CLI's
+   profiled warm forward (xLSTM's at S=256, ``FAMILY_PROFILE_S``: its
+   S=2048 trace costs ~30 s); (b) ``launch.serve.serve`` (the MoE at the CLI's
    traffic, the others 4 requests of 8 new tokens; Whisper: ``prefill`` of
    1,500 frames and 16 greedy decode steps); (c) forward == decode in f32
    within 2e-2 (MoE at capacity factor 8); (e) peak device memory; then
    (d) the kernel at their new shapes (non-causal S=1500, H=32, hd=64;
    causal S=1500, H=32, hd=64; causal S=2048, H=32, hd=128) against the
-   plain version, with its time, bound and SDPA's time.
+   plain version, with its time, bound and SDPA's time;
+17. the families' training at full width (``[train-families]``):
+   ``launch.train.train`` on granite-moe (B=8, S=256, 10 steps: the MoE
+   backward), Whisper large-v3 (B=1, 1,500 frames and 1,500 tokens, 10
+   steps: the non-causal and causal flash backward at S=1500) and
+   xLSTM-125M (B=8, S=256, 3 steps: the recurrences' backward), each with
+   its f32 parameters, gradients and AdamW moments on the card: finite
+   losses, the first within 0.5 of ln V, exactly 2 forward flash launches
+   and 1 of each backward stage per self-attention layer a step, cold and
+   warm step seconds, tokens/s, a profiled warm step, peak memory; the
+   first step's gradients through the kernels against the plain model
+   attention by (15) (b)'s rule, an MoE's recompute routing bitwise equal
+   to its forward's (:func:`first_step`). Qwen2-VL and Jamba do not fit
+   one card with AdamW in f32: the CPU tests hold their training.
 
-Each path (4, 5, 8, 9, 10, 11, 13, 14, 15, 16) is driven with the
+Each path (4, 5, 8, 9, 10, 11, 13, 14, 15, 16, 17) is driven with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel the path runs that was never launched fails the run. f32 matrix
 products on the card run in full f32: TF32 is switched off for matmuls
@@ -210,11 +230,18 @@ LSE_TOL = 1e-4
 # [train]: the train CLI's defaults at full width (launch/train.py)
 TRAIN_ARCH = "smollm-360m"
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
-# the backward's timed shapes: FLASH_TIMED's and the training cell's (16
-# heads of 64 after head_plan, causal, bf16), where the kernels run 3,200
-# times a [train] run
-FLASH_BWD_TIMED = {**FLASH_TIMED,
-                   "bfloat16_train": (TRAIN_B, TRAIN_S, 16, 64, "bfloat16")}
+# the backward's timed shapes (B, S, H, hd, causal, dtype): FLASH_TIMED's
+# (causal), the training cell's (16 heads of 64 after head_plan, causal,
+# bf16), where the kernels run 3,200 times a [train] run, and Whisper's
+# encoder (non-causal) and decoder (causal) at 1,500 positions and 20 heads
+# padded to 32, where [train-families] runs them
+FLASH_BWD_TIMED = {
+    **{k: (B, S, H, hd, True, dt) for k, (B, S, H, hd, dt)
+       in FLASH_TIMED.items()},
+    "bfloat16_train": (TRAIN_B, TRAIN_S, 16, 64, True, "bfloat16"),
+    "whisper_encoder": (1, 1500, 32, 64, False, "bfloat16"),
+    "whisper_decoder": (1, 1500, 32, 64, True, "bfloat16"),
+}
 RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
 RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
@@ -233,6 +260,10 @@ MP_STEPS = 1                 # (d): --mp, one step, its checkpoint (a cut of 3)
 # config, same parameters and batch) than the plain bf16 gradient is,
 # within BF16_MODEL_SLACK; the loss within BF16_MODEL_TOL
 F32_GRAD_TOL = 1e-4
+# a key bias's gradient is zero in exact arithmetic (first_step): both paths'
+# gradients there must stay below this fraction of the largest leaf's norm
+# (bf16 rounding noise: ~3e-5 of it at reduced size on the CPU)
+ZERO_GRAD_TOL = 1e-3
 # [families]: (sequence length of the B=1 forward, serve traffic: requests,
 # slots, max_new, max_len) a configuration, at full width (family_config);
 # the MoE takes the serve CLI's traffic, the others a shorter mix to hold
@@ -246,6 +277,23 @@ FAMILY_CELLS = {
     "whisper-large-v3": (1500, None),
 }
 WHISPER_DECODE_STEPS = 16
+# the profiled warm forward of (a) at a shorter sequence where the full one
+# costs more trace than it teaches: xLSTM's S=2048 forward is ~75k launches
+# (~30 s of trace); 256 positions keep every kind of launch
+FAMILY_PROFILE_S = {"xlstm-125m": 256}
+# [train-families]: (batch, sequence, steps) of launch.train.train at full
+# width a configuration: granite-moe at the train CLI's B=8, S=256 (10 of
+# its 100 steps: a cut), Whisper at one 30-s window (1,500 frames and 1,500
+# decoder tokens), xLSTM at the CLI's traffic for 3 steps (its step is
+# host-bound); each holds params, gradients and both AdamW moments in f32
+TRAIN_FAMILY_CELLS = {
+    "granite-moe-1b-a400m": (8, 256, 10),
+    "whisper-large-v3": (1, 1500, 10),
+    "xlstm-125m": (8, 256, 3),
+}
+# the profiled warm step at a shorter sequence: xLSTM's S=256 step is ~40k
+# launches, whose trace costs ~18 s; 64 positions keep every kind of launch
+TRAIN_FAMILY_PROFILE_S = {"xlstm-125m": 64}
 # (d) the flash kernel at the shapes the families give it (B, S, H, hd,
 # causal): Whisper's encoder (bidirectional, S=1500 frames, 20 heads padded
 # to 32) and decoder, Qwen2-VL's and Jamba's attention (32 q heads of 128)
@@ -2033,8 +2081,7 @@ def phase_flash_bwd(dev):
 
     cases = [(f"sweep {c}", c) for c in FLASH_SWEEP]
     cases += [(f"bf16 twin {c[:5]}", c) for c in FLASH_BF16_TWINS]
-    cases += [(key, (B, S, H, hd, True, dt))
-              for key, (B, S, H, hd, dt) in FLASH_BWD_TIMED.items()]
+    cases += list(FLASH_BWD_TIMED.items())
     errs = {}
     for label, (B, S, H, hd, causal, dt) in cases:
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
@@ -2089,43 +2136,45 @@ def phase_flash_bwd(dev):
         + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in errs.items()))
 
     rows = {}
-    for key, (B, S, H, hd, dt) in FLASH_BWD_TIMED.items():
+    for key, (B, S, H, hd, causal, dt) in FLASH_BWD_TIMED.items():
         q, k, v = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 3, dev=dev)
         do = flash_inputs(B, S, H, hd, dt, seed=B * S + H + 4, dev=dev)[0]
         names = fa.BWD_KERNEL_NAMES[getattr(torch, dt)]
-        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         reps = 20
-        event_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
-                                                          do), reps=reps)
-        per_kernel = profiled_kernels_ms(
-            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), reps,
-            names, PROFILE_OUT)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, mode="plain"), reps=3, warm=1)
+
+        def bwd(mode=None):
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          mode=mode)
+
+        event_ms = cuda_ms(bwd, reps=reps)
+        per_kernel = profiled_kernels_ms(bwd, reps, names, PROFILE_OUT)
+        plain_ms = cuda_ms(lambda: bwd("plain"), reps=3, warm=1)
         # yardstick, not used by the port: the backward of PyTorch's fused
         # attention on its [B, H, S, hd] layout, on a retained graph
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2).contiguous()
         sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), reps=reps)
         del out, qt, kt, vt
-        bound, by = flash_bwd_bound_ms(B, S, H, hd, True, dt)
+        bound, by = flash_bwd_bound_ms(B, S, H, hd, causal, dt)
         if all(t is not None for t in per_kernel.values()):
             ms, ms_from = sum(per_kernel.values()), "profiler"
         else:
             ms, ms_from = event_ms, "events"
-        rows[key] = {"shape": f"B={B} S={S} H={H} hd={hd} causal {dt}",
+        shape = (f"B={B} S={S} H={H} hd={hd} "
+                 f"{'causal' if causal else 'non-causal'} {dt}")
+        rows[key] = {"shape": shape,
                      "max_abs_err": errs[key][1], "ms": ms,
                      "ms_from": ms_from, "kernel_ms": per_kernel,
                      "event_ms": event_ms, "plain_ms": plain_ms,
                      "library_ms": sdpa_ms, "bound_ms": bound,
                      "bound_by": by}
-        log(f"[flash] backward B={B} S={S} H={H} hd={hd} causal {dt}: "
-            f"kernels {ms:.4f} ms ({ms_from}: " + ", ".join(
-                f"{n} {t}" for n, t in per_kernel.items())
+        log(f"[flash] backward {shape}: kernels {ms:.4f} ms ({ms_from}: "
+            + ", ".join(f"{n} {t}" for n, t in per_kernel.items())
             + f"; eager events {event_ms:.4f}), plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of bound, "
@@ -2135,17 +2184,17 @@ def phase_flash_bwd(dev):
 
 @contextlib.contextmanager
 def plain_attention():
-    """Route the model forward's attention through the plain version (the
-    comparison forward)."""
-    from repro_torch.kernels import flash_attention as fa
+    """Route the model's self-attention through its plain path on the card
+    (the comparison passes): ``layers.attention_plain_model``, the
+    reference model's arithmetic, which the port runs on the CPU."""
     from repro_torch.models import layers
 
-    layers.flash_attention = functools.partial(fa.flash_attention,
-                                               mode="plain")
+    real = layers.self_attention
+    layers.self_attention = functools.partial(real, mode="plain")
     try:
         yield
     finally:
-        layers.flash_attention = fa.flash_attention
+        layers.self_attention = real
 
 
 def rel_err(got, want) -> float:
@@ -2353,39 +2402,53 @@ def flash_per_forward(cfg) -> int:
 
 @contextlib.contextmanager
 def counting_plain_attention(counter: list):
-    """Count the calls of the plain attention in ``counter[0]``: a family
-    forward through the kernel must make none."""
-    from repro_torch.kernels import flash_attention as fa
+    """Count the calls of the model's plain self-attention in
+    ``counter[0]``: a family forward through the kernel must make none."""
+    from repro_torch.models import layers
 
-    real = fa.attention_plain
+    real = layers.attention_plain_model
 
     def counted(*args, **kwargs):
         counter[0] += 1
         return real(*args, **kwargs)
 
-    fa.attention_plain = counted
+    layers.attention_plain_model = counted
     try:
         yield
     finally:
-        fa.attention_plain = real
+        layers.attention_plain_model = real
 
 
 @contextlib.contextmanager
 def routing(log: list, replay: bool = False):
     """Record every MoE routing of a forward into ``log`` (the dict
     ``models.moe.route`` returns, layer by layer), or with ``replay`` hand
-    a forward the routings of ``log`` in order instead of its own."""
+    a forward the routings of ``log`` in order instead of its own: the
+    experts, tokens, keep mask and slots of each recorded routing, with the
+    gates computed from the forward's own router logits (the softmax over
+    each token's recorded experts), so they carry its values and its
+    gradient to the router."""
+    import torch
+
     from repro_torch.models import moe
 
     real = moe.route
     it = iter(list(log))
 
-    def route(*args):
-        if replay:
-            return next(it)
-        out = real(*args)
-        log.append(out)
-        return out
+    def route(xt, gate, moe_cfg, cap):
+        if not replay:
+            out = real(xt, gate, moe_cfg, cap)
+            log.append(out)
+            return out
+        rec = next(it)
+        se, st, keep = rec["se"], rec["st"], rec["keep"]
+        logits = torch.matmul(xt.float(), gate.float())
+        # the pairs grouped by token (each token's k recorded experts)
+        by_tok = torch.argsort(st, stable=True)
+        k = moe_cfg.top_k
+        g = torch.softmax(logits[st[by_tok], se[by_tok]].view(-1, k), dim=-1)
+        sg = torch.empty_like(g.view(-1)).index_put((by_tok,), g.view(-1))
+        return {**rec, "sg": torch.where(keep, sg, torch.zeros_like(sg))}
 
     moe.route = route
     try:
@@ -2484,6 +2547,7 @@ def family_cell(dev, arch, plain_calls):
         apart = routed_apart(routes, own)
     labels = torch.as_tensor(batch["labels"], device=dev)
     loss_p = float(L.softmax_xent(L.unembed(h16p, model.embed), labels))
+    prof_s = FAMILY_PROFILE_S.get(arch, S)
     check(h16.shape == (1, S, cfg.d_model) and h16.dtype == torch.bfloat16
           and bool(torch.isfinite(h16).all()) and math.isfinite(loss_warm),
           f"[families] {arch}: hidden states {h16.dtype} "
@@ -2492,7 +2556,11 @@ def family_cell(dev, arch, plain_calls):
     rel_loss = abs(loss_warm - loss_p) / abs(loss_p)
     check(rel_loss <= BF16_MODEL_TOL, f"[families] {arch}: bf16 loss "
           f"through the kernel {loss_warm} != plain {loss_p}")
-    fwd = device_breakdown(lambda: model.loss(batch), 1, PROFILE_OUT)
+    prof_batch = batch if prof_s == S else SyntheticTokens(
+        cfg, ShapeConfig("families", "prefill", prof_s, 1),
+        seed=SEED).batch(0)
+    fwd = device_breakdown(lambda: model.loss(prof_batch), 1, PROFILE_OUT)
+    del prof_batch
 
     # (b) serving
     if traffic is None:            # Whisper: prefill, then greedy decode
@@ -2602,7 +2670,8 @@ def family_cell(dev, arch, plain_calls):
            f"its own routing: {rel_own:.4g} relative, {apart} of "
            f"{len(routes) * S} (token, layer) routings apart)"
            if moe else ""))
-    log(f"[families] {arch} (a) warm loss forward: {breakdown_text(fwd)}")
+    log(f"[families] {arch} (a) warm loss forward (S={prof_s}): "
+        f"{breakdown_text(fwd)}")
     if traffic is None:
         log(f"[families] {arch} (b) prefill of {S} frames {prefill_s:.3f} s "
             f"({cfg.encoder_layers} flash launches, cross K/V of "
@@ -2667,34 +2736,159 @@ def leaf_pairs(a, b, prefix=""):
             yield path, x, b[key]
 
 
-def train_first_step(cfg, dev):
-    """[train] (b): the loss and gradients of the first step (seed-0
-    parameters, the CLI's batch 0) through the kernels and through the
-    plain attention. Returns (the kernel's loss, the plain loss, per-leaf
-    gradients of both)."""
+def first_step(cfg, dev, B, S, tag):
+    """The first step's loss and gradients (seed-0 parameters, the train
+    CLI's batch 0 of B x S) through the flash kernels and through the
+    model's plain attention, in bf16 and in an f32 copy of the config: one
+    model, whose activation dtype is switched between the passes (the f32
+    master parameters are the same). The bf16 kernel pass goes first; with
+    an MoE it records its routings (forward, then the recompute's, layer
+    by layer in reverse), which must agree bitwise, and the other three
+    passes replay them, so the comparisons see the attention alone.
+
+    Gates, by ``[train]`` (b)'s rule: the f32 gradients elementwise,
+    ``|g - g_plain| <= F32_GRAD_TOL (|g_plain| + max |g_plain|)``; each
+    bf16 leaf no further from the f32 plain gradient than the plain bf16
+    leaf is, times ``BF16_MODEL_SLACK``; the bf16 losses within
+    ``BF16_MODEL_TOL``. A key bias (``bk``) is left out of both and held
+    by :data:`ZERO_GRAD_TOL` instead: the softmax does not move when every
+    key shifts by one vector, so its exact gradient is zero and both paths
+    give rounding noise there. A family without attention (xLSTM) runs
+    the bf16 and f32 passes only: its kernel and plain paths are one code.
+    Returns the numbers for the log."""
+    import dataclasses
+    import math
+
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
-    from repro_torch.train.step import init_state, loss_and_grads
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import loss_and_grads
 
     model = build_model(cfg, device=dev)
-    params = init_state(model, torch.Generator(device=dev).manual_seed(0))[
-        "params"]
-    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
-                                             TRAIN_B), seed=0).batch(0)
-    before = fa.BWD_LAUNCHES["flash_bwd_dq"]
-    loss_k, g_k = loss_and_grads(model, params, batch)
-    check(fa.BWD_LAUNCHES["flash_bwd_dq"] - before == cfg.num_layers,
-          f"the kernel step of {cfg.dtype} did not go through the backward "
-          f"kernels")
-    with plain_attention():
-        loss_p, g_p = loss_and_grads(model, params, batch)
-    check(fa.BWD_LAUNCHES["flash_bwd_dq"] - before == cfg.num_layers,
-          "the plain step launched a backward kernel")
-    return float(loss_k), float(loss_p), list(leaf_pairs(g_k, g_p))
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.param_tree()
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", S, B),
+                            seed=0).batch(0)
+    n_attn = flash_per_forward(cfg)
+    moe = cfg.moe is not None
+    routes = []
+
+    def run(dtype, plain=False, record=False):
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        before = fa.BWD_LAUNCHES["flash_bwd_dq"]
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_attention())
+            if moe:
+                stack.enter_context(routing(routes, replay=not record))
+            loss, grads = loss_and_grads(model, params, batch)
+        launched = fa.BWD_LAUNCHES["flash_bwd_dq"] - before
+        check(launched == (0 if plain else n_attn), f"{tag} the {dtype} "
+              f"{'plain' if plain else 'kernel'} pass launched the "
+              f"backward {launched} times, not {0 if plain else n_attn}")
+        loss = float(loss)
+        check(math.isfinite(loss) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+            f"{tag} the {dtype} pass gave a loss {loss} or gradients that "
+            f"are not finite")
+        return loss, grads
+
+    out = {}
+    loss16_k, g16_k = run("bfloat16", record=True)
+    if moe:
+        L = len(routes) // 2
+        check(len(routes) == 2 * L and L > 0, f"{tag} {len(routes)} "
+              f"routings recorded, not two a MoE layer")
+        same = all(torch.equal(a[key], b[key])
+                   for a, b in zip(routes[:L], reversed(routes[L:]))
+                   for key in a)
+        check(same, f"{tag} the recompute routed differently from the "
+              f"forward")
+        out["recompute_routing_equal"] = same
+    if n_attn == 0:
+        loss32, g32 = run("float32")
+        del model, params
+        dist = {path: rel_err(a, b) for path, a, b in leaf_pairs(g16_k, g32)}
+        out.update(loss16=loss16_k, loss32=loss32, bf16_to_f32=dist)
+        return out
+    loss32_k, g32_k = run("float32")
+    loss32_p, g32 = run("float32", plain=True)
+    check(abs(loss32_k - loss32_p) <= F32_GRAD_TOL * abs(loss32_p),
+          f"{tag} f32 first-step loss {loss32_k} != plain {loss32_p}")
+    top = max(float(g.norm()) for g in tree_leaves(g32))
+    ratio32, zero = {}, {}
+    for path, a, b in leaf_pairs(g32_k, g32):
+        if path.endswith("bk"):
+            zero[path] = [float(a.norm()) / top]
+            continue
+        ratio32[path] = float(((a - b).abs() / (b.abs() + b.abs().max()))
+                              .max())
+    del g32_k
+    worst32 = max(ratio32, key=ratio32.get)
+    check(ratio32[worst32] <= F32_GRAD_TOL, f"{tag} f32 first-step gradient "
+          f"{worst32} through the kernels != plain: |g - g_plain| / "
+          f"(|g_plain| + max |g_plain|) reaches {ratio32[worst32]} > "
+          f"{F32_GRAD_TOL}")
+    loss16_p, g16_p = run("bfloat16", plain=True)
+    del model, params
+    check(abs(loss16_k - loss16_p) <= BF16_MODEL_TOL * abs(loss16_p),
+          f"{tag} bf16 first-step loss {loss16_k} != plain {loss16_p}")
+    to32 = {}
+    for (path, a, b), g in zip(leaf_pairs(g16_k, g16_p),
+                               (g for _, g, _ in leaf_pairs(g32, g32))):
+        if path in zero:
+            zero[path] += [float(a.norm()) / top, float(b.norm()) / top]
+            check(max(zero[path]) <= ZERO_GRAD_TOL, f"{tag} key bias "
+                  f"{path}: gradient norms {zero[path]} of the largest "
+                  f"leaf's (f32 kernel, bf16 kernel, bf16 plain) exceed "
+                  f"{ZERO_GRAD_TOL}")
+            continue
+        to32[path] = (rel_err(a, g), rel_err(b, g), rel_err(a, b))
+        check(to32[path][0] <= BF16_MODEL_SLACK * to32[path][1],
+              f"{tag} bf16 first-step gradient {path} through the kernels "
+              f"is {to32[path][0]} from the f32 gradient, the plain bf16 "
+              f"gradient {to32[path][1]}")
+    worst = max(to32, key=lambda p: to32[p][0] / to32[p][1])
+    out.update(loss32_k=loss32_k, loss32_p=loss32_p, loss16_k=loss16_k,
+               loss16_p=loss16_p, ratio32=ratio32[worst32], worst32=worst32,
+               to32=to32, worst=worst, zero=zero)
+    return out
+
+
+def first_step_text(r: dict) -> str:
+    """The log text of :func:`first_step`'s result."""
+    if "to32" not in r:
+        return (f"bf16 loss {r['loss16']:.6f}, f32 {r['loss32']:.6f}; no "
+                f"attention, so no kernel-vs-plain pass; bf16 gradients to "
+                f"f32 (relative norm) up to "
+                f"{max(r['bf16_to_f32'].values()):.4f}")
+    to32, worst = r["to32"], r["worst"]
+    text = (f"f32 loss {r['loss32_k']:.7f} vs {r['loss32_p']:.7f}, worst "
+            f"gradient |g - g_plain| / (|g_plain| + max |g_plain|) "
+            f"{r['ratio32']:.3g} ({r['worst32']}; <= {F32_GRAD_TOL}); bf16 "
+            f"loss {r['loss16_k']:.6f} vs {r['loss16_p']:.6f}; bf16 "
+            f"gradients to the f32 ones, kernels / plain (relative norm, <= "
+            f"{BF16_MODEL_SLACK}x): worst ratio "
+            f"{to32[worst][0] / to32[worst][1]:.3f} ({worst}: "
+            f"{to32[worst][0]:.4f}/{to32[worst][1]:.4f}), kernels from f32 "
+            f"{min(v[0] for v in to32.values()):.4f}-"
+            f"{max(v[0] for v in to32.values()):.4f}, plain "
+            f"{min(v[1] for v in to32.values()):.4f}-"
+            f"{max(v[1] for v in to32.values()):.4f}; kernels vs plain bf16 "
+            f"up to {max(v[2] for v in to32.values()):.4f}")
+    if r["zero"]:
+        text += (f"; key biases (f32 kernel, bf16 kernel, bf16 plain "
+                 f"gradient norms of the largest leaf's, <= "
+                 f"{ZERO_GRAD_TOL}): " + ", ".join(
+                     f"{p} " + "/".join(f"{x:.2g}" for x in v)
+                     for p, v in r["zero"].items()))
+    if "recompute_routing_equal" in r:
+        text += "; the recompute's routing == the forward's, bitwise"
+    return text
 
 
 def phase_train(dev):
@@ -2705,7 +2899,6 @@ def phase_train(dev):
     in an f32 copy of the config; (c) an 8-step run under injected failures
     and restarts from checkpoints against an uninterrupted one; (d) --mp:
     bf16 live parameters, their checkpoint read back bit for bit."""
-    import dataclasses
     import math
     import tempfile
 
@@ -2755,14 +2948,12 @@ def phase_train(dev):
     cold_s, warm_s = secs[0], float(np.median(secs[1:]))
     tok_s = out["tokens_per_step"] / warm_s
     # one profiled warm step: the CLI's step function on its final state
-    model = build_model(cfg, device=dev)
-    step_fn = make_train_step(model, warmup=min(50, TRAIN_STEPS // 5 + 1))
     batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
                                              TRAIN_B), seed=0).batch(n)
-    state = out["state"]
+    state, step_fn = out["state"], out["step_fn"]
     step_prof = device_breakdown(lambda: step_fn(state, batch), 1,
                                  PROFILE_OUT)
-    del out, state, model
+    del out, state, step_fn
     log(f"[train] (a) {cfg.name} ({cfg.dtype} activations, f32 masters), "
         f"B={TRAIN_B} S={TRAIN_S}, {n} steps with the CarbonGate (plan cost "
         f"{gate['cost']} vs ASAP {gate['asap_cost']}, {gate['waited']:.0f} "
@@ -2773,47 +2964,11 @@ def phase_train(dev):
         f"{launches} ({2 * L} forward and {L} of each backward per step)")
     log(f"[train] (a) profiled warm step: {breakdown_text(step_prof)}")
 
-    # (b) the first step, kernels against the plain attention: f32, then
-    # bf16 against the f32 gradients
+    # (b) the first step, kernels against the plain attention
     t0 = time.perf_counter()
-    loss32_k, loss32_p, pairs = train_first_step(
-        dataclasses.replace(cfg, dtype="float32"), dev)
-    check(abs(loss32_k - loss32_p) <= F32_GRAD_TOL * abs(loss32_p),
-          f"f32 first-step loss {loss32_k} != plain {loss32_p}")
-    ratio32, g32 = {}, {}
-    for path, a, b in pairs:
-        ratio32[path] = float(((a - b).abs() / (b.abs() + b.abs().max()))
-                              .max())
-        g32[path] = b
-    worst32 = max(ratio32, key=ratio32.get)
-    check(ratio32[worst32] <= F32_GRAD_TOL, f"f32 first-step gradient "
-          f"{worst32} through the kernels != plain: |g - g_plain| / "
-          f"(|g_plain| + max |g_plain|) reaches {ratio32[worst32]} > "
-          f"{F32_GRAD_TOL}")
-    del pairs
-    loss_k, loss_p, pairs = train_first_step(cfg, dev)
-    check(abs(loss_k - loss_p) <= BF16_MODEL_TOL * abs(loss_p),
-          f"bf16 first-step loss {loss_k} != plain {loss_p}")
-    to32 = {}
-    for path, a, b in pairs:
-        to32[path] = (rel_err(a, g32[path]), rel_err(b, g32[path]),
-                      rel_err(a, b))
-        check(to32[path][0] <= BF16_MODEL_SLACK * to32[path][1],
-              f"bf16 first-step gradient {path} through the kernels is "
-              f"{to32[path][0]} from the f32 gradient, the plain bf16 "
-              f"gradient {to32[path][1]}")
-    worst = max(to32, key=lambda p: to32[p][0] / to32[p][1])
-    del pairs, g32
-    log(f"[train] (b) first step, kernels vs plain attention: f32 loss "
-        f"{loss32_k:.7f} vs {loss32_p:.7f}, worst gradient |g - g_plain| / "
-        f"(|g_plain| + max |g_plain|) {ratio32[worst32]:.3g} ({worst32}; <= "
-        f"{F32_GRAD_TOL}); bf16 loss {loss_k:.6f} vs {loss_p:.6f}; bf16 "
-        f"gradients to the f32 ones, kernels / plain (relative norm, "
-        f"<= {BF16_MODEL_SLACK}x): "
-        + ", ".join(f"{p} {a:.4f}/{b:.4f}" for p, (a, b, _) in to32.items())
-        + f" (worst ratio {to32[worst][0] / to32[worst][1]:.3f}, {worst}); "
-        f"kernels vs plain bf16 up to {max(v[2] for v in to32.values()):.4f}"
-        f" in {time.perf_counter() - t0:.3f} s")
+    first = first_step(cfg, dev, TRAIN_B, TRAIN_S, "[train] (b)")
+    log(f"[train] (b) first step, kernels vs plain attention: "
+        f"{first_step_text(first)} in {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
 
     # (c) restarts: tests/test_substrates.py's resume case at full width
@@ -2904,6 +3059,108 @@ def phase_train(dev):
             "tokens_per_s": tok_s, "step": step_prof, "seconds": secs_phase}
 
 
+def train_family_cell(dev, arch):
+    """One configuration of ``[train-families]``: (a) ``launch.train.train``
+    at full width (``TRAIN_FAMILY_CELLS``; random weights and synthetic
+    batches from seed 0, no checkpoints): finite losses and gradient
+    norms, the first loss within 0.5 of ln V, exactly 2 forward flash
+    launches and 1 of each backward stage per self-attention layer a step,
+    cold and warm step seconds, tokens/s; (b) one profiled warm step of
+    the driver's own step function on its final state (xLSTM's at a
+    shorter sequence, ``TRAIN_FAMILY_PROFILE_S``), and the peak device
+    memory; (c) the first step's gradients through the kernels
+    against the plain model attention (:func:`first_step`; an MoE's
+    recompute routing bitwise equal to its forward's)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+
+    cfg = ARCHS[arch]
+    B, S, steps = TRAIN_FAMILY_CELLS[arch]
+    n_attn = flash_per_forward(cfg)
+    tag = f"[train-families] {arch}"
+    t_cell = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    out = train(cfg, steps=steps, batch=B, seq=S, ckpt_dir=None, device=dev,
+                log=lambda m: log(f"{tag} {m}"))
+    launches = {"flash_fwd": fa.LAUNCHES, **fa.BWD_LAUNCHES}
+    losses, gnorms, secs = out["losses"], out["gnorms"], out["step_seconds"]
+    check(out["start"] == 0 and len(losses) == steps, f"{tag} ran "
+          f"{len(losses)} steps from {out['start']}")
+    check(all(math.isfinite(x) for x in losses + gnorms), f"{tag} a loss "
+          f"or gradient norm is not finite: {losses} {gnorms}")
+    ln_v = math.log(cfg.vocab)
+    check(abs(losses[0] - ln_v) < 0.5, f"{tag} first loss {losses[0]} is "
+          f"not within 0.5 of ln V = {ln_v:.4f}")
+    want = {"flash_fwd": 2 * n_attn * steps,
+            **{k: n_attn * steps for k in fa.BWD_KERNELS}}
+    check(launches == want, f"{tag} flash launches {launches}, predicted "
+          f"{want} (per step: {2 * n_attn} forward with remat, {n_attn} of "
+          f"each backward)")
+    cold_s, warm_s = secs[0], float(np.median(secs[1:]))
+    tok_s = out["tokens_per_step"] / warm_s
+    prof_s = TRAIN_FAMILY_PROFILE_S.get(arch, S)
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", prof_s, B),
+                            seed=0).batch(steps)
+    state, step_fn = out["state"], out["step_fn"]
+    n_params = out["params"]
+    del out
+    prof = device_breakdown(lambda: step_fn(state, batch), 1, PROFILE_OUT)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first = first_step(cfg, dev, B, S, tag)
+    first_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    secs_cell = time.perf_counter() - t_cell
+    log(f"{tag} ({cfg.family}, {n_params / 1e6:.3f}M params, f32 masters, "
+        f"{cfg.dtype} activations) (a) B={B} S={S}, {steps} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (ln V = {ln_v:.4f}); step s "
+        f"cold {cold_s:.4f}, warm {warm_s:.4f} (median of {steps - 1}; min "
+        f"{min(secs[1:]):.4f}, max {max(secs[1:]):.4f}), {tok_s:.1f} "
+        f"tokens/s; flash launches {launches} ({2 * n_attn} forward and "
+        f"{n_attn} of each backward per step); (b) profiled warm step "
+        f"(S={prof_s}): {breakdown_text(prof)}; peak memory {peak_gb:.2f} "
+        f"GiB")
+    log(f"{tag} (c) first step, kernels vs plain attention: "
+        f"{first_step_text(first)} in {first_s:.3f} s; the cell "
+        f"{secs_cell:.3f} s")
+    return {"params": n_params, "launches": launches, "losses": losses,
+            "cold_s": cold_s, "warm_s": warm_s, "tokens_per_s": tok_s,
+            "step": prof, "profile_s": prof_s, "peak_gib": peak_gb,
+            "first_step_s": first_s,
+            "seconds": secs_cell}
+
+
+def phase_train_families(dev):
+    """[train-families]: the train entry point at full width for the
+    families one card holds with AdamW in f32 (``TRAIN_FAMILY_CELLS``: the
+    MoE backward, Whisper's non-causal and causal flash backward at
+    S=1500, the xLSTM recurrences' backward), one at a time, each freed
+    before the next (:func:`train_family_cell`)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cells = {arch: train_family_cell(dev, arch)
+             for arch in TRAIN_FAMILY_CELLS}
+    launches = {"flash_fwd": sum(c["launches"]["flash_fwd"]
+                                 for c in cells.values()),
+                **{k: sum(c["launches"][k] for c in cells.values())
+                   for k in fa.BWD_KERNELS}}
+    secs = time.perf_counter() - t_phase
+    log(f"[train-families] flash launches {launches}; the phase "
+        f"{secs:.3f} s in all")
+    return {"launches": launches, "cells": cells, "seconds": secs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2949,6 +3206,7 @@ def main() -> int:
     serve_run = phase_serve(dev)
     train_run = phase_train(dev)
     families_run = phase_families(dev)
+    train_families_run = phase_train_families(dev)
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
@@ -3012,12 +3270,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": model_run["launches"] + serve_run["launches"]
         + serve_run["eq_launches"] + train_run["launches"]["flash_fwd"]
-        + families_run["launches"],
-        "launches_by_path": {"model": model_run["launches"],
-                             "serve": serve_run["launches"],
-                             "forward_vs_decode": serve_run["eq_launches"],
-                             "train": train_run["launches"]["flash_fwd"],
-                             "families": families_run["launches"]},
+        + families_run["launches"]
+        + train_families_run["launches"]["flash_fwd"],
+        "launches_by_path": {
+            "model": model_run["launches"],
+            "serve": serve_run["launches"],
+            "forward_vs_decode": serve_run["eq_launches"],
+            "train": train_run["launches"]["flash_fwd"],
+            "families": families_run["launches"],
+            "train_families": train_families_run["launches"]["flash_fwd"]},
         **{k: flash_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -3037,12 +3298,16 @@ def main() -> int:
                 "kernels compute",
         "kernels": list(bwd_names[torch.bfloat16]),
         "kernels_float32": list(bwd_names[torch.float32]),
-        "launches": sum(train_run["launches"][k] for k in bwd_kernels),
+        "launches": sum(run["launches"][k] for k in bwd_kernels
+                        for run in (train_run, train_families_run)),
         "launches_by_kernel": {
             name: train_run["launches"][k]
+            + train_families_run["launches"][k]
             for k, name in zip(bwd_kernels, bwd_names[torch.bfloat16])},
-        "launches_by_path": {"train": sum(train_run["launches"][k]
-                                          for k in bwd_kernels)},
+        "launches_by_path": {
+            "train": sum(train_run["launches"][k] for k in bwd_kernels),
+            "train_families": sum(train_families_run["launches"][k]
+                                  for k in bwd_kernels)},
         **{k: bwd_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -3051,6 +3316,8 @@ def main() -> int:
         "float32": bwd_rows["float32"],
         "bfloat16_hd128": bwd_rows["bfloat16_hd128"],
         "bfloat16_train": bwd_rows["bfloat16_train"],
+        "whisper_encoder": bwd_rows["whisper_encoder"],
+        "whisper_decoder": bwd_rows["whisper_decoder"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

@@ -9,9 +9,10 @@ path a single card runs; ``--mesh single|multi`` select the reference's
 production meshes, which belong to the multi-device slice (ROADMAP Queue
 1) and raise ``NotImplementedError``. The driver wires: config -> model ->
 train step -> deterministic data -> checkpoint manager -> (optional)
-CarbonGate. :func:`train` takes any dense configuration, full width
-included; the other families' training is a later slice (ROADMAP Queue 1)
-and raises ``NotImplementedError``.
+CarbonGate. :func:`train` takes a configuration of any family, full
+width included, and draws the family's batches from
+:class:`repro_torch.data.SyntheticTokens` (Qwen2-VL: embeddings and
+M-RoPE positions; Whisper: frame embeddings and decoder tokens).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch.serve import synchronize
 from repro_torch.models import build_model, param_count
 from repro_torch.runtime.carbon_gate import CarbonGate, fleet_platform
+from repro_torch.train.optimizer import tree_map
 from repro_torch.train.step import init_state, make_train_step, on_device
 
 
@@ -48,35 +50,34 @@ def gate_plan(steps: int, gate_chunk: int, device=None) -> CarbonGate:
 
 def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
           microbatches: int = 1, mp: bool = False, carbon_gate: bool = False,
-          gate_chunk: int = 20, ckpt_dir: str, ckpt_every: int = 50,
+          gate_chunk: int = 20, ckpt_dir: str | None, ckpt_every: int = 50,
           log_every: int = 10, device=None, log=print) -> dict:
     """Train a model of ``cfg`` (random parameters from seed 0) on
     synthetic tokens (seed 0) for ``steps`` steps of ``batch`` x ``seq``
     tokens, resuming from the latest checkpoint in ``ckpt_dir`` and saving
-    one every ``ckpt_every`` steps (asynchronously, keeping 3).
+    one every ``ckpt_every`` steps (asynchronously, keeping 3);
+    ``ckpt_dir`` None: no checkpoints, from the first step.
 
-    ``device`` None = the card (raises when there is none). Returns the
-    step it started at, the per-step losses, gradient norms and seconds
-    (host clock, each step ending in a synchronize), the parameter count,
-    the tokens a step, the final state, and with ``carbon_gate`` the gate
-    plan's cost and ASAP cost and the simulated seconds it held chunks
-    back.
+    ``device`` None = the card (raises when there is none). Each step
+    updates the state in place (``make_train_step(donate=True)``). Returns
+    the step it started at, the per-step losses, gradient norms and
+    seconds (host clock, each step ending in a synchronize), the parameter
+    count, the tokens a step, the final state, the step function it ran
+    (which updates the state it is given in place), and with
+    ``carbon_gate`` the gate plan's cost and ASAP cost and the simulated
+    seconds it held chunks back.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {cfg.family!r} family is a later "
-            f"slice of the port (ROADMAP Queue 1: its gradients held "
-            f"against jax.grad); the port trains the dense family")
     dev = resolve_device(device)
     model = build_model(cfg, tp=16, device=dev)
     data = SyntheticTokens(cfg, ShapeConfig("cli", "train", seq, batch),
                            seed=0)
+    # the loop drops each old state: the step updates it in place
     step_fn = make_train_step(model, microbatches=microbatches,
-                              warmup=min(50, steps // 5 + 1))
-    mgr = CheckpointManager(ckpt_dir, keep=3, every=ckpt_every,
-                            async_save=True)
+                              warmup=min(50, steps // 5 + 1), donate=True)
+    mgr = None if ckpt_dir is None else CheckpointManager(
+        ckpt_dir, keep=3, every=ckpt_every, async_save=True)
 
-    state, start = mgr.restore_latest()
+    state, start = (None, -1) if mgr is None else mgr.restore_latest()
     if state is None:
         state = init_state(model, torch.Generator(device=dev).manual_seed(0),
                            mixed_precision=mp)
@@ -111,11 +112,16 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
         if s % log_every == 0:
             log(f"step {s:5d} loss {losses[-1]:.4f} gnorm {gnorms[-1]:.3f} "
                 f"wall {time.time() - t0:.1f}s")
-        mgr.maybe_save(state, s)
-    mgr.wait()
+        if mgr is not None and s % ckpt_every == 0:
+            # the next step writes into these tensors: the save thread
+            # gets a host copy
+            mgr.save(tree_map(lambda x: x.to("cpu", copy=True), state), s)
+    if mgr is not None:
+        mgr.wait()
     return {"start": start + 1, "losses": losses, "gnorms": gnorms,
             "step_seconds": secs, "params": n_params,
             "tokens_per_step": batch * seq, "state": state,
+            "step_fn": step_fn,
             "gate": None if gate is None else {
                 "cost": gate.plan.cost, "asap_cost": gate.plan.asap_cost,
                 "waited": waited}}

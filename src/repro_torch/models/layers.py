@@ -3,17 +3,21 @@
 
 Functions over explicit parameter dicts of one layer, in the reference's
 layouts (``wq`` [d, H, hd], ``wo`` [H, hd, d], ...). Master parameters stay
-f32 and are cast to the activation dtype at use, as in the reference. The
-forward's attention goes through
-:func:`repro_torch.kernels.flash_attention.flash_attention` (the CUDA kernel
-on the card, its plain version on the CPU), which computes the same exact
-softmax attention as the reference's query-chunked jnp form, causal or
-not. Attention whose query and key lengths differ (Whisper's
-cross-attention) and the decode step's one-query attention over the cache
-stay plain torch (:func:`gqa_scores_out`), as they are jnp in the
-reference. Positions: standard RoPE (``rope == "std"``), Qwen2-VL's M-RoPE
-(``"mrope"``, [3, B, S] positions) or none (``"abs"``: Whisper adds
-learned positions to its inputs).
+f32 and are cast to the activation dtype at use, as in the reference. On
+the card the self-attention is
+:func:`repro_torch.kernels.flash_attention.flash_attention`'s CUDA kernel,
+which computes the same exact softmax attention as the reference's
+query-chunked jnp form, causal or not. Elsewhere (CPU tensors) it is
+:func:`attention_plain_model`, the reference model's own arithmetic: scores
+rounded to the activation dtype before the f32 softmax, the weights P
+rounded to v's dtype before PV (the Pallas kernel's twin,
+``flash_attention.attention_plain``, keeps both in f32). Attention whose
+query and key lengths differ (Whisper's cross-attention) and the decode
+step's one-query attention over the cache stay plain torch
+(:func:`gqa_scores_out`), as they are jnp in the reference. Positions:
+standard RoPE (``rope == "std"``), Qwen2-VL's M-RoPE (``"mrope"``,
+[3, B, S] positions) or none (``"abs"``: Whisper adds learned positions to
+its inputs).
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import resolve_mode
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG = -1e30
+QCHUNK = 512     # query rows a block of the plain model attention (as there)
 
 
 def dtype_of(cfg):
@@ -167,20 +173,21 @@ def _expand_kv(k, v, hq):
     return k, v
 
 
-def gqa_scores_out(q, k, v, causal=False, kv_len_mask=None):
+def gqa_scores_out(q, k, v, causal=False, kv_len_mask=None, q_offset=0):
     """Exact attention of q [B,Sq,Hq,hd] over k/v [B,Sk,Hkv,hd] by its
-    definition (the reference's ``_gqa_scores_out``): scores in f32, masked
-    to -1e30 where a key lies after its query (``causal``) or outside
-    ``kv_len_mask`` [B,Sk], softmax, weights in
-    v's dtype. The attention of differing lengths (cross-attention) and of
-    the decode step."""
+    definition (the reference's ``_gqa_scores_out``): scores in q's dtype,
+    then f32, masked to -1e30 where a key lies after its query (``causal``;
+    query i at position ``q_offset + i``) or outside ``kv_len_mask``
+    [B,Sk], softmax, weights in v's dtype. The attention of differing
+    lengths (cross-attention), of the decode step, and of the model on the
+    CPU (:func:`attention_plain_model`)."""
     hd = q.shape[-1]
     k, v = _expand_kv(k, v, q.shape[2])
     s = torch.einsum("bqhd,bshd->bhqs", q, k).float()
     s = s * (hd ** -0.5)
     neg = torch.full((), NEG, device=s.device)
     if causal:
-        qpos = torch.arange(q.shape[1], device=s.device)[:, None]
+        qpos = q_offset + torch.arange(q.shape[1], device=s.device)[:, None]
         kpos = torch.arange(k.shape[1], device=s.device)[None, :]
         s = torch.where(kpos <= qpos, s, neg)
     if kv_len_mask is not None:
@@ -189,13 +196,40 @@ def gqa_scores_out(q, k, v, causal=False, kv_len_mask=None):
     return torch.einsum("bhqs,bshd->bqhd", w, v)
 
 
+def attention_plain_model(q, k, v, causal=True):
+    """The reference model's attention (``attention_train`` there): its
+    :func:`gqa_scores_out` over blocks of :data:`QCHUNK` query rows, each
+    over all keys. Rounding as there: the scores to q's dtype, P to v's.
+    The blocks bound the score memory; a row's result does not depend on
+    them (the reference's last block of a length that is no multiple of
+    QCHUNK starts early and is masked from the wrong offset; this one is
+    cut short instead)."""
+    S = q.shape[1]
+    if S <= QCHUNK:
+        return gqa_scores_out(q, k, v, causal)
+    return torch.cat([gqa_scores_out(q[:, i:i + QCHUNK], k, v, causal,
+                                     q_offset=i)
+                      for i in range(0, S, QCHUNK)], dim=1)
+
+
+def self_attention(q, k, v, causal=True, mode=None):
+    """Self-attention of q [B,S,Hq,hd] over k/v [B,S,Hkv,hd]: the fused
+    kernel (kv heads expanded) where ``mode`` resolves to it (CUDA
+    tensors), else :func:`attention_plain_model`. ``mode="plain"`` forces
+    the plain model path on the card (the comparison forwards)."""
+    if resolve_mode(q, mode) == "kernel":
+        k, v = _expand_kv(k, v, q.shape[2])
+        return flash_attention(q, k, v, causal=causal, mode="kernel")
+    return attention_plain_model(q, k, v, causal)
+
+
 def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
     """Full-sequence attention: projections, rotary positions (``pos``
-    [B,S], [3,B,S] or None), kv heads expanded, then the fused attention
-    kernel, causal or not. ``kv_override`` (k, v) replaces the layer's own
-    keys and values (cross-attention); where their length differs from the
-    queries' the attention is :func:`gqa_scores_out`, as the kernel takes
-    q, k, v of one shape."""
+    [B,S], [3,B,S] or None), then :func:`self_attention`, causal or not.
+    ``kv_override`` (k, v) replaces the layer's own keys and values
+    (cross-attention); where their length differs from the queries' the
+    attention is :func:`gqa_scores_out`, as the kernel takes q, k, v of one
+    shape."""
     q, k, v = _qkv(p, x, cfg)
     if kv_override is not None:
         k, v = kv_override
@@ -203,8 +237,7 @@ def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
     if k.shape[1] != q.shape[1]:
         o = gqa_scores_out(q, k, v, causal)
     else:
-        k, v = _expand_kv(k, v, q.shape[2])
-        o = flash_attention(q, k, v, causal=causal)
+        o = self_attention(q, k, v, causal)
     return _out_proj(o, p["wo"].to(x.dtype))
 
 

@@ -89,17 +89,26 @@ def cast_params(params, dtype=torch.bfloat16):
 
 def adamw_update(params, grads, opt, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1,
-                 clip: float = 1.0):
+                 clip: float = 1.0, inplace: bool = False):
     """One AdamW step: returns (new params, new opt state, the gradients'
     global norm before clipping). With a ``master`` in ``opt`` the update
-    runs on the f32 master and the live parameters are its cast."""
+    runs on the f32 master and the live parameters are its cast.
+
+    ``inplace``: the new parameters and moments are written into the
+    tensors of ``params`` and ``opt``, leaf by leaf (the same bits), and
+    those dicts come back: the caller gives the old state up, as a jax
+    step's donated buffers, and the card holds one state, not two."""
     if "master" in opt:                 # mixed precision: update the master
-        live_dtype = tree_leaves(params)[0].dtype
         new_master, opt2, gnorm = adamw_update(
             opt["master"], grads,
             {"m": opt["m"], "v": opt["v"], "step": opt["step"]}, lr,
-            b1=b1, b2=b2, eps=eps, wd=wd, clip=clip)
-        new_params = tree_map(lambda p: p.to(live_dtype), new_master)
+            b1=b1, b2=b2, eps=eps, wd=wd, clip=clip, inplace=inplace)
+        if inplace:
+            tree_map(lambda p, q: p.copy_(q), params, new_master)
+            new_params = params
+        else:
+            live_dtype = tree_leaves(params)[0].dtype
+            new_params = tree_map(lambda p: p.to(live_dtype), new_master)
         opt2["master"] = new_master
         return new_params, opt2, gnorm
     gnorm = global_norm(grads)
@@ -109,15 +118,22 @@ def adamw_update(params, grads, opt, lr, *, b1: float = 0.9,
 
     def upd(p, g, m, v):
         g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mh = m / (1 - b1 ** t)
-        vh = v / (1 - b2 ** t)
-        new_p = p.float() - lr * (
-            mh / (torch.sqrt(vh) + eps) + wd * p.float())
-        return new_p.to(p.dtype), m, v
+        m_new = b1 * m + (1 - b1) * g
+        v_new = b2 * v + (1 - b2) * g * g
+        mh = m_new / (1 - b1 ** t)
+        vh = v_new / (1 - b2 ** t)
+        new_p = (p.float() - lr * (
+            mh / (torch.sqrt(vh) + eps) + wd * p.float())).to(p.dtype)
+        if not inplace:
+            return new_p, m_new, v_new
+        p.copy_(new_p)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return None
 
     out = tree_map(upd, params, grads, opt["m"], opt["v"])
+    if inplace:
+        return params, {"m": opt["m"], "v": opt["v"], "step": step}, gnorm
     new_p, new_m, new_v = (tree_map(lambda o, i=i: o[i], out)
                            for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "step": step}, gnorm

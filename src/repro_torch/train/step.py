@@ -32,12 +32,15 @@ class TrainState:
 
 def init_state(model, generator: torch.Generator,
                mixed_precision: bool = False) -> dict:
-    """The model's parameters drawn from ``generator`` (``model.init``),
-    copied out of the module into a fresh state with zero AdamW moments;
-    with ``mixed_precision`` the live parameters are bf16 and the
-    optimizer keeps an f32 master."""
+    """The model's parameters drawn from ``generator`` (``model.init``)
+    in a fresh state with zero AdamW moments; with ``mixed_precision`` the
+    live parameters are bf16 and the optimizer keeps an f32 master. The
+    state's f32 parameters are the module's own tensors, not a copy (at
+    full width a copy is one more parameter tree on the card): a step of
+    ``make_train_step(donate=True)`` trains the module's parameters in
+    place, a functional step leaves them as drawn."""
     model.init(generator)
-    params = tree_map(lambda p: p.detach().clone(), model.param_tree())
+    params = tree_map(torch.Tensor.detach, model.param_tree())
     opt = adamw_init(params, mixed_precision=mixed_precision)
     if mixed_precision:
         params = cast_params(params, torch.bfloat16)
@@ -50,17 +53,25 @@ def on_device(tree, device):
     return tree_map(lambda x: torch.as_tensor(x, device=device), tree)
 
 
-def _split(x, microbatches: int):
+def _split(name: str, x, microbatches: int):
+    """A batch leaf as ``microbatches`` equal parts along its batch axis:
+    axis 1 of the VLM's M-RoPE ``positions`` [3, B, S], axis 0 of any
+    other leaf. The reference's ``split_mb`` takes axis 1 of any [3, ., .]
+    leaf, the same leaves in every family batch but one of 3 rows."""
     x = np.asarray(x)
+    if name == "positions" and x.ndim == 3:
+        return x.reshape((3, microbatches, x.shape[1] // microbatches)
+                         + x.shape[2:]).swapaxes(0, 1)
     return x.reshape((microbatches, x.shape[0] // microbatches)
                      + x.shape[1:])
 
 
 def loss_and_grads(model, params, batch, microbatches: int = 1):
     """The mean loss of ``batch`` and its gradients in ``params`` (per-layer
-    remat). With ``microbatches`` > 1 the batch's leading axis is split
-    into equal parts whose gradients are summed into f32 accumulators, and
-    the sums divided, as the reference's scan does."""
+    remat). With ``microbatches`` > 1 the batch is split along its batch
+    axis (:func:`_split`) into equal parts whose gradients are summed into
+    f32 accumulators, and the sums divided, as the reference's scan
+    does."""
 
     def value_and_grad(mb):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -71,7 +82,7 @@ def loss_and_grads(model, params, batch, microbatches: int = 1):
 
     if microbatches == 1:
         return value_and_grad(batch)
-    mbs = {k: _split(v, microbatches) for k, v in batch.items()}
+    mbs = {k: _split(k, v, microbatches) for k, v in batch.items()}
     gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
     lsum = 0.0
@@ -84,11 +95,18 @@ def loss_and_grads(model, params, batch, microbatches: int = 1):
 
 def make_train_step(model, *, microbatches: int = 1, peak_lr: float = 3e-4,
                     total_steps: int = 10_000, warmup: int = 200,
-                    grad_compress: bool = False):
+                    grad_compress: bool = False, donate: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss
     and its gradients (:func:`loss_and_grads`), then one AdamW step at the
     warmup+cosine learning rate. ``metrics`` holds the loss, the gradients'
-    global norm and the learning rate, as 0-d tensors."""
+    global norm and the learning rate, as 0-d tensors.
+
+    ``donate``: the step writes the new parameters and moments into the
+    state's own tensors (``adamw_update(inplace=True)``, the same bits) and
+    returns them, so the caller must not use the old state again; without
+    it the old state stays valid, at the cost of a second copy on the card
+    during the update (at full width, Whisper's 27 GiB of f32 parameters
+    and moments do not fit twice beside its gradients)."""
 
     def train_step(state, batch):
         state = on_device(state, model.device)
@@ -98,7 +116,7 @@ def make_train_step(model, *, microbatches: int = 1, peak_lr: float = 3e-4,
         lr = lr_schedule(state["opt"]["step"] + 1, peak=peak_lr,
                          warmup=warmup, total=total_steps)
         new_params, new_opt, gnorm = adamw_update(
-            params, grads, state["opt"], lr)
+            params, grads, state["opt"], lr, inplace=donate)
         metrics = {"loss": loss, "gnorm": gnorm, "lr": lr}
         return {"params": new_params, "opt": new_opt}, metrics
 

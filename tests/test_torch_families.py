@@ -81,7 +81,10 @@ def pair(request):
     return rm, jax.tree.map(jnp.asarray, tree), tm
 
 
-def _batch(cfg, seed=0):
+def _batch(cfg, seed=0, B=B, S=S):
+    """A batch of ``cfg``'s family from a numpy seed: VLM embeddings with
+    three M-RoPE streams that differ, Whisper frames and decoder tokens,
+    or tokens."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     if cfg.family == "vlm":
