@@ -39,16 +39,26 @@ reference package ``repro``. Phases, each fatal on failure:
    costs equal the card's;
 7. that instance re-planned through the blocked longest-path form: starts
    equal the dense form's;
-8. the exact solver axis on small instances (``solver="exact"``, ``"ilp"``
+8. the multi-device grid (``devices=``, ``[sharded]``): (a) the visible
+   devices, ``grid_mesh()`` spanning them, ``Planner(devices=k+1)``
+   raising a ``ValueError`` that names ``devices``; (b) the matrix's greedy
+   rows (4 x 4 x 8 combos) padded to one common bucket, through
+   ``greedy_fanout_grid_torch`` unsplit and split over ``SHARDED_SHARDS``
+   row shards all placed on ``cuda:0``: bitwise equal, and equal to (4)'s
+   greedy starts, with both times; (c) a ``Planner(devices=
+   torch.cuda.device_count())`` plan of the first ``SHARDED_PLAN``
+   instances (a cut of four) against all four profiles and 17 variants,
+   costs and starts bitwise equal to (4)'s;
+9. the exact solver axis on small instances (``solver="exact"``, ``"ilp"``
    and ``"dp"``): the lower bounds hold against a card heuristic plan,
    ``gap() >= 1``, DP equals ILP on a processor chain, and every exact
    schedule costs the same through the kernel;
-9. a three-window rolling-horizon session (``planner.session``) of the
+10. a three-window rolling-horizon session (``planner.session``) of the
    ``eager`` instance against ``window_profile`` slices of the S1-S4
    forecasts: every window equals an eager plan of it bitwise, the
    session's gain-kernel launches equal those eager plans', and every
    schedule costs the same through the kernel;
-10. the joint mapping search (``PlanRequest(mapping="search")``,
+11. the joint mapping search (``PlanRequest(mapping="search")``,
    ``[mapping]``): (a) tests/test_mapping.py's small search on the card
    equals it on the CPU bitwise; (b) a raw ``wfgen_scale("eager",
    MAPPING_TASKS)`` workflow on the 72-processor cluster against the S1-S4
@@ -59,7 +69,7 @@ reference package ``repro``. Phases, each fatal on failure:
    below the winner's, every winner schedule costs the same through the
    deficit kernel; the span split, and the device's idle share over the
    profiled seed round;
-11. the planning service (``PlanService``, ``[service]``): (a) the first
+12. the planning service (``PlanService``, ``[service]``): (a) the first
    ``SERVICE_TICKETS`` matrix tickets (two of the four, a depth cut)
    admitted to a service with a write-ahead journal, which
    is killed before it serves them; a second service on the journal
@@ -74,7 +84,7 @@ reference package ``repro``. Phases, each fatal on failure:
    groups on two workers), each through a service on the card and one on
    the CPU, their attempts logs and plans equal; (d) ``CarbonGate`` plans,
    nominal and with an ensemble, card == CPU bitwise;
-12. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
+13. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
    the CUDA cores) against their plain version on the card at the
    reference sweep's five shapes and the bf16 twins of its four f32 shapes,
    at the model's shape (B=4, S=2048, H=16, hd=64, causal) in bf16 and f32,
@@ -91,7 +101,7 @@ reference package ``repro``. Phases, each fatal on failure:
    beside the plain backward's and SDPA's backward, also at Whisper's
    encoder (non-causal) and decoder (causal) shapes, B=1, S=1500, H=32,
    hd=64 (``FLASH_BWD_TIMED``);
-13. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
+14. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
    per forward, finite and within 0.5 of ln V; the final hidden states
@@ -102,25 +112,25 @@ reference package ``repro``. Phases, each fatal on failure:
    comparison is the model's CPU path on the card,
    ``layers.attention_plain_model`` (the reference model's arithmetic:
    scores and P rounded to bf16), through :func:`plain_attention`;
-14. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
+15. the serving path: ``repro_torch.launch.serve.serve`` at full width, 16
    requests on 4 slots, 32 new tokens, max_len 512, every request finished;
    then the forward's logits against step-by-step decode logits at full
    width in f32, B=2, S=8, within 2e-2 (``[serve]``);
-15. training (``[train]``): (a) ``repro_torch.launch.train.train`` at full
-   width on SmolLM-360M with the train CLI's defaults (B=8, S=256, 100
-   steps) and the CarbonGate: finite losses, the first within 0.5 of ln V,
+16. training (``[train]``): (a) ``repro_torch.launch.train.train`` at full
+   width on SmolLM-360M with the train CLI's defaults (B=8, S=256), 50 of
+   its 100 steps (a cut), and the CarbonGate: finite losses, the first within 0.5 of ln V,
    64 forward and 32 of each backward flash launch a step, cold and warm
    step seconds, tokens/s, and one profiled warm step's device busy time
    and idle share; (b) the first step's loss and gradients through the
    kernels against the plain attention (:func:`first_step`), in an f32
    copy of the config elementwise and in bf16 against the f32 gradients;
-   (c) an 8-step run
+   (c) a ``RESTART_STEPS``-step run (4; a cut of 8)
    under injected failures, restarted from checkpoints, equal to an
    uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``,
    one step (a cut of three):
    bf16 live parameters, the checkpoint's bf16 leaves read back bit for
    bit;
-16. the other model families at full width (``[families]``): granite-moe
+17. the other model families at full width (``[families]``): granite-moe
    (32 experts, top 8), Qwen2-VL-7B (M-RoPE over embeddings, 28 -> 32 q
    heads over 4 kv heads of 128), Jamba (one group of 8 layers: attention,
    7 Mamba, MoE of 16 experts top 2 on odd layers; the depth cut), xLSTM-125M
@@ -137,7 +147,7 @@ reference package ``repro``. Phases, each fatal on failure:
    (d) the kernel at their new shapes (non-causal S=1500, H=32, hd=64;
    causal S=1500, H=32, hd=64; causal S=2048, H=32, hd=128) against the
    plain version, with its time, bound and SDPA's time;
-17. the families' training at full width (``[train-families]``):
+18. the families' training at full width (``[train-families]``):
    ``launch.train.train`` on granite-moe (B=8, S=256, 10 steps: the MoE
    backward), Whisper large-v3 (B=1, 1,500 frames and 1,500 tokens, 10
    steps: the non-causal and causal flash backward at S=1500) and
@@ -147,11 +157,11 @@ reference package ``repro``. Phases, each fatal on failure:
    and 1 of each backward stage per self-attention layer a step, cold and
    warm step seconds, tokens/s, a profiled warm step, peak memory; the
    first step's gradients through the kernels against the plain model
-   attention by (15) (b)'s rule, an MoE's recompute routing bitwise equal
+   attention by (16) (b)'s rule, an MoE's recompute routing bitwise equal
    to its forward's (:func:`first_step`). Qwen2-VL and Jamba do not fit
    one card with AdamW in f32: the CPU tests hold their training.
 
-Each path (4, 5, 8, 9, 10, 11, 13, 14, 15, 16, 17) is driven with the
+Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18) is driven with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel the path runs that was never launched fails the run. f32 matrix
 products on the card run in full f32: TF32 is switched off for matmuls
@@ -183,6 +193,8 @@ PROFILE_SEED = 17
 MAPPING_TASKS = 500      # workflow tasks of the [mapping] cell (depth cut)
 CPU_PROFILES = 1         # profiles of the [cpu] re-plan (a cut of the four)
 SERVICE_TICKETS = 2      # matrix tickets [service] (a) replays (a cut of 4)
+SHARDED_SHARDS = 2       # [sharded] (b): row shards of the split run
+SHARDED_PLAN = 2         # [sharded] (c): matrix instances planned (of 4)
 PROFILE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM published f32 rate (no tensor cores)
@@ -229,10 +241,10 @@ BWD_F32_TOL = 1e-4
 LSE_TOL = 1e-4
 # [train]: the train CLI's defaults at full width (launch/train.py)
 TRAIN_ARCH = "smollm-360m"
-TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 50, 8, 256   # 50 steps: a cut of its 100
 # the backward's timed shapes (B, S, H, hd, causal, dtype): FLASH_TIMED's
 # (causal), the training cell's (16 heads of 64 after head_plan, causal,
-# bf16), where the kernels run 3,200 times a [train] run, and Whisper's
+# bf16), where the kernels run 1,600 times a [train] run, and Whisper's
 # encoder (non-causal) and decoder (causal) at 1,500 positions and 20 heads
 # padded to 32, where [train-families] runs them
 FLASH_BWD_TIMED = {
@@ -242,8 +254,9 @@ FLASH_BWD_TIMED = {
     "whisper_encoder": (1, 1500, 32, 64, False, "bfloat16"),
     "whisper_decoder": (1, 1500, 32, 64, True, "bfloat16"),
 }
-RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
-RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
+RESTART_STEPS = 4            # (c): tests/test_substrates.py's resume case,
+                             # cut from its 8 steps
+RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (2 saves)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
 MP_STEPS = 1                 # (d): --mp, one step, its checkpoint (a cut of 3)
 # (b) first step, kernel vs plain attention, f32 copy of the config: the
@@ -1006,6 +1019,145 @@ def phase_blocked(plat, insts, grid, card, i):
     log(f"[blocked] {KINDS[i]} re-planned with lp_budget_bytes={budget} "
         f"(BlockedLP + padded adjacency) in {secs:.3f} s: starts equal "
         f"the dense form's bitwise")
+
+
+def common_bucket_rows(plat, insts, grid, names, dev):
+    """Every instance's greedy rows (all profiles, every non-asap combo of
+    ``names``) padded to ONE shape bucket, the largest (Np, Tp) of the
+    matrix: its own buckets hold one instance each, so only a common
+    bucket gives the instance axis rows to split. Padding is
+    output-invariant (padded tasks are zero-width and placed last, padded
+    units never feasible). Returns (rows, combos)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Planner
+    from repro_torch.core.greedy_torch import (NEG_PATH, pad_budget,
+                                               pad_dims, pad_masks,
+                                               pad_orders)
+    from repro_torch.core.portfolio import _needed_combos, overlay_profile
+
+    need = _needed_combos(names)
+    rvals = tuple(sorted({r for (_, _, r) in need}))
+    Np = max(pad_dims(x.num_tasks, 1)[0] for x in insts)
+    Tp = max(pad_dims(1, ps[0].T)[1] for ps in grid)
+    planner = Planner(plat, engine="torch", device=dev)
+    rows = []
+    for inst, ps in zip(insts, grid):
+        g = planner.prepared(inst, ps[0].T)
+        N = inst.num_tasks
+        lp = np.full((Np, Np), NEG_PATH, dtype=np.int32)
+        lp[:N, :N] = g.lp()
+        np.fill_diagonal(lp[N:, N:], 0)
+
+        def vec(x):
+            out = np.zeros(Np, dtype=np.int32)
+            out[:N] = x
+            return torch.from_numpy(out).to(dev)
+
+        ovs = [overlay_profile(g, p, refined_values=rvals) for p in ps]
+        rows.append((
+            vec(inst.dur), vec(inst.task_work), torch.from_numpy(lp).to(dev),
+            pad_budget(np.stack([ov.unit_budget for ov in ovs]), Tp),
+            pad_masks(np.stack([np.stack([ov.masks[r] for (_, _, r) in need])
+                                for ov in ovs]), Tp),
+            vec(g.est0), vec(g.lst0),
+            pad_orders(np.stack([g.order_for(sc, w) for (sc, w, _) in need]),
+                       np.arange(N, Np, dtype=np.int32))))
+    return rows, need
+
+
+def phase_sharded(plat, insts, grid, card, dev):
+    """The multi-device grid (``devices=``) on the card: (a) the visible
+    devices and the knob's validation; (b) the matrix's greedy rows in one
+    common bucket through ``greedy_fanout_grid_torch`` split over
+    ``SHARDED_SHARDS`` shards all placed on ``dev``, bitwise equal to the
+    unsplit run and to the ``[plan]`` phase's greedy starts; (c) a
+    ``Planner(devices=torch.cuda.device_count())`` plan of the first
+    ``SHARDED_PLAN`` instances, bitwise equal to ``card``'s rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Planner, PlanRequest
+    from repro_torch.core.cawosched import VARIANTS_BY_NAME
+    from repro_torch.core.greedy_torch import greedy_fanout_grid_torch
+    from repro_torch.kernels import gain_scan
+    from repro_torch.sharding import ctx
+
+    t_phase = time.perf_counter()
+    k = torch.cuda.device_count()
+    visible = ctx.visible_devices()
+    mesh = ctx.grid_mesh()
+    check(mesh.size == len(visible) == k,
+          f"grid_mesh() spans {mesh.size} of {k} devices")
+    try:
+        Planner(plat, engine="torch", devices=k + 1)
+    except ValueError as e:
+        check("devices" in str(e), f"Planner(devices={k + 1}) raised "
+              f"without naming devices: {e}")
+        refusal = str(e)
+    else:
+        raise SmokeFailure(f"Planner(devices={k + 1}) did not raise with "
+                           f"{k} visible")
+    log(f"[sharded] (a) visible devices {[str(d) for d in visible]}; "
+        f"grid_mesh() {mesh.shape}; Planner(devices={k + 1}) raises "
+        f"ValueError: {refusal}")
+
+    t0 = time.perf_counter()
+    rows, need = common_bucket_rows(plat, insts, grid, card.variants, dev)
+    rows_s = time.perf_counter() - t0
+    split = ctx.make_mesh((SHARDED_SHARDS,), ("data",),
+                          [dev] * SHARDED_SHARDS)
+    whole, whole_s = timed(lambda: greedy_fanout_grid_torch(rows,
+                                                            device=dev))
+    parts, parts_s = timed(lambda: greedy_fanout_grid_torch(rows,
+                                                            mesh=split))
+    check(torch.equal(whole, parts), "split greedy starts != unsplit")
+    whole = whole.cpu().numpy()
+    n_cmp = 0
+    for i, inst in enumerate(insts):
+        for p in range(len(grid[i])):
+            for name in card.variants:
+                if name == "asap" or name.endswith("-LS"):
+                    continue
+                v = VARIANTS_BY_NAME[name]
+                ci = need.index((v.score, v.weighted, v.refined))
+                check(np.array_equal(whole[i, p, ci, :inst.num_tasks],
+                                     card.results[i][p][name].start),
+                      f"common-bucket greedy starts != [plan]'s: {name}, "
+                      f"instance {i}, profile {p}")
+                n_cmp += 1
+    I, P, V, Np = whole.shape
+    log(f"[sharded] (b) {I} x {P} x {V} greedy rows in one ({Np}, "
+        f"{rows[0][3].shape[1]}) bucket (rows built in {rows_s:.3f} s): "
+        f"unsplit {whole_s:.3f} s, {SHARDED_SHARDS} shards on {dev} "
+        f"{parts_s:.3f} s; bitwise equal, and {n_cmp} greedy schedules "
+        f"equal [plan]'s")
+
+    planner = Planner(plat, engine="torch", devices=k)
+    request = PlanRequest(instances=insts[:SHARDED_PLAN],
+                          profiles=grid[:SHARDED_PLAN])
+    gain_scan.LAUNCHES = 0
+    res, plan_s = timed_plan(planner, request)
+    launches = gain_scan.LAUNCHES
+    check(launches > 0, "the devices= plan did not launch gain_scan")
+    check(np.array_equal(res.costs, card.costs[:SHARDED_PLAN]),
+          "devices= plan costs != [plan]'s")
+    for i in range(SHARDED_PLAN):
+        for p in range(len(grid[i])):
+            for name in res.variants:
+                check(np.array_equal(res.results[i][p][name].start,
+                                     card.results[i][p][name].start),
+                      f"devices= plan starts != [plan]'s: {name}, "
+                      f"instance {i}, profile {p}")
+    secs = time.perf_counter() - t_phase
+    log(f"[sharded] (c) Planner(devices={k}) plan of {SHARDED_PLAN} x "
+        f"{len(grid[0])} x {len(res.variants)}: {plan_s:.3f} s, costs and "
+        f"starts equal [plan]'s bitwise; gain_scan launches {launches}; "
+        f"greedy {res.phase_seconds.get('greedy', 0.0):.3f} s")
+    log(f"[sharded] phase {secs:.3f} s")
+    return {"gain_scan": launches, "unsplit_s": whole_s, "split_s": parts_s,
+            "plan_s": plan_s, "seconds": secs}
 
 
 def check_costs_through_kernel(res, insts, grid,
@@ -2896,8 +3048,9 @@ def phase_train(dev):
     defaults and the CarbonGate, through the flash kernels forward and
     backward, and one profiled warm step; (b) its first step's loss and
     gradients through the kernels against the plain attention, in bf16 and
-    in an f32 copy of the config; (c) an 8-step run under injected failures
-    and restarts from checkpoints against an uninterrupted one; (d) --mp:
+    in an f32 copy of the config; (c) a ``RESTART_STEPS``-step run under
+    injected failures and restarts from checkpoints against an
+    uninterrupted one; (d) --mp:
     bf16 live parameters, their checkpoint read back bit for bit."""
     import math
     import tempfile
@@ -2922,8 +3075,8 @@ def phase_train(dev):
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     tmp = tmp_dir.name
 
-    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 100
-    # --carbon-gate, checkpoints every 50 steps
+    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 50
+    # (the CLI's 100, cut) --carbon-gate, checkpoints every 50 steps
     fa.reset_launches()
     t0 = time.perf_counter()
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
@@ -3197,6 +3350,8 @@ def main() -> int:
     eager = KINDS.index("eager")           # the smallest instance
     phase_cpu(plat, insts, grid, card, eager)
     phase_blocked(plat, insts, grid, card, eager)
+    sharded_run = phase_sharded(plat, insts, grid, card,
+                                torch.device("cuda", 0))
     exact_launches = phase_exact()
     session_launches = phase_session(plat, insts[eager])
     mapping_run = phase_mapping(plat)
@@ -3223,7 +3378,8 @@ def main() -> int:
                              "exact": exact_launches["gain_scan"],
                              "session": session_launches["gain_scan"],
                              "mapping": mapping_run["gain_scan"],
-                             "service": service_run["gain_scan"]},
+                             "service": service_run["gain_scan"],
+                             "sharded": sharded_run["gain_scan"]},
         "max_abs_err": main_mu["max_abs_err"],
         "ms": main_mu["ms"],
         "ms_from": main_mu["ms_from"],

@@ -26,11 +26,13 @@ import threading
 import time
 
 from repro_torch import obs
-from repro_torch.api.request import LocalSearchConfig, PlanRequest
+from repro_torch.api.request import LocalSearchConfig, PlanRequest, \
+    check_devices
 from repro_torch.api.result import PlanResult
 from repro_torch.core.portfolio import PreparedGraph, prepare_graph
 from repro_torch.kernels.backend import resolve_device, resolve_engine, \
     resolve_solver
+from repro_torch.sharding.ctx import grid_mesh
 
 
 class Planner:
@@ -54,14 +56,25 @@ class Planner:
       device: where the torch engine runs. ``None`` means the card
         (``cuda``) and raises when no GPU is present; pass ``"cpu"`` to run
         the plain PyTorch path on the CPU.
+      devices: split the torch engine's combined grid run over this many
+        devices visible to ``device`` (the instance-row axis of each
+        shape bucket; :func:`repro_torch.sharding.ctx.grid_mesh` builds
+        the 1-D mesh and raises when fewer are visible). ``None`` = one
+        device. A request's ``PlanRequest.devices`` overrides this default
+        per call; results are bitwise-identical at any device count.
     """
 
     def __init__(self, platform, engine: str = "auto", k: int = 3,
                  ls: LocalSearchConfig | None = None, validate: bool = True,
                  graph_cache: int = 32,
-                 lp_budget_bytes: int | None = None, device=None):
+                 lp_budget_bytes: int | None = None, device=None,
+                 devices: int | None = None):
         resolve_engine(engine)              # fail fast on unknown engines
         self.device = resolve_device(device)
+        check_devices(devices)
+        if devices is not None:
+            grid_mesh(devices, self.device)  # fail fast past the visible
+        self.devices = devices
         self.platform = platform
         self.engine = engine
         self.k = int(k)
@@ -84,7 +97,7 @@ class Planner:
                        graph_cache=self._graph_cache,
                        lp_budget_bytes=self.lp_budget_bytes
                        if lp_budget_bytes is None else lp_budget_bytes,
-                       device=self.device)
+                       device=self.device, devices=self.devices)
 
     # --- PreparedGraph cache ---------------------------------------------
 
@@ -139,6 +152,8 @@ class Planner:
         t0 = time.perf_counter()
         instances, grid, names = request.resolve()
         solver = resolve_solver(request.solver)
+        devices = request.devices if request.devices is not None \
+            else self.devices
         outcomes = None
         if request.mapping != "fixed":
             # mapping modes resolve raw Workflows to mapped Instances
@@ -155,7 +170,7 @@ class Planner:
                 mode=request.mapping, options=request.mapping_options,
                 robust=bool(request.robust),
                 solver_options=request.solver_options, cancel=cancel,
-                deadline_scale=request.deadline_scale)
+                deadline_scale=request.deadline_scale, devices=devices)
             instances = [o.instance for o in outcomes]
             for o in outcomes:
                 if o.graph is not None:
@@ -179,7 +194,7 @@ class Planner:
                 graphs=graphs, commit_k=self.ls.commit_k,
                 ls_max_rounds=self.ls.max_rounds,
                 options=request.solver_options, cancel=cancel,
-                device=self.device)
+                device=self.device, devices=devices)
         obs.registry().counter(
             "planner_plans_total", "Planner.plan calls served",
             labels=("solver", "engine")).inc(solver=solver.name,

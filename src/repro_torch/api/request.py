@@ -13,8 +13,9 @@ the async :class:`~repro_torch.api.session.PlanningSession` replans
 against. :func:`validate_resolved` is the serving tier's structural check
 of a resolved grid.
 
-The port serves every mapping mode on one device: ``devices`` above 1
-raises ``ValueError`` (the multi-device grid is not ported yet).
+``devices`` splits the torch engine's grid run over that many devices
+(``cuda:0..k-1`` on the card, :func:`repro_torch.sharding.ctx
+.set_host_device_count` copies of the CPU), bitwise-identically.
 """
 from __future__ import annotations
 
@@ -242,6 +243,15 @@ def _as_grid(profiles, I: int) -> list[list[PowerProfile]]:
     return grid
 
 
+def check_devices(devices) -> None:
+    """Raise ``ValueError`` unless ``devices`` is None or a positive int."""
+    if devices is not None and (
+            not isinstance(devices, int)
+            or isinstance(devices, bool) or devices < 1):
+        raise ValueError(
+            f"devices must be a positive int or None, got {devices!r}")
+
+
 @dataclasses.dataclass
 class PlanRequest:
     """One request over the (instances x profiles x variants) grid.
@@ -282,8 +292,11 @@ class PlanRequest:
       knobs as a dict (``seeds``, ``rounds``, ``neighbors``, ``elite``,
       ``patience``, ``seed``, ``objective``); only valid with
       ``mapping="search"``/``"heft"``.
-    * ``devices`` — ``None`` or 1; a sharded multi-device grid is not
-      ported yet.
+    * ``devices`` — split the torch engine's combined grid run over this
+      many devices (the instance-row axis; see
+      :func:`repro_torch.sharding.ctx.grid_mesh`). ``None`` = one device;
+      results are bitwise-identical at any device count. A request's
+      ``devices`` overrides the :class:`~repro_torch.api.Planner`'s.
     """
 
     instances: object
@@ -321,17 +334,7 @@ class PlanRequest:
             instances = _as_workflows(self.instances)
         if not instances:
             raise ValueError("at least one instance is required")
-        if self.devices is not None and (
-                not isinstance(self.devices, int)
-                or isinstance(self.devices, bool) or self.devices < 1):
-            raise ValueError(
-                f"devices must be a positive int or None, "
-                f"got {self.devices!r}")
-        if self.devices is not None and self.devices > 1:
-            raise ValueError(
-                f"devices={self.devices} is not yet ported to repro_torch "
-                f"(the multi-device grid comes with a later slice); use "
-                f"devices=None or 1")
+        check_devices(self.devices)
         grid = _as_grid(self.profiles, len(instances))
         P = len(grid[0])
         if any(len(ps) != P for ps in grid):

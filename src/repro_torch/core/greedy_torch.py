@@ -334,42 +334,72 @@ class _Rows:
         self.start[ar, v] = s
 
 
-def _dense_grid(rows, dev) -> torch.Tensor:
-    """All rows of the dense-lp instances of one bucket in one loop.
+class _DenseShard:
+    """The dense-lp rows of some instances of one bucket on one device.
 
     ``rows``: per-instance tuples ``(dur, work, lp, budgets [P, Tp],
-    masks [P, V, Tp+1], est, lst, orders [V, Np])``. Returns int32
-    [I, P, V, Np] start times on ``dev``.
+    masks [P, V, Tp+1], est, lst, orders [V, Np])``; :meth:`step` places
+    the ``t``-th task of every row's order.
     """
-    I = len(rows)
-    P, Tp = rows[0][3].shape
-    V, Np = rows[0][7].shape
 
-    def stack(a, dtype=None):
-        return torch.stack([torch.as_tensor(r[a], dtype=dtype).to(dev)
-                            for r in rows])
+    def __init__(self, rows, dev):
+        I = len(rows)
+        P, Tp = rows[0][3].shape
+        V, Np = rows[0][7].shape
+        self.shape = (I, P, V, Np)
 
-    dur, work = stack(0), stack(1)                          # [I, Np]
-    lp = stack(2)                                           # [I, Np, Np]
-    lp_t = lp.transpose(1, 2).contiguous()                  # columns as rows
-    R = I * P * V
-    budgets = stack(3, torch.int32)                         # [I, P, Tp]
-    rem = budgets[:, :, None, :].expand(I, P, V, Tp).reshape(R, Tp).clone()
-    mask = stack(4, torch.bool).reshape(R, Tp + 1).clone()
-    est = stack(5)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
-    lst = stack(6)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
-    orders = stack(7, torch.int64)[:, None].expand(I, P, V, Np) \
-        .reshape(R, Np)
-    inst_of = torch.arange(I, device=dev).repeat_interleave(P * V)
-    # per-step inputs gathered once: order, duration and work by step
-    steps = orders.t().contiguous()                          # [Np, R]
-    durs = dur[inst_of[:, None], orders].t().contiguous()
-    works = work[inst_of[:, None], orders].t().contiguous()
-    state = _Rows(rem, mask, est.clone(), lst.clone())
-    for t in range(Np):
-        v = steps[t]
-        state.step(v, lp[inst_of, v], lp_t[inst_of, v], durs[t], works[t])
-    return state.start.reshape(I, P, V, Np)
+        def stack(a, dtype=None):
+            return torch.stack([torch.as_tensor(r[a], dtype=dtype).to(dev)
+                                for r in rows])
+
+        dur, work = stack(0), stack(1)                      # [I, Np]
+        self.lp = stack(2)                                  # [I, Np, Np]
+        self.lp_t = self.lp.transpose(1, 2).contiguous()    # columns as rows
+        R = I * P * V
+        budgets = stack(3, torch.int32)                     # [I, P, Tp]
+        rem = budgets[:, :, None, :].expand(I, P, V, Tp).reshape(R, Tp) \
+            .clone()
+        mask = stack(4, torch.bool).reshape(R, Tp + 1).clone()
+        est = stack(5)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
+        lst = stack(6)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
+        orders = stack(7, torch.int64)[:, None].expand(I, P, V, Np) \
+            .reshape(R, Np)
+        self.inst_of = torch.arange(I, device=dev).repeat_interleave(P * V)
+        # per-step inputs gathered once: order, duration and work by step
+        self.steps = orders.t().contiguous()                # [Np, R]
+        self.durs = dur[self.inst_of[:, None], orders].t().contiguous()
+        self.works = work[self.inst_of[:, None], orders].t().contiguous()
+        self.state = _Rows(rem, mask, est.clone(), lst.clone())
+
+    def step(self, t: int) -> None:
+        v, inst_of = self.steps[t], self.inst_of
+        self.state.step(v, self.lp[inst_of, v], self.lp_t[inst_of, v],
+                        self.durs[t], self.works[t])
+
+    def starts(self) -> torch.Tensor:
+        return self.state.start.reshape(self.shape)
+
+
+def _dense_grid(rows, devs) -> torch.Tensor:
+    """All rows of the dense-lp instances of one bucket, the instance axis
+    split over ``devs`` (the port of the reference's ``_grid_launch``).
+
+    ``rows`` as for :class:`_DenseShard`. The instances split into
+    ``len(devs)`` contiguous shards, uneven where they do not divide; an
+    empty shard is skipped. Every shard advances in one lockstep host loop
+    over the placement steps, each issuing its launches on its own device
+    (a step synchronizes nothing, so shards on separate cards run
+    concurrently). Rows are independent int32 arithmetic, so the starts
+    are bitwise those of one unsplit loop. Returns int32 [I, P, V, Np]
+    start times on ``devs[0]``.
+    """
+    parts = torch.tensor_split(torch.arange(len(rows)), len(devs))
+    shards = [_DenseShard([rows[i] for i in idx.tolist()], d)
+              for idx, d in zip(parts, devs) if len(idx)]
+    for t in range(shards[0].shape[3]):
+        for s in shards:
+            s.step(t)
+    return torch.cat([s.starts().to(devs[0]) for s in shards])
 
 
 def _blocked_fanout_padded(dur, work, blp: BlockedLP, budgets, masks,
@@ -463,7 +493,8 @@ def greedy_fanout_torch(inst: Instance, profile: PowerProfile, est0, lst0,
         device=device)[0]
 
 
-def greedy_fanout_grid_torch(bucket_rows, device=None) -> torch.Tensor:
+def greedy_fanout_grid_torch(bucket_rows, device=None,
+                             mesh=None) -> torch.Tensor:
     """All (instance, profile, variant) greedy schedules of one shape
     bucket: every dense-lp row advances in ONE batched loop.
 
@@ -474,11 +505,17 @@ def greedy_fanout_grid_torch(bucket_rows, device=None) -> torch.Tensor:
         :func:`pad_dims` bucket (same P, V). A row's ``lp`` slot may hold a
         :class:`BlockedLP` instead of the dense matrix — such rows stream
         through the chunked loop, one instance at a time.
+      mesh: optional 1-D :class:`repro_torch.sharding.ctx.Mesh`
+        (:func:`~repro_torch.sharding.ctx.grid_mesh`): the dense rows'
+        instance axis splits over its devices (:func:`_dense_grid`);
+        blocked rows stream on its first device, unsplit.
     Returns:
-      int32 [I, P, V, Np] start times on the device (caller slices off
-      the task padding).
+      int32 [I, P, V, Np] start times on the device (the mesh's first
+      device when split; caller slices off the task padding).
     """
-    dev = resolve_device(device)
+    devs = [resolve_device(device)] if mesh is None \
+        else list(mesh.devices.flat)
+    dev = devs[0]
     rows = list(bucket_rows)
     with _BUCKETS_LOCK:
         _BUCKETS_RUN.add((int(rows[0][7].shape[1]),     # order [V, Np]
@@ -487,7 +524,7 @@ def greedy_fanout_grid_torch(bucket_rows, device=None) -> torch.Tensor:
     out: list = [None] * len(rows)
     dense_idx = [i for i, b in enumerate(blocked) if not b]
     if dense_idx:
-        dense = _dense_grid([rows[i] for i in dense_idx], dev)
+        dense = _dense_grid([rows[i] for i in dense_idx], devs)
         for j, i in enumerate(dense_idx):
             out[i] = dense[j]
     for i, r in enumerate(rows):

@@ -305,7 +305,8 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
                             ls_max_rounds: int = 200,
                             lp_budget_bytes: int | None = None,
                             cancel=None, device=None,
-                            timings: dict | None = None
+                            timings: dict | None = None,
+                            devices: int | None = None
                             ) -> list[list[dict[str, ScheduleResult]]]:
     """THE (instances x profiles x variants) scheduling pass.
 
@@ -336,8 +337,14 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
     and before every per-instance local-search climb.
 
     ``device`` is where the torch engine runs (None = the card); the
-    numpy engine ignores it. ``timings``, when given, accumulates host
-    wall seconds per phase: ``"overlay"`` (per-profile precompute),
+    numpy engine ignores it. ``devices`` splits the torch engine's
+    combined bucket run over that many devices visible to ``device``
+    (the instance-row axis, over
+    :func:`repro_torch.sharding.ctx.grid_mesh`; see
+    :func:`repro_torch.core.greedy_torch.greedy_fanout_grid_torch`);
+    None / 1 is the unsplit run. Bitwise-identical results either way.
+    ``timings``, when given, accumulates host wall seconds per phase:
+    ``"overlay"`` (per-profile precompute),
     ``"rows"`` (longest paths and padded device inputs), ``"greedy"``,
     ``"climb"``, ``"polish"`` and ``"assemble"`` (validation and costs).
 
@@ -364,9 +371,13 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
         return [[] for _ in range(I)]
     names = PORTFOLIO_VARIANTS if variants is None else tuple(variants)
     heur = any(n != "asap" for n in names)
+    mesh = None
     if engine == "torch":
         from repro_torch.kernels.backend import resolve_device
         device = resolve_device(device)
+        if devices is not None and devices > 1:
+            from repro_torch.sharding.ctx import grid_mesh
+            mesh = grid_mesh(devices, device)
 
     # identity dedupe (see docstring): dup_of[i] == i marks a unique row;
     # duplicates point at the first occurrence (always a lower index)
@@ -458,7 +469,8 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
             _add(timings, "rows", t0)
             t0 = time.perf_counter()
             try:
-                starts = greedy_fanout_grid_torch(rows, device=device) \
+                starts = greedy_fanout_grid_torch(
+                    rows, device=device, mesh=mesh) \
                     .cpu().numpy().astype(np.int64)
             finally:
                 # a bucket's first run in this process is its miss

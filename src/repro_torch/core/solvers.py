@@ -96,11 +96,13 @@ class Solver:
                    engine: str = "numpy", graphs=None, commit_k=None,
                    ls_max_rounds: int = 200,
                    options: dict | None = None, cancel=None,
-                   device=None) -> SolveOutput:
+                   device=None, devices: int | None = None) -> SolveOutput:
         """Serve the grid. ``cancel`` is an optional
         :class:`repro_torch.core.cancel.CancelToken` polled at the
         solver's chunk boundaries; ``device`` is where device engines
-        run."""
+        run; ``devices`` splits the heuristic torch engine's grid run
+        over that many devices (the per-cell host solvers accept and
+        ignore it)."""
         raise NotImplementedError
 
     def _solve_cells(self, instances, profile_grid, names, validate,
@@ -169,13 +171,13 @@ class HeuristicSolver(Solver):
     def solve_grid(self, instances, profile_grid, platform, names, *,
                    k=3, mu=10, validate=True, engine="numpy", graphs=None,
                    commit_k=None, ls_max_rounds=200, options=None,
-                   cancel=None, device=None) -> SolveOutput:
+                   cancel=None, device=None, devices=None) -> SolveOutput:
         timings: dict = {}
         cells = schedule_portfolio_grid(
             instances, profile_grid, platform, variants=names, k=k, mu=mu,
             validate=validate, engine=engine, graphs=graphs,
             commit_k=commit_k, ls_max_rounds=ls_max_rounds, cancel=cancel,
-            device=device, timings=timings)
+            device=device, timings=timings, devices=devices)
         return SolveOutput(cells=cells, lower=None, timings=timings)
 
 
@@ -193,7 +195,7 @@ class AsapSolver(Solver):
     def solve_grid(self, instances, profile_grid, platform, names, *,
                    k=3, mu=10, validate=True, engine="numpy", graphs=None,
                    commit_k=None, ls_max_rounds=200, options=None,
-                   cancel=None, device=None) -> SolveOutput:
+                   cancel=None, device=None, devices=None) -> SolveOutput:
         ests = [graphs[i].est0 if graphs is not None
                 else asap_schedule(inst)
                 for i, inst in enumerate(instances)]
@@ -220,7 +222,7 @@ class DpUniprocSolver(Solver):
     def solve_grid(self, instances, profile_grid, platform, names, *,
                    k=3, mu=10, validate=True, engine="numpy", graphs=None,
                    commit_k=None, ls_max_rounds=200, options=None,
-                   cancel=None, device=None) -> SolveOutput:
+                   cancel=None, device=None, devices=None) -> SolveOutput:
         check = bool((options or {}).get("check", False))
         for inst in instances:
             if not is_uniprocessor(inst):
@@ -272,7 +274,7 @@ class IlpSolver(Solver):
     def solve_grid(self, instances, profile_grid, platform, names, *,
                    k=3, mu=10, validate=True, engine="numpy", graphs=None,
                    commit_k=None, ls_max_rounds=200, options=None,
-                   cancel=None, device=None) -> SolveOutput:
+                   cancel=None, device=None, devices=None) -> SolveOutput:
         from repro_torch.core.ilp import solve_ilp  # lazy: needs HiGHS
 
         opts = options or {}
@@ -322,7 +324,7 @@ class ExactSolver(Solver):
     def solve_grid(self, instances, profile_grid, platform, names, *,
                    k=3, mu=10, validate=True, engine="numpy", graphs=None,
                    commit_k=None, ls_max_rounds=200, options=None,
-                   cancel=None, device=None) -> SolveOutput:
+                   cancel=None, device=None, devices=None) -> SolveOutput:
         label = _single_label(names, self)
         I = len(instances)
         P = len(profile_grid[0]) if instances else 0

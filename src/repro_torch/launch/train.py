@@ -148,10 +148,10 @@ def main(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes (launch/mesh.py, "
-            f"sharding/specs.py, runtime/elastic.py, train/pipeline.py) are "
-            f"the multi-device slice of ROADMAP Queue 1, not ported yet; "
-            f"--mesh none trains on one card")
+            f"--mesh {args.mesh}: training under the production meshes "
+            f"(TP and FSDP over launch.mesh.make_production_mesh) is "
+            f"ROADMAP Queue 1 item 2b, the rest of the multi-device slice, "
+            f"not ported yet; --mesh none trains on one card")
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")

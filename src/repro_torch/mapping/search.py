@@ -119,11 +119,12 @@ class _Evaluator:
     """Batch-evaluates labeled mappings through the request's solver."""
 
     def __init__(self, wf, platform, row, planner, solver, names,
-                 objective, solver_options, cancel):
+                 objective, solver_options, cancel, devices=None):
         self.wf, self.platform, self.row = wf, platform, tuple(row)
         self.planner, self.solver, self.names = planner, solver, tuple(names)
         self.objective = objective
         self.solver_options, self.cancel = solver_options, cancel
+        self.devices = devices
         self.cols = heuristic_indices(self.names)
         self.T = int(row[0].T)
         self.infeasible = 0
@@ -173,7 +174,7 @@ class _Evaluator:
             commit_k=self.planner.ls.commit_k,
             ls_max_rounds=self.planner.ls.max_rounds,
             options=self.solver_options, cancel=self.cancel,
-            device=self.planner.device)
+            device=self.planner.device, devices=self.devices)
         self.cache_misses.append(max(bucket_entries_total() - b0, 0))
         costs = out.cost_tensor(self.names)          # [C, P, V]
         batch = []
@@ -192,14 +193,14 @@ class _Evaluator:
 def search_mapping(wf: Workflow, platform, row, *, planner, solver, names,
                    options: MappingOptions, robust: bool = False,
                    solver_options: dict | None = None,
-                   cancel=None) -> MappingOutcome:
+                   cancel=None, devices: int | None = None) -> MappingOutcome:
     """Run the alternating search for one workflow over one profile row."""
     t0 = time.perf_counter()
     objective = options.objective
     if objective == "auto":
         objective = "robust" if robust else "best"
     ev = _Evaluator(wf, platform, row, planner, solver, names, objective,
-                    solver_options, cancel)
+                    solver_options, cancel, devices=devices)
     trace: list[int] = []
     with obs.span("mapping_search", workflow=wf.name, mode="search",
                   objective=objective):
@@ -267,7 +268,8 @@ def search_mapping(wf: Workflow, platform, row, *, planner, solver, names,
 def resolve_mappings(planner, workflows, grid, names, solver, *,
                      mode: str, options=None, robust: bool = False,
                      solver_options: dict | None = None,
-                     cancel=None, deadline_scale: float | None = None
+                     cancel=None, deadline_scale: float | None = None,
+                     devices: int | None = None
                      ) -> tuple[list[MappingOutcome], list]:
     """Resolve one mapping per workflow for the mapping-mode plan path.
 
@@ -285,7 +287,8 @@ def resolve_mappings(planner, workflows, grid, names, solver, *,
     that horizon BEFORE candidates are evaluated, so search candidates
     compete under the same deadline the winner is scheduled with
     (candidates whose own ASAP overruns it are rejected as infeasible,
-    like any too-tight mapping).
+    like any too-tight mapping).  ``devices`` splits the candidate
+    batches' grid runs (see ``Planner.devices``).
     """
     from repro_torch.api.request import crop_profile  # lazy: api imports us
 
@@ -310,7 +313,8 @@ def resolve_mappings(planner, workflows, grid, names, solver, *,
             outcomes.append(search_mapping(
                 wf, planner.platform, row, planner=planner, solver=solver,
                 names=names, options=opts, robust=robust,
-                solver_options=solver_options, cancel=cancel))
+                solver_options=solver_options, cancel=cancel,
+                devices=devices))
         else:
             raise ValueError(f"unknown mapping mode {mode!r}")
     return outcomes, out_grid

@@ -1,1 +1,2 @@
-from repro_torch.sharding.ctx import head_plan  # noqa: F401
+from repro_torch.sharding.ctx import (Mesh, configure, grid_mesh,  # noqa: F401
+                                     head_plan, reset, shard)

@@ -1,12 +1,183 @@
-"""Attention-head plan for tensor parallelism (``repro.sharding.ctx``'s
-``head_plan``, copied).
+"""Sharding context: the device mesh, logical-axis rules, the head plan.
 
-The port runs one card and needs no logical-axis constraints, so the
-reference's ``configure``/``shard`` have no counterpart here; the head plan
-stays because it decides the parameter shapes: a model's padded head counts
-must equal the reference's for its weights to carry across.
+The port of ``repro.sharding.ctx``. Model code annotates activations with
+*logical* axes ("batch", "tp", ...); ``configure(mesh)`` binds them to mesh
+axes, while unit tests and single-device runs leave the context unset.
+The port's :class:`Mesh` is its own small value (an array of
+``torch.device`` with named axes, as ``jax.sharding.Mesh``), so
+:func:`grid_mesh`, :mod:`repro_torch.launch.mesh` and
+:mod:`repro_torch.runtime.elastic` build meshes without jax.
+
+Visible devices are ``cuda:0..k-1`` when the port runs on the card; on the
+CPU they are ``k`` copies of ``cpu``, where ``k`` is
+:func:`host_device_count` (default 1, set by :func:`set_host_device_count`,
+the port's ``--xla_force_host_platform_device_count``). The scheduler's
+grid launch splits its instance rows over a :func:`grid_mesh`
+(:func:`repro_torch.core.greedy_torch.greedy_fanout_grid_torch`).
+
+:func:`shard` is the identity: the reference's
+``with_sharding_constraint`` placement has no counterpart yet, because the
+port's models place their own tensors; with a mesh configured it checks
+that the logical axes resolve.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.backend import resolve_device
+
+_CTX: dict | None = None
+_HOST_DEVICES = 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Devices laid out on named axes: ``devices`` is an object array of
+    ``torch.device`` with one dimension per name in ``axis_names``."""
+
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(
+                f"mesh devices of shape {self.devices.shape} do not match "
+                f"axis names {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def make_mesh(shape, axis_names, devices) -> Mesh:
+    """A :class:`Mesh` of the first ``prod(shape)`` of ``devices``."""
+    shape = tuple(int(s) for s in shape)
+    need = math.prod(shape)
+    if len(devices) < need:
+        raise ValueError(
+            f"a mesh of shape {shape} over {tuple(axis_names)} needs "
+            f"{need} devices, {len(devices)} visible")
+    arr = np.empty(need, dtype=object)
+    arr[:] = list(devices)[:need]
+    return Mesh(arr.reshape(shape), tuple(axis_names))
+
+
+def host_device_count() -> int:
+    """How many devices the CPU shows the port (default 1)."""
+    return _HOST_DEVICES
+
+
+def set_host_device_count(n: int) -> int:
+    """Show the port ``n`` CPU devices; returns the previous count. It
+    changes nothing on the card."""
+    global _HOST_DEVICES
+    if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+        raise ValueError(f"host device count must be a positive int, "
+                         f"got {n!r}")
+    prev, _HOST_DEVICES = _HOST_DEVICES, n
+    return prev
+
+
+def visible_devices(device=None) -> list[torch.device]:
+    """The devices a mesh may span for an entry point on ``device`` (None
+    = the card): every CUDA device, or :func:`host_device_count` copies of
+    the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(dev.type)] * host_device_count()
+
+
+def configure(mesh: Mesh) -> None:
+    """Bind logical axes to this mesh ('pod', 'data', 'model')."""
+    global _CTX
+    batch = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    _CTX = {
+        "mesh": mesh,
+        "rules": {
+            "batch": batch,
+            "data": "data",
+            "tp": "model",
+            "kv_tp": None,       # kv heads replicated over TP by default
+            "expert": "model",
+            "cap": "data",       # MoE capacity axis
+            "seq_kv": "data",    # long-context: KV sequence over data
+        },
+    }
+
+
+def reset() -> None:
+    global _CTX
+    _CTX = None
+
+
+def grid_mesh(devices: int | None = None, device=None) -> Mesh:
+    """1-D scheduler mesh over the "data" axis for the portfolio grid.
+
+    The scheduler's combined (instances x profiles x variants) launch
+    splits its instance rows over "data"
+    (:func:`repro_torch.sharding.specs.grid_batch_spec`). ``devices=None``
+    takes every device visible to ``device`` (None = the card); otherwise
+    the first ``devices`` of :func:`visible_devices`.
+    """
+    avail = visible_devices(device)
+    n = len(avail) if devices is None else devices
+    if not 1 <= n <= len(avail):
+        raise ValueError(
+            f"devices={devices} out of range: {len(avail)} visible")
+    return make_mesh((n,), ("data",), avail)
+
+
+def axis_size(logical: str) -> int:
+    if _CTX is None:
+        return 1
+    rule = _CTX["rules"].get(logical)
+    if rule is None:
+        return 1
+    mesh = _CTX["mesh"]
+    if isinstance(rule, tuple):
+        return math.prod(mesh.shape[a] for a in rule)
+    return mesh.shape[rule]
+
+
+def shard(x, *axes):
+    """The identity; with a mesh configured, first checks that every
+    logical axis has a rule naming axes of the mesh and that ``x`` has at
+    least ``len(axes)`` dimensions."""
+    if _CTX is None:
+        return x
+    rules, mesh = _CTX["rules"], _CTX["mesh"]
+    if len(axes) > x.ndim:
+        raise ValueError(f"{len(axes)} logical axes for a tensor of "
+                         f"{x.ndim} dimensions")
+    for a in axes:
+        if a is None:
+            continue
+        if a not in rules:
+            raise ValueError(f"unknown logical axis {a!r}")
+        rule = rules[a]
+        names = rule if isinstance(rule, tuple) else (rule,)
+        missing = [n for n in names if n is not None
+                   and n not in mesh.axis_names]
+        if missing:
+            raise ValueError(f"logical axis {a!r} maps to {missing}, not "
+                             f"axes of the mesh {mesh.axis_names}")
+    return x
+
+
+def tp_size() -> int:
+    return axis_size("tp")
 
 
 def head_plan(num_heads: int, kv_heads: int, tp: int = 16):
