@@ -36,7 +36,11 @@ reference package ``repro``. Phases, each fatal on failure:
    timeline equals numpy's bitwise; the oracle's wall time per schedule;
 6. one instance re-planned on the CPU against its first ``CPU_PROFILES``
    profiles (each profile's rows are planned independently): starts and
-   costs equal the card's;
+   costs equal the card's. The re-plan runs in a spawned child process
+   (no CUDA, ``CPU_THREADS`` torch threads, the matrix built anew from its
+   seeds) from the start, beside the kernels' ``nvcc`` build and the
+   matrix's construction, and the script waits for it before (3): no
+   timed phase runs beside it;
 7. that instance re-planned through the blocked longest-path form: starts
    equal the dense form's;
 8. the multi-device grid (``devices=``, ``[sharded]``): (a) the visible
@@ -117,15 +121,16 @@ reference package ``repro``. Phases, each fatal on failure:
    then the forward's logits against step-by-step decode logits at full
    width in f32, B=2, S=8, within 2e-2 (``[serve]``);
 16. training (``[train]``): (a) ``repro_torch.launch.train.train`` at full
-   width on SmolLM-360M with the train CLI's defaults (B=8, S=256), 50 of
-   its 100 steps (a cut), and the CarbonGate: finite losses, the first within 0.5 of ln V,
+   width on SmolLM-360M with the train CLI's defaults (B=8, S=256, 100
+   steps) and the CarbonGate: finite losses, the first within 0.5 of ln V,
    64 forward and 32 of each backward flash launch a step, cold and warm
    step seconds, tokens/s, and one profiled warm step's device busy time
    and idle share; (b) the first step's loss and gradients through the
    kernels against the plain attention (:func:`first_step`), in an f32
    copy of the config elementwise and in bf16 against the f32 gradients;
-   (c) a ``RESTART_STEPS``-step run (4; a cut of 8)
-   under injected failures, restarted from checkpoints, equal to an
+   (c) a ``RESTART_STEPS``-step run under injected failures, restarted
+   from checkpoints (at least one restore from a saved checkpoint, and
+   the older checkpoints deleted down to ``RESTART_KEEP``), equal to an
    uninterrupted one (tests/test_substrates.py's tolerance); (d) ``--mp``,
    one step (a cut of three):
    bf16 live parameters, the checkpoint's bf16 leaves read back bit for
@@ -192,6 +197,9 @@ J = 48                   # profile intervals
 PROFILE_SEED = 17
 MAPPING_TASKS = 500      # workflow tasks of the [mapping] cell (depth cut)
 CPU_PROFILES = 1         # profiles of the [cpu] re-plan (a cut of the four)
+# the [cpu] re-plan's torch threads in its child process: all cores but two,
+# which the card's host thread keeps meanwhile
+CPU_THREADS = max(1, (os.cpu_count() or 1) - 2)
 SERVICE_TICKETS = 2      # matrix tickets [service] (a) replays (a cut of 4)
 SHARDED_SHARDS = 2       # [sharded] (b): row shards of the split run
 SHARDED_PLAN = 2         # [sharded] (c): matrix instances planned (of 4)
@@ -241,10 +249,10 @@ BWD_F32_TOL = 1e-4
 LSE_TOL = 1e-4
 # [train]: the train CLI's defaults at full width (launch/train.py)
 TRAIN_ARCH = "smollm-360m"
-TRAIN_STEPS, TRAIN_B, TRAIN_S = 50, 8, 256   # 50 steps: a cut of its 100
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
 # the backward's timed shapes (B, S, H, hd, causal, dtype): FLASH_TIMED's
 # (causal), the training cell's (16 heads of 64 after head_plan, causal,
-# bf16), where the kernels run 1,600 times a [train] run, and Whisper's
+# bf16), where the kernels run 3,200 times a [train] run, and Whisper's
 # encoder (non-causal) and decoder (causal) at 1,500 positions and 20 heads
 # padded to 32, where [train-families] runs them
 FLASH_BWD_TIMED = {
@@ -254,9 +262,9 @@ FLASH_BWD_TIMED = {
     "whisper_encoder": (1, 1500, 32, 64, False, "bfloat16"),
     "whisper_decoder": (1, 1500, 32, 64, True, "bfloat16"),
 }
-RESTART_STEPS = 4            # (c): tests/test_substrates.py's resume case,
-                             # cut from its 8 steps
-RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (2 saves)
+RESTART_STEPS = 8            # (c): tests/test_substrates.py's resume case
+RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
+RESTART_KEEP = 2             # (c): checkpoints kept (so 2 are deleted)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
 MP_STEPS = 1                 # (d): --mp, one step, its checkpoint (a cut of 3)
 # (b) first step, kernel vs plain attention, f32 copy of the config: the
@@ -973,27 +981,74 @@ def phase_plan(plat, insts, grid):
     return cold, launches, cold_s, warm_s
 
 
-def phase_cpu(plat, insts, grid, card, i):
-    """Instance ``i`` re-planned on the CPU against its first
-    ``CPU_PROFILES`` profiles: each must equal the card's plan bitwise."""
-    import numpy as np
+def cpu_replan(i, threads):
+    """Instance ``i`` of the matrix (built here from its seeds, quietly)
+    planned on the CPU against its first ``CPU_PROFILES`` profiles with
+    ``threads`` torch threads: (costs [P, V], starts per profile by
+    variant, plan seconds). Runs in :func:`start_cpu`'s child process."""
+    import io
+
+    import torch
 
     from repro_torch.api import Planner, PlanRequest
 
-    profiles = grid[i][:CPU_PROFILES]
+    torch.set_num_threads(threads)
+    with contextlib.redirect_stdout(io.StringIO()):
+        plat, insts, grid = build_matrix()
     t0 = time.perf_counter()
     res = Planner(plat, engine="torch", device="cpu").plan(
-        PlanRequest(instances=insts[i], profiles=profiles))
+        PlanRequest(instances=insts[i], profiles=grid[i][:CPU_PROFILES]))
     secs = time.perf_counter() - t0
-    check(np.array_equal(res.costs[0], card.costs[i][:len(profiles)]),
+    starts = [{n: r.start for n, r in cell.items()} for cell in res.results[0]]
+    return res.costs[0], starts, secs
+
+
+def start_cpu(i):
+    """Start ``[cpu]``'s re-plan of instance ``i`` in a spawned child (a
+    fresh process that never touches CUDA), to run while the kernels
+    build; :func:`wait_cpu` joins it before any timed phase and
+    :func:`phase_cpu` checks it after ``[plan]``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(cpu_replan, i, CPU_THREADS), time.perf_counter()
+
+
+def wait_cpu(job):
+    """The child's result, once it has ended, and how long it ran and how
+    long this waited for it."""
+    pool, fut, t_start = job
+    t0 = time.perf_counter()
+    try:
+        out = fut.result()
+    finally:
+        pool.shutdown()
+    t1 = time.perf_counter()
+    return out, t1 - t_start, t1 - t0
+
+
+def phase_cpu(cpu_run, grid, card, i):
+    """Instance ``i`` re-planned on the CPU against its first
+    ``CPU_PROFILES`` profiles (:func:`start_cpu`): each must equal the
+    card's plan bitwise."""
+    import numpy as np
+
+    (costs, starts, secs), ran, waited = cpu_run
+    n_prof = len(starts)
+    check(np.array_equal(costs, card.costs[i][:n_prof]),
           "CPU costs differ from the card's")
-    for p in range(len(profiles)):
-        for n in res.variants:
-            check(np.array_equal(res.results[0][p][n].start,
-                                 card.results[i][p][n].start),
+    for p, cell in enumerate(starts):
+        check(cell.keys() == card.results[i][p].keys(),
+              f"CPU variants differ from the card's: profile {p}")
+        for n, start in cell.items():
+            check(np.array_equal(start, card.results[i][p][n].start),
                   f"CPU starts differ from the card's: {n}, profile {p}")
-    log(f"[cpu] {KINDS[i]} re-planned on the CPU against "
-        f"{len(profiles)} of its {len(grid[i])} profiles in {secs:.3f} s: "
+    log(f"[cpu] {KINDS[i]} re-planned on the CPU against {n_prof} of its "
+        f"{len(grid[i])} profiles in {secs:.3f} s ({CPU_THREADS} torch "
+        f"threads, in a child process that ran {ran:.3f} s beside the "
+        f"kernels' build; the script waited {waited:.3f} s for it): "
         f"starts and costs equal the card's bitwise")
 
 
@@ -1028,14 +1083,10 @@ def common_bucket_rows(plat, insts, grid, names, dev):
     bucket gives the instance axis rows to split. Padding is
     output-invariant (padded tasks are zero-width and placed last, padded
     units never feasible). Returns (rows, combos)."""
-    import numpy as np
-    import torch
-
     from repro_torch.api import Planner
-    from repro_torch.core.greedy_torch import (NEG_PATH, pad_budget,
-                                               pad_dims, pad_masks,
-                                               pad_orders)
-    from repro_torch.core.portfolio import _needed_combos, overlay_profile
+    from repro_torch.core.greedy_torch import pad_dims
+    from repro_torch.core.portfolio import (_needed_combos, bucket_row,
+                                            overlay_profile)
 
     need = _needed_combos(names)
     rvals = tuple(sorted({r for (_, _, r) in need}))
@@ -1045,25 +1096,8 @@ def common_bucket_rows(plat, insts, grid, names, dev):
     rows = []
     for inst, ps in zip(insts, grid):
         g = planner.prepared(inst, ps[0].T)
-        N = inst.num_tasks
-        lp = np.full((Np, Np), NEG_PATH, dtype=np.int32)
-        lp[:N, :N] = g.lp()
-        np.fill_diagonal(lp[N:, N:], 0)
-
-        def vec(x):
-            out = np.zeros(Np, dtype=np.int32)
-            out[:N] = x
-            return torch.from_numpy(out).to(dev)
-
         ovs = [overlay_profile(g, p, refined_values=rvals) for p in ps]
-        rows.append((
-            vec(inst.dur), vec(inst.task_work), torch.from_numpy(lp).to(dev),
-            pad_budget(np.stack([ov.unit_budget for ov in ovs]), Tp),
-            pad_masks(np.stack([np.stack([ov.masks[r] for (_, _, r) in need])
-                                for ov in ovs]), Tp),
-            vec(g.est0), vec(g.lst0),
-            pad_orders(np.stack([g.order_for(sc, w) for (sc, w, _) in need]),
-                       np.arange(N, Np, dtype=np.int32))))
+        rows.append(bucket_row(g, ovs, need, Tp, dev, Np=Np))
     return rows, need
 
 
@@ -3075,8 +3109,8 @@ def phase_train(dev):
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     tmp = tmp_dir.name
 
-    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 50
-    # (the CLI's 100, cut) --carbon-gate, checkpoints every 50 steps
+    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 100
+    # --carbon-gate, checkpoints every 50 steps
     fa.reset_launches()
     t0 = time.perf_counter()
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
@@ -3137,8 +3171,17 @@ def phase_train(dev):
     ref = fresh()
     for s in range(RESTART_STEPS):
         ref, _ = step_fn(ref, data.batch(s))
-    mgr = CheckpointManager(os.path.join(tmp, "restart"), keep=2,
-                            every=RESTART_EVERY)
+    restart_dir = os.path.join(tmp, "restart")
+    restored = []                    # the steps restored from checkpoints
+
+    class Manager(CheckpointManager):
+        def restore_latest(self, like=None):
+            state, step = super().restore_latest(like)
+            if state is not None:
+                restored.append(step)
+            return state, step
+
+    mgr = Manager(restart_dir, keep=RESTART_KEEP, every=RESTART_EVERY)
     inj = FailureInjector(prob_per_step=0.35, seed=3)
 
     def train_fn(state, start, stop):
@@ -3152,6 +3195,12 @@ def phase_train(dev):
                                             RESTART_STEPS, max_restarts=50)
     check(done == RESTART_STEPS and restarts > 0, f"the restarted run did "
           f"{done} steps with {restarts} restarts")
+    saved = sorted(d for d in os.listdir(restart_dir)
+                   if d.startswith("ckpt_"))
+    n_saves = len(range(0, RESTART_STEPS, RESTART_EVERY))
+    check(restored, "no restart restored a saved checkpoint")
+    check(len(saved) == RESTART_KEEP < n_saves, f"{len(saved)} checkpoints "
+          f"left of {n_saves} saves with keep={RESTART_KEEP}: {saved}")
     worst, bitwise = 0.0, True
     for path, a, b in leaf_pairs(ref["params"], got["params"]):
         a, b = a.float(), torch.as_tensor(b, device=dev).float()
@@ -3164,7 +3213,9 @@ def phase_train(dev):
               f"|a - b| - rtol |b| reaches {worst}")
     del ref, got, model
     log(f"[train] (c) {RESTART_STEPS} steps under injected failures: "
-        f"{restarts} restarts from checkpoints every {RESTART_EVERY} steps, "
+        f"{restarts} restarts, {len(restored)} of them from the checkpoints "
+        f"of steps {restored} (one every {RESTART_EVERY} steps, "
+        f"{len(saved)} of {n_saves} kept: {saved}), "
         f"final parameters == the uninterrupted run's (rtol {RESTART_RTOL}, "
         f"atol {RESTART_ATOL}; bitwise equal: {bitwise}) in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -3338,17 +3389,18 @@ def main() -> int:
     if os.path.exists(PROFILE_OUT):
         os.remove(PROFILE_OUT)
 
+    eager = KINDS.index("eager")           # the smallest instance
+    cpu_job = start_cpu(eager)
     build_kernels()
-    gain_rows = phase_kernels(dev)
-    deficit_rows = phase_deficit(dev)
-
     t0 = time.perf_counter()
     plat, insts, grid = build_matrix()
     log(f"[matrix] built in {time.perf_counter() - t0:.3f} s")
+    cpu_run = wait_cpu(cpu_job)
+    gain_rows = phase_kernels(dev)
+    deficit_rows = phase_deficit(dev)
     card, launches, cold_s, _ = phase_plan(plat, insts, grid)
     cost_launches, oracle_ms = phase_cost_oracle(insts, grid, card, dev)
-    eager = KINDS.index("eager")           # the smallest instance
-    phase_cpu(plat, insts, grid, card, eager)
+    phase_cpu(cpu_run, grid, card, eager)
     phase_blocked(plat, insts, grid, card, eager)
     sharded_run = phase_sharded(plat, insts, grid, card,
                                 torch.device("cuda", 0))

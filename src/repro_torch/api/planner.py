@@ -61,7 +61,9 @@ class Planner:
         shape bucket; :func:`repro_torch.sharding.ctx.grid_mesh` builds
         the 1-D mesh and raises when fewer are visible). ``None`` = one
         device. A request's ``PlanRequest.devices`` overrides this default
-        per call; results are bitwise-identical at any device count.
+        per call; results are bitwise-identical at any device count. A
+        split is slower than ``None`` for now: one host loop issues every
+        shard's launches (see ``PlanRequest.devices``).
     """
 
     def __init__(self, platform, engine: str = "auto", k: int = 3,

@@ -14,8 +14,10 @@ against. :func:`validate_resolved` is the serving tier's structural check
 of a resolved grid.
 
 ``devices`` splits the torch engine's grid run over that many devices
-(``cuda:0..k-1`` on the card, :func:`repro_torch.sharding.ctx
-.set_host_device_count` copies of the CPU), bitwise-identically.
+(the card's CUDA devices from the caller's on,
+:func:`repro_torch.sharding.ctx.set_host_device_count` copies of the
+CPU), bitwise-identically. On one card a split only adds launches: see
+:class:`PlanRequest`'s ``devices``.
 """
 from __future__ import annotations
 
@@ -297,6 +299,11 @@ class PlanRequest:
       :func:`repro_torch.sharding.ctx.grid_mesh`). ``None`` = one device;
       results are bitwise-identical at any device count. A request's
       ``devices`` overrides the :class:`~repro_torch.api.Planner`'s.
+      A split costs time until each shard gets its own host thread or CUDA
+      graph (ROADMAP Queue 2 item 10): one host loop issues every shard's
+      launches, and the greedy is launch-bound, so on one card two shards
+      took about twice the unsplit greedy time, and on k cards the shards
+      overlap only as far as that one loop lets them.
     """
 
     instances: object

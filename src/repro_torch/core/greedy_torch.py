@@ -256,18 +256,24 @@ def pad_budget(unit_budget: np.ndarray, Tp: int) -> np.ndarray:
     return np.pad(np.asarray(unit_budget, np.int32), pad)
 
 
-def padded_shared(inst: Instance, est0, lst0, lp=None, device=None):
+def padded_shared(inst: Instance, est0, lst0, lp=None, device=None,
+                  Np: int | None = None):
     """Bucket-padded profile-independent tensors on ``device``.
 
     Returns ``(dur, work, lp, est, lst, order_tail)`` at the
-    :func:`pad_dims` bucket of ``inst``; ``order_tail`` is the suffix of
-    padded task ids every padded score order must end with. ``lp`` may be
-    a precomputed dense matrix OR a :class:`BlockedLP` — the blocked handle
-    passes through in the lp slot (no device matrix exists).
+    :func:`pad_dims` bucket of ``inst``, or at ``Np`` tasks when given (a
+    larger bucket: padded tasks are zero-width no-ops, so the starts do
+    not change); ``order_tail`` is the suffix of padded task ids every
+    padded score order must end with. ``lp`` may be a precomputed dense
+    matrix OR a :class:`BlockedLP` — the blocked handle passes through in
+    the lp slot (no device matrix exists).
     """
     dev = resolve_device(device)
     N = inst.num_tasks
-    Np, _ = pad_dims(N, 1)
+    if Np is None:
+        Np, _ = pad_dims(N, 1)
+    elif Np < N:
+        raise ValueError(f"a bucket of {Np} tasks cannot hold {N}")
     if lp is None:
         lp = longest_path_matrix(inst)
     if isinstance(lp, BlockedLP):

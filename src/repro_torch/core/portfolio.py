@@ -297,6 +297,31 @@ def _add(timings: dict | None, key: str, t0: float) -> None:
         timings[key] = timings.get(key, 0.0) + (time.perf_counter() - t0)
 
 
+def bucket_row(g: PreparedGraph, overlays, need, Tp: int, device,
+               Np: int | None = None) -> tuple:
+    """One instance's row of a greedy shape bucket, as
+    :func:`repro_torch.core.greedy_torch.greedy_fanout_grid_torch` takes
+    it: ``(dur, work, lp, budgets [P, Tp], masks [P, V, Tp+1], est, lst,
+    orders [V, Np])`` over its profile ``overlays`` and the ``need``
+    combos. ``Np`` pads to a larger bucket than the instance's own (None:
+    its own, resident on ``g``)."""
+    from repro_torch.core.greedy_torch import pad_budget, pad_masks, \
+        pad_orders, padded_shared
+
+    if Np is None:
+        dur, work, lp, est_t, lst_t, tail = g.shared(device)
+    else:
+        dur, work, lp, est_t, lst_t, tail = padded_shared(
+            g.inst, g.est0, g.lst0, g.lp(), device=device, Np=Np)
+    budgets = pad_budget(np.stack([ov.unit_budget for ov in overlays]), Tp)
+    masks = pad_masks(np.stack(
+        [np.stack([ov.masks[r] for (_, _, r) in need]) for ov in overlays]),
+        Tp)
+    orders = pad_orders(np.stack(
+        [g.order_for(s, w) for (s, w, _) in need]), tail)
+    return (dur, work, lp, budgets, masks, est_t, lst_t, orders)
+
+
 def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
                             variants=None, k: int = 3, mu: int = 10,
                             validate: bool = True, engine: str = "numpy",
@@ -433,7 +458,7 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
         _add(timings, "greedy", t0)
     elif need:                                     # engine == "torch"
         from repro_torch.core.greedy_torch import greedy_fanout_grid_torch, \
-            pad_budget, pad_dims, pad_masks, pad_orders
+            pad_dims
 
         buckets: dict[tuple, list[int]] = {}
         for i, (inst, g) in enumerate(zip(instances, graphs)):
@@ -454,17 +479,8 @@ def schedule_portfolio_grid(instances, profile_grid, platform: Platform,
                 if dup_of[i] in row_cache:
                     rows.append(row_cache[dup_of[i]])
                     continue
-                g = graphs[i]
-                dur, work, lp, est_t, lst_t, tail = g.shared(device)
-                budgets = pad_budget(np.stack(
-                    [ov.unit_budget for ov in overlays[i]]), Tp)
-                masks = pad_masks(np.stack(
-                    [np.stack([ov.masks[r] for (_, _, r) in need])
-                     for ov in overlays[i]]), Tp)
-                orders = pad_orders(np.stack(
-                    [g.order_for(s, w) for (s, w, _) in need]), tail)
-                row_cache[dup_of[i]] = (dur, work, lp, budgets, masks,
-                                        est_t, lst_t, orders)
+                row_cache[dup_of[i]] = bucket_row(
+                    graphs[i], overlays[i], need, Tp, device)
                 rows.append(row_cache[dup_of[i]])
             _add(timings, "rows", t0)
             t0 = time.perf_counter()

@@ -8,7 +8,8 @@ The port's :class:`Mesh` is its own small value (an array of
 :func:`grid_mesh`, :mod:`repro_torch.launch.mesh` and
 :mod:`repro_torch.runtime.elastic` build meshes without jax.
 
-Visible devices are ``cuda:0..k-1`` when the port runs on the card; on the
+Visible devices are the ``k`` CUDA devices when the port runs on the
+card, the caller's first (``cuda:i..k-1`` then ``cuda:0..i-1``); on the
 CPU they are ``k`` copies of ``cpu``, where ``k`` is
 :func:`host_device_count` (default 1, set by :func:`set_host_device_count`,
 the port's ``--xla_force_host_platform_device_count``). The scheduler's
@@ -90,12 +91,16 @@ def set_host_device_count(n: int) -> int:
 
 def visible_devices(device=None) -> list[torch.device]:
     """The devices a mesh may span for an entry point on ``device`` (None
-    = the card): every CUDA device, or :func:`host_device_count` copies of
+    = the card): every CUDA device, starting from ``device``'s own and
+    wrapping round (so a mesh's first device, where a split run gathers
+    its results, is the caller's), or :func:`host_device_count` copies of
     the CPU."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        k = torch.cuda.device_count()
+        first = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        return [torch.device("cuda", (first + i) % k) for i in range(k)]
     return [torch.device(dev.type)] * host_device_count()
 
 

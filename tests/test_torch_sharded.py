@@ -327,3 +327,61 @@ def test_service_ticket_devices_bitwise(case, host_devices):
     assert not res.degraded
     assert np.array_equal(base.costs, res.costs)
     assert_same(flatten(base.results), flatten(res.results))
+
+
+def test_common_bucket_rows_match_own_buckets(case, host_devices):
+    """``bucket_row(..., Np=)`` pads every instance into one larger bucket
+    (the smoke script's split input): its greedy starts, unsplit and over
+    2 shards, equal each instance's run in its own bucket, and the split
+    run gathers them on the mesh's first device. A bucket smaller than the
+    instance raises."""
+    import torch
+
+    from repro_torch.core.portfolio import (_needed_combos, bucket_row,
+                                            overlay_profile)
+
+    tplat, tinsts, trows = case[3:]
+    need = _needed_combos(VARIANTS)
+    rvals = tuple(sorted({r for (_, _, r) in need}))
+    planner = Planner(tplat, engine="torch", device="cpu")
+    graphs = [planner.prepared(x, ps[0].T) for x, ps in zip(tinsts, trows)]
+    ovs = [[overlay_profile(g, p, refined_values=rvals) for p in ps]
+           for g, ps in zip(graphs, trows)]
+    dims = [greedy_torch.pad_dims(x.num_tasks, g.T)
+            for x, g in zip(tinsts, graphs)]
+    Np = max(n for n, _ in dims) + greedy_torch.N_BUCKET
+    Tp = max(t for _, t in dims)
+    rows = [bucket_row(g, o, need, Tp, "cpu", Np=Np)
+            for g, o in zip(graphs, ovs)]
+    mesh = ctx.grid_mesh(2, device="cpu")
+    whole = greedy_torch.greedy_fanout_grid_torch(rows, device="cpu")
+    split = greedy_torch.greedy_fanout_grid_torch(rows, mesh=mesh)
+    assert split.device == mesh.devices.flat[0]
+    assert torch.equal(whole, split)
+    for i, (g, o, (_, t)) in enumerate(zip(graphs, ovs, dims)):
+        N = tinsts[i].num_tasks
+        own = greedy_torch.greedy_fanout_grid_torch(
+            [bucket_row(g, o, need, t, "cpu")], device="cpu")[0]
+        assert torch.equal(whole[i, ..., :N], own[..., :N]), i
+    with pytest.raises(ValueError, match="cannot hold"):
+        bucket_row(graphs[0], ovs[0], need, Tp, "cpu",
+                   Np=tinsts[0].num_tasks - 1)
+
+
+def test_visible_devices_start_at_callers_card(monkeypatch):
+    """On a (faked) 4-card host, the mesh of a caller on ``cuda:1`` starts
+    at ``cuda:1`` and wraps round, so a split run gathers on the caller's
+    card; asking for more cards than are visible still raises."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert ctx.visible_devices("cuda:1") == cuda[1:] + cuda[:1]
+    assert ctx.visible_devices("cuda") == cuda[2:] + cuda[:2]
+    assert list(ctx.grid_mesh(2, "cuda:1").devices.flat) == cuda[1:3]
+    assert list(ctx.grid_mesh(device="cuda:3").devices.flat) == \
+        cuda[3:] + cuda[:3]
+    with pytest.raises(ValueError, match="devices=5 out of range"):
+        ctx.grid_mesh(5, "cuda:1")
