@@ -57,7 +57,8 @@ reference package ``repro``. Phases, each fatal on failure:
    and ``"dp"``): the lower bounds hold against a card heuristic plan,
    ``gap() >= 1``, DP equals ILP on a processor chain, and every exact
    schedule costs the same through the kernel;
-10. a three-window rolling-horizon session (``planner.session``) of the
+10. a ``SESSION_WINDOWS``-window rolling-horizon session
+   (``planner.session``; two, a cut of three) of the
    ``eager`` instance against ``window_profile`` slices of the S1-S4
    forecasts: every window equals an eager plan of it bitwise, the
    session's gain-kernel launches equal those eager plans', and every
@@ -164,7 +165,18 @@ reference package ``repro``. Phases, each fatal on failure:
    first step's gradients through the kernels against the plain model
    attention by (16) (b)'s rule, an MoE's recompute routing bitwise equal
    to its forward's (:func:`first_step`). Qwen2-VL and Jamba do not fit
-   one card with AdamW in f32: the CPU tests hold their training.
+   one card with AdamW in f32: the CPU tests hold their training;
+19. the roofline (``[roofline]``): each of the eleven steps timed above
+   (the Qwen1.5 loss forward and decode step, the SmolLM step, the five
+   family forwards, the three family steps) counted by the port's dry run
+   (``launch.dryrun.trace_step`` on the meta device, at the step's config,
+   shape and dtype, self-attention as the flash kernels' work; nothing is
+   launched, and the counting, which needs no reading, runs while (6)'s
+   child process does, within ``ROOFLINE_SECONDS``): FLOPs, bytes, the
+   bound on one H100 (``roofline.analysis.H100``; its dominant term) and
+   its share of the warm wall time and of the profiled busy time, each at
+   most ``ROOFLINE_SHARE_MAX``; the step's arguments plus temporaries
+   against its measured peak memory, within 2x.
 
 Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18) is driven with the
 kernels' launch counts set to 0 just before it and read just after; a
@@ -201,12 +213,11 @@ CPU_PROFILES = 1         # profiles of the [cpu] re-plan (a cut of the four)
 # which the card's host thread keeps meanwhile
 CPU_THREADS = max(1, (os.cpu_count() or 1) - 2)
 SERVICE_TICKETS = 2      # matrix tickets [service] (a) replays (a cut of 4)
+SESSION_WINDOWS = 2      # [session] windows (a cut of 3; rolling needs two)
 SHARDED_SHARDS = 2       # [sharded] (b): row shards of the split run
 SHARDED_PLAN = 2         # [sharded] (c): matrix instances planned (of 4)
 PROFILE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt")
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM published memory rate
-F32_OPS_PER_S = 67e12        # H100 SXM published f32 rate (no tensor cores)
-BF16_OPS_PER_S = 989e12      # H100 SXM published dense bf16 tensor-core rate
+ROOFLINE_OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke_roofline.json")
 
 ARCH = "qwen1.5-0.5b"        # the serve CLI's default arch, at full width
 MODEL_B, MODEL_S = 4, 2048   # the forward's batch: f32 logits take 5 GB
@@ -323,6 +334,13 @@ FLASH_FAMILY_SHAPES = {
     "whisper_decoder": (1, 1500, 32, 64, True),
     "hd128_h32": (1, 2048, 32, 128, True),
 }
+# [roofline]: a step's least time on the card over its measured time is at
+# most 1 when the count is right (a little over on the host clock's noise);
+# the dry run's peak memory within 2x of the measured one either way; the
+# counting (on the meta device, nothing launched) within 30 s
+ROOFLINE_SHARE_MAX = 1.05
+ROOFLINE_PEAK_RATIO = 2.0
+ROOFLINE_SECONDS = 30.0
 
 
 class SmokeFailure(Exception):
@@ -345,6 +363,37 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def h100_rates() -> tuple[float, float, float]:
+    """One H100 SXM5's published rates, from the port's roofline specs
+    (``repro_torch.roofline.analysis``): HBM bytes/s, f32 FLOP/s outside
+    the tensor cores, dense bf16 tensor-core FLOP/s."""
+    from repro_torch.roofline.analysis import H100, H100_F32
+
+    return H100.hbm_bw, H100_F32.peak_flops, H100.peak_flops
+
+
+def step_peak(fn, dev, resident: int = 0):
+    """``fn()``, the device memory its run peaked at, and the running peak
+    before it: the most allocated while it ran, less what was allocated
+    before it that is not the step's own (``resident`` bytes of that were
+    its arguments: a forward's model). The running peak restarts at
+    ``fn``: a later reading takes the larger of the two."""
+    import gc
+
+    import torch
+
+    gc.collect()      # an earlier phase's garbage, freed before, not during
+    prev = torch.cuda.max_memory_allocated(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    return out, torch.cuda.max_memory_allocated(dev) - base + resident, prev
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 def cuda_ms(fn, reps: int, warm: int = 5) -> float:
@@ -563,7 +612,8 @@ def gain_bound_ms(R, N, T, mu) -> tuple[float, str]:
     D = 2 * mu + 1
     nbytes = 4 * (R * T + 3 * R * N + 2 * N + R * N * D)
     ops = 17 * R * N * 2 * mu
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    hbm, f32, _ = h100_rates()
+    t_bytes, t_ops = nbytes / hbm, ops / f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -741,8 +791,9 @@ def deficit_bound_ms(N, T) -> tuple[float, str]:
     against the 2 N + 3 T f32 operations of its difference-array form (two
     scatter-adds per task; a prefix add, a subtraction and a max per unit)
     over the f32 rate."""
-    t_bytes = 4 * (3 * N + 2 * T) / HBM_BYTES_PER_S
-    t_ops = (2 * N + 3 * T) / F32_OPS_PER_S
+    hbm, f32, _ = h100_rates()
+    t_bytes = 4 * (3 * N + 2 * T) / hbm
+    t_ops = (2 * N + 3 * T) / f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1364,8 +1415,8 @@ def phase_exact():
 
 
 def phase_session(plat, inst):
-    """A three-window rolling-horizon session on the card against eager
-    plans of the same windows."""
+    """A ``SESSION_WINDOWS``-window rolling-horizon session on the card
+    against eager plans of the same windows."""
     import numpy as np
 
     from repro_torch.api import Planner, PlanRequest, window_profile
@@ -1374,11 +1425,12 @@ def phase_session(plat, inst):
 
     W = deadline_from_asap(inst, FACTOR)
     cap = work_capacity(inst)
-    forecasts = [generate_profile(s, 3 * W, plat, J=3 * J,
+    n = SESSION_WINDOWS
+    forecasts = [generate_profile(s, n * W, plat, J=n * J,
                                   seed=PROFILE_SEED, work_capacity=cap)
                  for s in SCENARIOS]
     windows = [[window_profile(f, k * W, W) for f in forecasts]
-               for k in range(3)]
+               for k in range(n)]
     for k, ws in enumerate(windows):
         for f, w in zip(forecasts, ws):
             check(np.array_equal(
@@ -1389,8 +1441,8 @@ def phase_session(plat, inst):
     gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
     results, n_costed = [], 0
     t0 = time.perf_counter()
-    with planner.session(inst, windows, n_windows=3) as sess:
-        for k in range(3):
+    with planner.session(inst, windows, n_windows=n) as sess:
+        for k in range(n):
             fut = sess._plans.get(k)
             prefetched = fut is not None and fut.done()
             t_wait = time.perf_counter()
@@ -1433,7 +1485,7 @@ def phase_session(plat, inst):
     check(launches["gain_scan"] == eager_launches, f"the session launched "
           f"the gain_scan kernel {launches['gain_scan']} times, eager plans "
           f"of the same windows {eager_launches} times")
-    log(f"[session] eager N_c={inst.num_tasks}, 3 windows of {W} units x "
+    log(f"[session] eager N_c={inst.num_tasks}, {n} windows of {W} units x "
         f"{len(SCENARIOS)} forecasts: session {secs:.3f} s in all; eager "
         f"plans {', '.join(f'{t:.3f}' for t in eager_s)} s, bitwise equal; "
         f"{n_costed} schedules cost the same through the kernel; launches "
@@ -2063,8 +2115,9 @@ def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
     esize = 2 if dtype == "bfloat16" else 4
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * B * H * hd * pairs
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    t_bytes = 4 * B * S * H * hd * esize / HBM_BYTES_PER_S
+    hbm, f32, bf16 = h100_rates()
+    rate = bf16 if dtype == "bfloat16" else f32
+    t_bytes = 4 * B * S * H * hd * esize / hbm
     t_ops = flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2078,8 +2131,9 @@ def flash_bwd_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
     esize = 2 if dtype == "bfloat16" else 4
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 5 * 2 * B * H * hd * pairs
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    t_bytes = (8 * B * S * H * hd * esize + 4 * B * H * S) / HBM_BYTES_PER_S
+    hbm, f32, bf16 = h100_rates()
+    rate = bf16 if dtype == "bfloat16" else f32
+    t_bytes = (8 * B * S * H * hd * esize + 4 * B * H * S) / hbm
     t_ops = flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2431,8 +2485,9 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
     fa.LAUNCHES = 0
     loss_cold, cold_s = through_kernel(lambda: float(model.loss(batch)),
                                        "the cold loss")
-    loss_warm, warm_s = through_kernel(lambda: float(model.loss(batch)),
-                                       "the warm loss")
+    (loss_warm, warm_s), loss_peak, prev_peak = step_peak(
+        lambda: through_kernel(lambda: float(model.loss(batch)),
+                               "the warm loss"), dev, param_bytes(model))
     ln_v = math.log(cfg.vocab)
     for tag, val in (("cold", loss_cold), ("warm", loss_warm)):
         check(math.isfinite(val) and abs(val - ln_v) < 0.5,
@@ -2475,7 +2530,7 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
     check(to_f32 <= BF16_MODEL_SLACK * plain_to_f32, f"the bf16 kernel "
           f"forward is {to_f32} from the f32 forward, the plain bf16 "
           f"forward {plain_to_f32}")
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak_gb = max(prev_peak, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
     max32 = float((h32 - h32p).abs().max())
     max16 = float((h16.float() - h16p.float()).abs().max())
     log(f"[model] {cfg.name}: {n_params / 1e6:.3f}M params (f32 master, "
@@ -2488,10 +2543,11 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
         f"{rel16:.4g} (<= {BF16_MODEL_TOL}; max {max16:.4g} on |h| up to "
         f"{float(h32p.abs().max()):.4g}), bf16 to f32 {to_f32:.4g} "
         f"(plain bf16 {plain_to_f32:.4g}); flash launches {launches} ({L} "
-        f"per forward); peak memory {peak_gb:.2f} GiB")
+        f"per forward); peak memory {peak_gb:.2f} GiB (the warm loss "
+        f"{loss_peak / 2 ** 30:.3f} GiB)")
     torch.cuda.empty_cache()
     return {"launches": launches, "loss": loss_warm, "cold_s": cold_s,
-            "warm_s": warm_s, "apply_s": apply_s, "plain_s": plain_s,
+            "warm_s": warm_s, "loss_peak": loss_peak, "apply_s": apply_s, "plain_s": plain_s,
             "f32_max_abs_diff": max32, "bf16_rel_err": rel16,
             "forward": fwd, "decode_step": step}
 
@@ -2718,8 +2774,9 @@ def family_cell(dev, arch, plain_calls):
                             seed=SEED).batch(0)
     loss_cold, cold_s = through_kernel(lambda: float(model.loss(batch)),
                                        "the cold loss")
-    loss_warm, warm_s = through_kernel(lambda: float(model.loss(batch)),
-                                       "the warm loss")
+    (loss_warm, warm_s), loss_peak, prev_peak = step_peak(
+        lambda: through_kernel(lambda: float(model.loss(batch)),
+                               "the warm loss"), dev, param_bytes(model))
     routes, own = [], []
     with routing(routes):
         h16, apply_s = through_kernel(lambda: model.apply(batch),
@@ -2837,7 +2894,7 @@ def family_cell(dev, arch, plain_calls):
     check(err <= DECODE_TOL, f"[families] {arch}: decode logits != forward "
           f"logits: {err}")
     del model, cache, h, full, dec
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak_gb = max(prev_peak, torch.cuda.max_memory_allocated(dev)) / 2 ** 30
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t_cell
     log(f"[families] {arch} ({cfg.family}, {cfg.num_layers} layers"
@@ -2873,13 +2930,15 @@ def family_cell(dev, arch, plain_calls):
     log(f"[families] {arch} (c) forward == decode in f32 (B={B}, {n} steps"
         + (", capacity factor 8" if moe else "")
         + f"): max |decode - forward| {diff:.4g} (tolerance {DECODE_TOL}); "
-        f"(e) peak memory {peak_gb:.2f} GiB; the cell {secs:.3f} s")
+        f"(e) peak memory {peak_gb:.2f} GiB (the warm loss "
+        f"{loss_peak / 2 ** 30:.3f} GiB); the cell {secs:.3f} s")
     return {"params": n_params, "cold_s": cold_s, "warm_s": warm_s,
             "apply_s": apply_s, "plain_s": plain_s, "bf16_rel_err": rel16,
             "f32_max_abs_diff": max32, "bf16_to_f32": to_f32,
             "plain_bf16_to_f32": plain_to_f32, "rel_loss": rel_loss,
             "routed_apart": apart, "forward": fwd, "serve": serving,
-            "decode_diff": diff, "peak_gib": peak_gb, "seconds": secs}
+            "decode_diff": diff, "peak_gib": peak_gb, "loss_peak": loss_peak,
+            "seconds": secs}
 
 
 def phase_families(dev):
@@ -3086,6 +3145,7 @@ def phase_train(dev):
     injected failures and restarts from checkpoints against an
     uninterrupted one; (d) --mp:
     bf16 live parameters, their checkpoint read back bit for bit."""
+    import gc
     import math
     import tempfile
 
@@ -3105,6 +3165,8 @@ def phase_train(dev):
     cfg = ARCHS[TRAIN_ARCH]
     L = cfg.num_layers
     t_phase = time.perf_counter()
+    gc.collect()      # an earlier phase's garbage, freed before, not during
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     tmp = tmp_dir.name
@@ -3140,6 +3202,8 @@ def phase_train(dev):
     state, step_fn = out["state"], out["step_fn"]
     step_prof = device_breakdown(lambda: step_fn(state, batch), 1,
                                  PROFILE_OUT)
+    # (a)'s own peak: its state, its steps, the profiled step
+    a_peak = torch.cuda.max_memory_allocated(dev) - base
     del out, state, step_fn
     log(f"[train] (a) {cfg.name} ({cfg.dtype} activations, f32 masters), "
         f"B={TRAIN_B} S={TRAIN_S}, {n} steps with the CarbonGate (plan cost "
@@ -3149,7 +3213,8 @@ def phase_train(dev):
         f"warm {warm_s:.4f} (median of {n - 1}; min {min(secs[1:]):.4f}, max "
         f"{max(secs[1:]):.4f}), {tok_s:.1f} tokens/s; flash launches "
         f"{launches} ({2 * L} forward and {L} of each backward per step)")
-    log(f"[train] (a) profiled warm step: {breakdown_text(step_prof)}")
+    log(f"[train] (a) profiled warm step: {breakdown_text(step_prof)}; "
+        f"(a)'s peak memory {a_peak / 2 ** 30:.3f} GiB")
 
     # (b) the first step, kernels against the plain attention
     t0 = time.perf_counter()
@@ -3260,7 +3325,8 @@ def phase_train(dev):
     secs_phase = time.perf_counter() - t_phase
     log(f"[train] phase {secs_phase:.3f} s, peak memory {peak_gb:.2f} GiB")
     return {"launches": launches, "cold_s": cold_s, "warm_s": warm_s,
-            "tokens_per_s": tok_s, "step": step_prof, "seconds": secs_phase}
+            "tokens_per_s": tok_s, "step": step_prof, "a_peak": a_peak,
+            "seconds": secs_phase}
 
 
 def train_family_cell(dev, arch):
@@ -3275,6 +3341,7 @@ def train_family_cell(dev, arch):
     memory; (c) the first step's gradients through the kernels
     against the plain model attention (:func:`first_step`; an MoE's
     recompute routing bitwise equal to its forward's)."""
+    import gc
     import math
 
     import numpy as np
@@ -3290,6 +3357,10 @@ def train_family_cell(dev, arch):
     n_attn = flash_per_forward(cfg)
     tag = f"[train-families] {arch}"
     t_cell = time.perf_counter()
+    # the previous cell's model lives on in reference cycles until a
+    # collection: freed here, not in the middle of this cell's reading
+    gc.collect()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
     out = train(cfg, steps=steps, batch=B, seq=S, ckpt_dir=None, device=dev,
@@ -3318,6 +3389,7 @@ def train_family_cell(dev, arch):
     del out
     prof = device_breakdown(lambda: step_fn(state, batch), 1, PROFILE_OUT)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_peak_b = torch.cuda.max_memory_allocated(dev) - base
     del state, step_fn, batch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3333,13 +3405,15 @@ def train_family_cell(dev, arch):
         f"tokens/s; flash launches {launches} ({2 * n_attn} forward and "
         f"{n_attn} of each backward per step); (b) profiled warm step "
         f"(S={prof_s}): {breakdown_text(prof)}; peak memory {peak_gb:.2f} "
-        f"GiB")
+        f"GiB ({step_peak_b / 2 ** 30:.3f} GiB beyond the "
+        f"{base / 2 ** 30:.3f} GiB allocated before the cell)")
     log(f"{tag} (c) first step, kernels vs plain attention: "
         f"{first_step_text(first)} in {first_s:.3f} s; the cell "
         f"{secs_cell:.3f} s")
     return {"params": n_params, "launches": launches, "losses": losses,
             "cold_s": cold_s, "warm_s": warm_s, "tokens_per_s": tok_s,
             "step": prof, "profile_s": prof_s, "peak_gib": peak_gb,
+            "step_peak": step_peak_b,
             "first_step_s": first_s,
             "seconds": secs_cell}
 
@@ -3363,6 +3437,153 @@ def phase_train_families(dev):
     log(f"[train-families] flash launches {launches}; the phase "
         f"{secs:.3f} s in all")
     return {"launches": launches, "cells": cells, "seconds": secs}
+
+
+def roofline_plan() -> list[dict]:
+    """The steps the script times, in the order :func:`roofline_readings`
+    reads them, with what the dry run needs to count each: its config,
+    step, batch, sequence, and the sequence its busy time is profiled
+    at."""
+    from repro_torch.configs import ARCHS
+
+    def row(label, cfg, step, B, S, busy_S):
+        return {"label": label, "cfg": cfg, "step": step, "B": B, "S": S,
+                "busy_S": busy_S}
+
+    plan = [row(f"[model] {ARCH} loss forward", ARCHS[ARCH], "loss",
+                MODEL_B, MODEL_S, MODEL_S),
+            row(f"[model] {ARCH} decode step (cache 512)", ARCHS[ARCH],
+                "decode", 4, 512, 512),
+            row(f"[train] (a) {TRAIN_ARCH} step", ARCHS[TRAIN_ARCH], "train",
+                TRAIN_B, TRAIN_S, TRAIN_S)]
+    for arch, (S, _) in FAMILY_CELLS.items():
+        plan.append(row(f"[families] {arch} loss forward",
+                        family_config(arch), "loss", 1, S,
+                        FAMILY_PROFILE_S.get(arch, S)))
+    for arch, (B, S, _) in TRAIN_FAMILY_CELLS.items():
+        plan.append(row(f"[train-families] {arch} step", ARCHS[arch],
+                        "train", B, S, TRAIN_FAMILY_PROFILE_S.get(arch, S)))
+    return plan
+
+
+def roofline_count(plan: list[dict]) -> list[dict]:
+    """Each step of ``plan`` counted by the dry run
+    (``launch.dryrun.trace_step`` on the meta device, at the step's config,
+    shape and dtype, self-attention as the flash kernels that run on the
+    card; nothing is launched), and its roofline terms on one H100, at its
+    sequence and at the one its busy time is profiled at. Needs no
+    reading, so ``main`` counts while it waits for the ``[cpu]`` child."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import roofline_hw, trace_step
+    from repro_torch.roofline.analysis import roofline_terms
+
+    t0 = time.perf_counter()
+
+    def count(st, S):
+        kind = {"loss": "prefill"}.get(st["step"], st["step"])
+        tr = trace_step(st["cfg"], ShapeConfig("roofline", kind, S, st["B"]),
+                        step=st["step"], donate=True, attention="kernel")
+        hw = roofline_hw(st["cfg"])
+        return tr, hw, roofline_terms(tr.flops, tr.bytes, 0.0, 1, hw)
+
+    out = []
+    for st in plan:
+        tr, hw, terms = count(st, st["S"])
+        busy = terms if st["busy_S"] == st["S"] else count(
+            st, st["busy_S"])[2]
+        out.append({**st, "flops": tr.flops, "bytes": tr.bytes,
+                    "argument_bytes": tr.argument_bytes,
+                    "temp_bytes": tr.temp_bytes, "hw": hw.name,
+                    "terms": terms, "busy_terms": busy})
+    secs = time.perf_counter() - t0
+    log(f"[roofline] {len(out)} steps counted in {secs:.3f} s (limit "
+        f"{ROOFLINE_SECONDS} s)")
+    check(secs <= ROOFLINE_SECONDS, f"[roofline] counting took {secs:.3f} s")
+    return out
+
+
+def roofline_readings(model_run, train_run, families_run,
+                      train_families_run) -> list[dict]:
+    """What the phases measured of each step, in :func:`roofline_plan`'s
+    order: the warm wall seconds, the profiled busy ms, the step's peak
+    device memory (bytes; None for decode)."""
+    def row(wall_s, busy, peak):
+        return {"wall_s": wall_s, "busy_ms": busy["busy_ms"], "peak": peak}
+
+    dec = model_run["decode_step"]
+    return ([row(model_run["warm_s"], model_run["forward"],
+                 model_run["loss_peak"]),
+             row(dec["wall_ms"] / 1e3, dec, None),
+             row(train_run["warm_s"], train_run["step"], train_run["a_peak"])]
+            + [row(families_run["cells"][arch]["warm_s"],
+                   families_run["cells"][arch]["forward"],
+                   families_run["cells"][arch]["loss_peak"])
+               for arch in FAMILY_CELLS]
+            + [row(train_families_run["cells"][arch]["warm_s"],
+                   train_families_run["cells"][arch]["step"],
+                   train_families_run["cells"][arch]["step_peak"])
+               for arch in TRAIN_FAMILY_CELLS])
+
+
+def phase_roofline(counts: list[dict], readings: list[dict]) -> list[dict]:
+    """[roofline]: each step the script timed against its least time on
+    one H100 (:func:`roofline_count`): the bound over the warm wall time
+    and over the profiled device-busy time must each be at most
+    ``ROOFLINE_SHARE_MAX``, a larger share meaning a wrong count; the
+    predicted peak memory (the step's arguments plus its temporaries)
+    within ``ROOFLINE_PEAK_RATIO`` of the measured one either way."""
+    t_phase = time.perf_counter()
+    check(len(counts) == len(readings), f"[roofline] {len(counts)} steps "
+          f"counted, {len(readings)} read")
+    rows = []
+    for c, m in zip(counts, readings):
+        terms, b_terms = c["terms"], c["busy_terms"]
+        share = terms["bound_s"] / m["wall_s"]
+        busy_share = (None if m["busy_ms"] is None
+                      else 1e3 * b_terms["bound_s"] / m["busy_ms"])
+        predicted = c["argument_bytes"] + c["temp_bytes"]
+        ratio = None if m["peak"] is None else predicted / m["peak"]
+        r = {k: c[k] for k in ("label", "B", "S", "busy_S", "flops", "bytes",
+                               "argument_bytes", "temp_bytes", "hw")}
+        r.update(bound_ms=1e3 * terms["bound_s"],
+                 dominant=terms["dominant"],
+                 busy_bound_ms=1e3 * b_terms["bound_s"], **m,
+                 share_of_wall=share, share_of_busy=busy_share,
+                 predicted_peak=predicted, measured_peak=m["peak"],
+                 peak_ratio=ratio)
+        rows.append(r)
+        at = ("" if c["busy_S"] == c["S"]
+              else f", counted again at S={c['busy_S']}: "
+              f"{r['busy_bound_ms']:.4f} ms")
+        busy_txt = ("busy not measured" if busy_share is None else
+                    f"{busy_share:.4f} of the profiled busy "
+                    f"{m['busy_ms']:.3f} ms{at}")
+        peak_txt = ("" if ratio is None else
+                    f"; predicted peak {predicted / 2 ** 30:.3f} GiB "
+                    f"(arguments {c['argument_bytes'] / 2 ** 30:.3f} + temp "
+                    f"{c['temp_bytes'] / 2 ** 30:.3f}) vs measured "
+                    f"{m['peak'] / 2 ** 30:.3f} GiB ({ratio:.3f}x)")
+        log(f"[roofline] {c['label']}, B={c['B']} S={c['S']}: "
+            f"{c['flops']:.6g} FLOPs, {c['bytes']:.6g} bytes; bound "
+            f"{r['bound_ms']:.4f} ms ({terms['dominant']}, {c['hw']}); "
+            f"share {share:.4f} of the warm {m['wall_s']:.4f} s, "
+            f"{busy_txt}{peak_txt}")
+        for name, val in (("wall", share), ("busy", busy_share)):
+            check(val is None or val <= ROOFLINE_SHARE_MAX,
+                  f"[roofline] {c['label']}: the bound is {val:.4f} of "
+                  f"the {name} time, over {ROOFLINE_SHARE_MAX}: the count "
+                  f"is wrong")
+        check(ratio is None or 1 / ROOFLINE_PEAK_RATIO <= ratio
+              <= ROOFLINE_PEAK_RATIO, f"[roofline] {c['label']}: "
+              f"predicted peak {predicted} bytes vs measured {m['peak']}")
+    secs = time.perf_counter() - t_phase
+    os.makedirs(os.path.dirname(ROOFLINE_OUT), exist_ok=True)
+    with open(ROOFLINE_OUT, "w") as f:
+        json.dump(rows, f, indent=1)
+    log(f"[roofline] {len(rows)} steps held to their bounds in {secs:.3f} "
+        f"s (limit {ROOFLINE_SECONDS} s); rows in {ROOFLINE_OUT}")
+    check(secs <= ROOFLINE_SECONDS, f"[roofline] took {secs:.3f} s")
+    return rows
 
 
 def main() -> int:
@@ -3395,6 +3616,7 @@ def main() -> int:
     t0 = time.perf_counter()
     plat, insts, grid = build_matrix()
     log(f"[matrix] built in {time.perf_counter() - t0:.3f} s")
+    roofline_counts = roofline_count(roofline_plan())   # while [cpu] runs
     cpu_run = wait_cpu(cpu_job)
     gain_rows = phase_kernels(dev)
     deficit_rows = phase_deficit(dev)
@@ -3414,6 +3636,8 @@ def main() -> int:
     train_run = phase_train(dev)
     families_run = phase_families(dev)
     train_families_run = phase_train_families(dev)
+    phase_roofline(roofline_counts, roofline_readings(
+        model_run, train_run, families_run, train_families_run))
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)

@@ -1,9 +1,10 @@
-"""Model registry: build models, count their parameters and FLOPs (the
-counterparts of ``repro.models.model_zoo``'s ``build_model``,
-``param_count``, ``active_param_count`` and ``model_flops``; its dry-run
-``input_specs`` belongs to the multi-device slice)."""
+"""Model registry: build models, count their parameters and FLOPs, make
+dry-run inputs (the counterparts of ``repro.models.model_zoo``'s
+``build_model``, ``param_count``, ``active_param_count``, ``model_flops``
+and ``input_specs``)."""
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.models.transformer import DecoderModel
@@ -60,3 +61,38 @@ def model_flops(cfg, params, shape) -> float:
     if shape.kind == "prefill":
         return 2.0 * n_active * shape.batch * shape.seq
     return 2.0 * n_active * shape.batch
+
+
+def input_specs(cfg, shape, model=None) -> dict:
+    """Stand-ins for every model input on the meta device (no memory): the
+    reference's ``ShapeDtypeStruct`` tree as meta tensors of the same
+    shapes and dtypes. Train and prefill: the family's batch (VLM: bf16
+    ``embeds`` [B,S,d] and int32 M-RoPE ``positions`` [3,B,S]; audio: bf16
+    ``enc_embeds`` [B,S,d] and int32 ``dec_tokens``; the others int32
+    ``tokens``; all int32 ``labels`` [B,S]). Decode: int32 ``tokens`` [B]
+    and ``model.init_cache(B, S)`` (audio: ``enc_len=S``) of a ``model``
+    built on the meta device; its ``len`` is the port's host int."""
+    B, S = shape.batch, shape.seq
+
+    def st(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            return {"embeds": st((B, S, cfg.d_model), bf16),
+                    "positions": st((3, B, S), i32),
+                    "labels": st((B, S), i32)}
+        if cfg.family == "audio":
+            return {"enc_embeds": st((B, S, cfg.d_model), bf16),
+                    "dec_tokens": st((B, S), i32),
+                    "labels": st((B, S), i32)}
+        return {"tokens": st((B, S), i32), "labels": st((B, S), i32)}
+    if model is None or model.device.type != "meta":
+        raise ValueError("a decode shape's inputs need the model, built on "
+                         "the meta device, for its cache")
+    if cfg.family == "audio":
+        cache = model.init_cache(B, S, enc_len=S)
+    else:
+        cache = model.init_cache(B, S)
+    return {"tokens": st((B,), i32), "cache": cache}

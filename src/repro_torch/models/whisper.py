@@ -106,14 +106,16 @@ class EncDecModel(ParamTree):
         output: two [Ld, B, Se, H, hd] tensors."""
         cfg = self.cfg
         dt = enc_out.dtype
-        xa = params["dec"]["xattn"]
+        xa = unbind_layers({k: v for k, v in params["dec"]["xattn"].items()
+                            if k in ("wk", "wv", "bk", "bv")},
+                           cfg.num_layers)
         ks, vs = [], []
-        for l in range(cfg.num_layers):
-            k = L._proj(enc_out, xa["wk"][l].to(dt))
-            v = L._proj(enc_out, xa["wv"][l].to(dt))
+        for p in xa:
+            k = L._proj(enc_out, p["wk"].to(dt))
+            v = L._proj(enc_out, p["wv"].to(dt))
             if cfg.qkv_bias:
-                k = k + xa["bk"][l].to(dt)
-                v = v + xa["bv"][l].to(dt)
+                k = k + p["bk"].to(dt)
+                v = v + p["bv"].to(dt)
             ks.append(k)
             vs.append(v)
         return torch.stack(ks), torch.stack(vs)
@@ -150,8 +152,11 @@ class EncDecModel(ParamTree):
         dec, Ld = params["dec"], cfg.num_layers
         norms = [dec[k].unbind(0) for k in ("ln1", "ln2", "ln3")]
         blocks = [unbind_layers(dec[k], Ld) for k in ("attn", "xattn", "mlp")]
+        # per layer by unbind: the backward stacks the layers' gradients
+        # once (indexing would sum a zero-padded full-size one a layer)
+        xks, xvs = xk.unbind(0), xv.unbind(0)
         for l in range(Ld):
-            x = self._run(self._dec_block, remat, x, xk[l], xv[l],
+            x = self._run(self._dec_block, remat, x, xks[l], xvs[l],
                           *(n[l] for n in norms), *(b[l] for b in blocks))
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
