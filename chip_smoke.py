@@ -90,16 +90,19 @@ reference package ``repro``. Phases, each fatal on failure:
    the CPU, their attempts logs and plans equal; (d) ``CarbonGate`` plans,
    nominal and with an ensemble, card == CPU bitwise;
 13. the flash-attention kernels (bf16: ``wgmma`` on the tensor cores; f32:
-   the CUDA cores) against their plain version on the card at the
+   ``mma.sync`` TF32 on the tensor cores, every product split into three)
+   against their plain version on the card at the
    reference sweep's five shapes and the bf16 twins of its four f32 shapes,
    at the model's shape (B=4, S=2048, H=16, hd=64, causal) in bf16 and f32,
    and on strided views; at the model's shape, and in bf16 at hd=128 (B=4,
    S=2048, H=8), the kernel's, the plain version's and PyTorch's
-   ``scaled_dot_product_attention``'s times (in the section ``[flash]``);
+   ``scaled_dot_product_attention``'s times (in the section ``[flash]``;
+   each kernel profiled by its own name, f32 bounds at a third of the TF32
+   tensor-core rate beside the CUDA cores' f32 rate);
    then the row LSE of both forward kernels and the three backward stages
    (``flash_bwd_dot``, then bf16: ``flash_bwd_dkdv_wgmma`` and
-   ``flash_bwd_dq_wgmma`` on the tensor cores; f32: ``flash_bwd_dkdv`` and
-   ``flash_bwd_dq`` on the CUDA cores) against the plain versions at the
+   ``flash_bwd_dq_wgmma`` on the tensor cores; f32: ``flash_bwd_dkdv_tf32``
+   and ``flash_bwd_dq_tf32``, split TF32) against the plain versions at the
    same shapes and the training cell's (B=8, S=256, H=16, hd=64, bf16), on
    strided views and output gradients and through the autograd Function,
    each backward bitwise equal to a second one, with the backward's times
@@ -182,9 +185,15 @@ Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18) is driven with the
 kernels' launch counts set to 0 just before it and read just after; a
 kernel the path runs that was never launched fails the run. f32 matrix
 products on the card run in full f32: TF32 is switched off for matmuls
-and cuDNN before any phase. The line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero before either is printed.
+and cuDNN before any phase (the f32 flash kernels' split TF32 is their
+own arithmetic and reads no such flag). The line before the last is a
+JSON object with one entry per kernel, the f32 flash forward and backward
+apart from the bf16 ones: the bf16 kernels' launches are their main
+paths', the f32 kernels' those of the f32 checks beside them
+(``[model]``'s and ``[families]``' f32 gates, ``[serve]``'s forward ==
+decode check, the first steps' f32 kernel passes), each under its own
+key; the last line is ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero before either is printed.
 """
 from __future__ import annotations
 
@@ -231,6 +240,9 @@ FLASH_SWEEP = [              # tests/test_kernels.py's flash sweep
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the sweep's tolerances
 FLASH_BF16_TWINS = [c[:5] + ("bfloat16",) for c in FLASH_SWEEP
                     if c[5] == "float32"]
+# the forward kernel each input type launches (the name the profiler shows)
+FWD_KERNEL_NAMES = {"bfloat16": "flash_fwd_kernel_wgmma",
+                    "float32": "flash_fwd_kernel_tf32"}
 # timed shapes (B, S, H, hd, dtype): the model's in bf16 and f32, and bf16
 # at hd=128
 FLASH_TIMED = {"bfloat16": (MODEL_B, MODEL_S, 16, 64, "bfloat16"),
@@ -372,6 +384,21 @@ def h100_rates() -> tuple[float, float, float]:
     from repro_torch.roofline.analysis import H100, H100_F32
 
     return H100.hbm_bw, H100_F32.peak_flops, H100.peak_flops
+
+
+def flash_rate(dtype, f32_on="tensor_cores") -> float:
+    """The FLOP/s an attention product of ``dtype`` is bounded by: bf16 at
+    the tensor cores' bf16 peak; f32 as the f32 kernels run it, three TF32
+    products on the tensor cores (a third of
+    ``roofline.analysis.H100_TF32``'s rate: the least time of f32-accurate
+    products on this card), or with ``f32_on="cuda_cores"`` at the f32 peak
+    outside the tensor cores."""
+    from repro_torch.roofline.analysis import H100_TF32
+
+    _, f32, bf16 = h100_rates()
+    if dtype == "bfloat16":
+        return bf16
+    return H100_TF32.peak_flops / 3 if f32_on == "tensor_cores" else f32
 
 
 def step_peak(fn, dev, resident: int = 0):
@@ -2106,33 +2133,33 @@ def phase_service(plat, insts, grid, cold, cold_s):
             "cancel": cancels}
 
 
-def flash_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
+def flash_bound_ms(B, S, H, hd, causal, dtype,
+                   f32_on="tensor_cores") -> tuple[float, str]:
     """Least time for one attention pass: q, k, v read once and the output
     written once, against the flops of QK^T and PV over the keys each query
-    sees (the lower triangle when causal), at the card's peak for the input
-    type (bf16: the tensor cores; f32: the CUDA cores, since TF32 is not
-    f32)."""
+    sees (the lower triangle when causal), at :func:`flash_rate`."""
     esize = 2 if dtype == "bfloat16" else 4
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * B * H * hd * pairs
-    hbm, f32, bf16 = h100_rates()
-    rate = bf16 if dtype == "bfloat16" else f32
+    hbm = h100_rates()[0]
+    rate = flash_rate(dtype, f32_on)
     t_bytes = 4 * B * S * H * hd * esize / hbm
     t_ops = flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def flash_bwd_bound_ms(B, S, H, hd, causal, dtype) -> tuple[float, str]:
+def flash_bwd_bound_ms(B, S, H, hd, causal, dtype,
+                       f32_on="tensor_cores") -> tuple[float, str]:
     """Least time for one attention backward: q, k, v, o, dO read once,
     the row LSE read once, dq, dk, dv written once, against the flops of
     its five products (QK^T, dO V^T, P^T dO, dS^T Q, dS K) over the pairs
-    each query sees, at the card's peak for the input type."""
+    each query sees, at :func:`flash_rate`."""
     esize = 2 if dtype == "bfloat16" else 4
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 5 * 2 * B * H * hd * pairs
-    hbm, f32, bf16 = h100_rates()
-    rate = bf16 if dtype == "bfloat16" else f32
+    hbm = h100_rates()[0]
+    rate = flash_rate(dtype, f32_on)
     t_bytes = (8 * B * S * H * hd * esize + 4 * B * H * S) / hbm
     t_ops = flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -2180,7 +2207,7 @@ def flash_row(dev, B, S, H, hd, causal, dt) -> dict:
     reps = 50
     event_ms = cuda_ms(kernel, reps=reps)
     replay_ms = graph_ms(kernel, reps=reps)
-    device_ms = profiled_ms(kernel, reps, "flash_fwd_kernel", PROFILE_OUT)
+    device_ms = profiled_ms(kernel, reps, FWD_KERNEL_NAMES[dt], PROFILE_OUT)
     plain_ms = cuda_ms(lambda: fa.flash_attention(
         q, k, v, causal=causal, mode="plain"), reps=5, warm=2)
     # yardstick, not used by the port: PyTorch's fused attention on the
@@ -2197,18 +2224,25 @@ def flash_row(dev, B, S, H, hd, causal, dt) -> dict:
     bound, by = flash_bound_ms(B, S, H, hd, causal, dt)
     ms, ms_from = ((device_ms, "profiler") if device_ms is not None
                    else (replay_ms, "graph"))
-    log(f"[flash] {shape}: kernel {ms:.4f} ms ({ms_from}; profiler "
-        f"{device_ms}, graph replay {replay_ms:.4f}, eager events "
+    row = {"shape": shape, "kernel": FWD_KERNEL_NAMES[dt],
+           "max_abs_err": max_err, "ms": ms, "ms_from": ms_from,
+           "profiler_ms": device_ms, "graph_ms": replay_ms,
+           "event_ms": event_ms, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+           "bound_ms": bound, "bound_by": by}
+    cores = ""
+    if dt == "float32":
+        row["cuda_core_bound_ms"], _ = flash_bound_ms(
+            B, S, H, hd, causal, dt, f32_on="cuda_cores")
+        cores = (f"; on the CUDA cores {row['cuda_core_bound_ms']:.4f} ms, "
+                 f"{100 * row['cuda_core_bound_ms'] / ms:.2f}%")
+    log(f"[flash] {shape}: {FWD_KERNEL_NAMES[dt]} {ms:.4f} ms ({ms_from}; "
+        f"profiler {device_ms}, graph replay {replay_ms:.4f}, eager events "
         f"{event_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {sdpa_ms:.4f} ms (max |sdpa - "
         f"kernel| {sdpa_diff:.3g}), bound {bound:.4f} ms ({by}), "
-        f"{100 * bound / ms:.2f}% of bound, {ms / sdpa_ms:.2f}x the PyTorch "
-        f"call")
-    return {"shape": shape, "max_abs_err": max_err, "ms": ms,
-            "ms_from": ms_from, "profiler_ms": device_ms,
-            "graph_ms": replay_ms, "event_ms": event_ms,
-            "plain_ms": plain_ms, "library_ms": sdpa_ms, "bound_ms": bound,
-            "bound_by": by}
+        f"{100 * bound / ms:.2f}% of bound{cores}, {ms / sdpa_ms:.2f}x the "
+        f"PyTorch call")
+    return row
 
 
 def phase_flash(dev):
@@ -2309,8 +2343,8 @@ def check_bwd(label, q, k, v, causal, do=None):
 def phase_flash_bwd(dev):
     """[flash], backward: the LSE of both forward kernels and the three
     backward stages (bf16: ``flash_bwd_dot``, ``flash_bwd_dkdv_wgmma``,
-    ``flash_bwd_dq_wgmma``; f32: ``flash_bwd_dot``, ``flash_bwd_dkdv``,
-    ``flash_bwd_dq``) against the plain versions at the sweep's shapes,
+    ``flash_bwd_dq_wgmma``; f32: ``flash_bwd_dot``, ``flash_bwd_dkdv_tf32``,
+    ``flash_bwd_dq_tf32``) against the plain versions at the sweep's shapes,
     their bf16 twins, the timed shapes, strided inputs and output gradients
     (transposed: read in place; strided head dim or rows not 16-byte
     aligned: copied), and through the autograd Function; times at the
@@ -2397,10 +2431,19 @@ def phase_flash_bwd(dev):
         out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2).contiguous()
-        sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), reps=reps)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        sdpa_ms = cuda_ms(sdpa_bwd, reps=reps)
+        # its kernels' device time: the events hold the host's gaps too,
+        # where autograd's dispatch outlasts the kernels
+        sdpa_busy = device_breakdown(sdpa_bwd, reps, PROFILE_OUT)["busy_ms"]
         del out, qt, kt, vt
         bound, by = flash_bwd_bound_ms(B, S, H, hd, causal, dt)
+        cores = flash_bwd_bound_ms(B, S, H, hd, causal, dt,
+                                   f32_on="cuda_cores")[0]
         if all(t is not None for t in per_kernel.values()):
             ms, ms_from = sum(per_kernel.values()), "profiler"
         else:
@@ -2411,14 +2454,19 @@ def phase_flash_bwd(dev):
                      "max_abs_err": errs[key][1], "ms": ms,
                      "ms_from": ms_from, "kernel_ms": per_kernel,
                      "event_ms": event_ms, "plain_ms": plain_ms,
-                     "library_ms": sdpa_ms, "bound_ms": bound,
-                     "bound_by": by}
+                     "library_ms": sdpa_ms, "library_busy_ms": sdpa_busy,
+                     "bound_ms": bound, "bound_by": by}
+        if dt == "float32":
+            rows[key]["cuda_core_bound_ms"] = cores
         log(f"[flash] backward {shape}: kernels {ms:.4f} ms ({ms_from}: "
             + ", ".join(f"{n} {t}" for n, t in per_kernel.items())
             + f"; eager events {event_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of bound, "
-            f"{ms / sdpa_ms:.2f}x the PyTorch call")
+            f"scaled_dot_product_attention backward {sdpa_ms:.4f} ms "
+            f"(its kernels' device time {sdpa_busy} ms), bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of bound"
+            + (f"; on the CUDA cores {cores:.4f} ms, "
+               f"{100 * cores / ms:.2f}%" if dt == "float32" else "")
+            + f", {ms / sdpa_ms:.2f}x the PyTorch call")
     return rows
 
 
@@ -2458,7 +2506,7 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
     from repro_torch.models import build_model, param_count
 
     cfg = cfg or ARCHS[ARCH]
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -2482,7 +2530,7 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
         check(fa.LAUNCHES == before, f"{what} launched the flash kernel")
         return out, secs
 
-    fa.LAUNCHES = 0
+    fa.reset_launches()
     loss_cold, cold_s = through_kernel(lambda: float(model.loss(batch)),
                                        "the cold loss")
     (loss_warm, warm_s), loss_peak, prev_peak = step_peak(
@@ -2517,7 +2565,8 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
     h32, apply32_s = through_kernel(lambda: model.apply(batch),
                                     "the f32 forward")
     h32p, _ = plain(lambda: model.apply(batch), "the plain f32 forward")
-    launches = fa.LAUNCHES
+    launches = fa.COUNTS["bfloat16"]["flash_fwd"]
+    f32_launches = fa.COUNTS["float32"]["flash_fwd"]
     del model
 
     err32 = close_err(h32, h32p, F32_MODEL_TOL)
@@ -2542,11 +2591,15 @@ def phase_model(dev, cfg=None, B=MODEL_B, S=MODEL_S):
         f"{max32:.4g} (allclose {F32_MODEL_TOL}), bf16 relative "
         f"{rel16:.4g} (<= {BF16_MODEL_TOL}; max {max16:.4g} on |h| up to "
         f"{float(h32p.abs().max()):.4g}), bf16 to f32 {to_f32:.4g} "
-        f"(plain bf16 {plain_to_f32:.4g}); flash launches {launches} ({L} "
-        f"per forward); peak memory {peak_gb:.2f} GiB (the warm loss "
-        f"{loss_peak / 2 ** 30:.3f} GiB)")
+        f"(plain bf16 {plain_to_f32:.4g}); flash launches bf16 {launches}, "
+        f"the f32 gate {f32_launches} ({L} per forward); peak memory "
+        f"{peak_gb:.2f} GiB (the warm loss {loss_peak / 2 ** 30:.3f} GiB)")
     torch.cuda.empty_cache()
-    return {"launches": launches, "loss": loss_warm, "cold_s": cold_s,
+    secs = time.perf_counter() - t_phase
+    log(f"[model] phase {secs:.3f} s")
+    return {"launches": launches, "f32_launches": f32_launches,
+            "seconds": secs,
+            "loss": loss_warm, "cold_s": cold_s,
             "warm_s": warm_s, "loss_peak": loss_peak, "apply_s": apply_s, "plain_s": plain_s,
             "f32_max_abs_diff": max32, "bf16_rel_err": rel16,
             "forward": fwd, "decode_step": step}
@@ -2567,7 +2620,8 @@ def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
     from repro_torch.models import layers as L
 
     cfg = cfg or ARCHS[ARCH]
-    fa.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    fa.reset_launches()
     out = serve(cfg, requests, slots, max_new, max_len, device=dev)
     serve_launches = fa.LAUNCHES
     reqs = out["requests"]
@@ -2593,11 +2647,12 @@ def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
     B, S = 2, 8
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)}
-    fa.LAUNCHES = 0
+    fa.reset_launches()
     full = L.unembed(model.apply(batch), model.embed)          # [B,S,V]
-    eq_launches = fa.LAUNCHES
-    check(eq_launches == cfg.num_layers, f"the f32 forward launched the "
-          f"flash kernel {eq_launches} times")
+    eq_launches = fa.COUNTS["float32"]["flash_fwd"]
+    check(eq_launches == fa.LAUNCHES == cfg.num_layers, f"the f32 forward "
+          f"launched the f32 flash kernel {eq_launches} times of "
+          f"{fa.LAUNCHES}")
     cache = model.init_cache(B, S + 2)
     dec = []
     for t in range(S):
@@ -2612,8 +2667,11 @@ def phase_serve(dev, cfg=None, requests=16, slots=4, max_new=32,
         f"launches {eq_launches}")
     del model, cache
     torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[serve] the phase {secs:.3f} s")
     return {"steps": out["steps"], "seconds": out["seconds"],
             "launches": serve_launches, "eq_launches": eq_launches,
+            "phase_seconds": secs,
             "decode_diff": diff}
 
 
@@ -2848,8 +2906,8 @@ def family_cell(dev, arch, plain_calls):
     # kernel and plain, on the bf16 kernel forward's routing
     model = build(dataclasses.replace(cfg, dtype="float32"))
     with routing(routes, replay=True):
-        h32, _ = through_kernel(lambda: model.apply(batch),
-                                "the f32 forward")
+        h32, f32_s = through_kernel(lambda: model.apply(batch),
+                                    "the f32 forward")
     with plain_attention(), routing(routes, replay=True):
         h32p = model.apply(batch)
     err32 = close_err(h32, h32p, F32_MODEL_TOL)
@@ -2905,7 +2963,8 @@ def family_cell(dev, arch, plain_calls):
         f"{loss_warm:.6f} (plain {loss_p:.6f}, relative {rel_loss:.3g} <= "
         f"{BF16_MODEL_TOL}; ln V {math.log(cfg.vocab):.6f}); forward to "
         f"hidden states {apply_s:.3f} s through the kernel ({n_attn} "
-        f"launches), {plain_s:.3f} s plain; kernel vs plain: f32 max "
+        f"launches), {plain_s:.3f} s plain (f32 through the kernel: "
+        f"{f32_s:.3f} s); kernel vs plain: f32 max "
         f"{max32:.4g} (allclose {F32_MODEL_TOL}), bf16 relative {rel16:.4g}, "
         f"bf16 to f32 {to_f32:.4g} (plain bf16 {plain_to_f32:.4g}, <= "
         f"{BF16_MODEL_SLACK}x)"
@@ -2933,7 +2992,8 @@ def family_cell(dev, arch, plain_calls):
         f"(e) peak memory {peak_gb:.2f} GiB (the warm loss "
         f"{loss_peak / 2 ** 30:.3f} GiB); the cell {secs:.3f} s")
     return {"params": n_params, "cold_s": cold_s, "warm_s": warm_s,
-            "apply_s": apply_s, "plain_s": plain_s, "bf16_rel_err": rel16,
+            "apply_s": apply_s, "plain_s": plain_s, "f32_apply_s": f32_s,
+            "bf16_rel_err": rel16,
             "f32_max_abs_diff": max32, "bf16_to_f32": to_f32,
             "plain_bf16_to_f32": plain_to_f32, "rel_loss": rel_loss,
             "routed_apart": apart, "forward": fwd, "serve": serving,
@@ -2949,7 +3009,7 @@ def phase_families(dev):
     from repro_torch.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
-    fa.LAUNCHES = 0
+    fa.reset_launches()
     plain_calls = [0]
     cells = {}
     with counting_plain_attention(plain_calls):
@@ -2957,7 +3017,8 @@ def phase_families(dev):
             before = fa.LAUNCHES
             cells[arch] = family_cell(dev, arch, plain_calls)
             cells[arch]["launches"] = fa.LAUNCHES - before
-    launches = fa.LAUNCHES
+    launches = fa.COUNTS["bfloat16"]["flash_fwd"]
+    f32_launches = fa.COUNTS["float32"]["flash_fwd"]
     rows = {key: flash_row(dev, *shape, "bfloat16")
             for key, shape in FLASH_FAMILY_SHAPES.items()}
     secs = time.perf_counter() - t_phase
@@ -2965,9 +3026,10 @@ def phase_families(dev):
         + ", ".join(f"{arch} {cell['launches']} ("
                     f"{flash_per_forward(family_config(arch))} a forward)"
                     for arch, cell in cells.items())
-        + f"; the phase {secs:.3f} s in all")
-    return {"launches": launches, "cells": cells, "flash": rows,
-            "seconds": secs}
+        + f"; bf16 {launches}, the f32 gates {f32_launches}; the phase "
+        f"{secs:.3f} s in all")
+    return {"launches": launches, "f32_launches": f32_launches, "cells": cells,
+            "flash": rows, "seconds": secs}
 
 
 def leaf_pairs(a, b, prefix=""):
@@ -3022,6 +3084,14 @@ def first_step(cfg, dev, B, S, tag):
     moe = cfg.moe is not None
     routes = []
 
+    secs = {}
+    f32_before = dict(fa.COUNTS["float32"])
+
+    def f32_launched():
+        """The f32 kernels' launches since the first step began: those of
+        its f32 kernel pass."""
+        return {k: n - f32_before[k] for k, n in fa.COUNTS["float32"].items()}
+
     def run(dtype, plain=False, record=False):
         model.cfg = dataclasses.replace(cfg, dtype=dtype)
         before = fa.BWD_LAUNCHES["flash_bwd_dq"]
@@ -3030,7 +3100,8 @@ def first_step(cfg, dev, B, S, tag):
                 stack.enter_context(plain_attention())
             if moe:
                 stack.enter_context(routing(routes, replay=not record))
-            loss, grads = loss_and_grads(model, params, batch)
+            (loss, grads), secs[dtype, plain] = timed(
+                lambda: loss_and_grads(model, params, batch))
         launched = fa.BWD_LAUNCHES["flash_bwd_dq"] - before
         check(launched == (0 if plain else n_attn), f"{tag} the {dtype} "
               f"{'plain' if plain else 'kernel'} pass launched the "
@@ -3058,7 +3129,8 @@ def first_step(cfg, dev, B, S, tag):
         loss32, g32 = run("float32")
         del model, params
         dist = {path: rel_err(a, b) for path, a, b in leaf_pairs(g16_k, g32)}
-        out.update(loss16=loss16_k, loss32=loss32, bf16_to_f32=dist)
+        out.update(loss16=loss16_k, loss32=loss32, bf16_to_f32=dist,
+                   f32_launches=f32_launched())
         return out
     loss32_k, g32_k = run("float32")
     loss32_p, g32 = run("float32", plain=True)
@@ -3100,7 +3172,10 @@ def first_step(cfg, dev, B, S, tag):
     worst = max(to32, key=lambda p: to32[p][0] / to32[p][1])
     out.update(loss32_k=loss32_k, loss32_p=loss32_p, loss16_k=loss16_k,
                loss16_p=loss16_p, ratio32=ratio32[worst32], worst32=worst32,
-               to32=to32, worst=worst, zero=zero)
+               to32=to32, worst=worst, zero=zero,
+               f32_kernel_s=secs["float32", False],
+               f32_plain_s=secs["float32", True],
+               f32_launches=f32_launched())
     return out
 
 
@@ -3124,7 +3199,10 @@ def first_step_text(r: dict) -> str:
             f"{max(v[0] for v in to32.values()):.4f}, plain "
             f"{min(v[1] for v in to32.values()):.4f}-"
             f"{max(v[1] for v in to32.values()):.4f}; kernels vs plain bf16 "
-            f"up to {max(v[2] for v in to32.values()):.4f}")
+            f"up to {max(v[2] for v in to32.values()):.4f}; the f32 loss "
+            f"and gradients {r['f32_kernel_s']:.3f} s through the kernels, "
+            f"{r['f32_plain_s']:.3f} s plain; the f32 kernel pass launched "
+            f"{r['f32_launches']}")
     if r["zero"]:
         text += (f"; key biases (f32 kernel, bf16 kernel, bf16 plain "
                  f"gradient norms of the largest leaf's, <= "
@@ -3179,7 +3257,7 @@ def phase_train(dev):
                 carbon_gate=True, ckpt_dir=os.path.join(tmp, "cli"),
                 device=dev, log=lambda m: log(f"[train] {m}"))
     cli_s = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.LAUNCHES, **fa.BWD_LAUNCHES}
+    launches = dict(fa.COUNTS["bfloat16"])
     losses, secs = out["losses"], out["step_seconds"]
     n = len(losses)
     check(out["start"] == 0 and n == TRAIN_STEPS, f"the CLI ran {n} steps "
@@ -3324,9 +3402,10 @@ def phase_train(dev):
     torch.cuda.empty_cache()
     secs_phase = time.perf_counter() - t_phase
     log(f"[train] phase {secs_phase:.3f} s, peak memory {peak_gb:.2f} GiB")
-    return {"launches": launches, "cold_s": cold_s, "warm_s": warm_s,
-            "tokens_per_s": tok_s, "step": step_prof, "a_peak": a_peak,
-            "seconds": secs_phase}
+    return {"launches": launches, "f32_launches": first["f32_launches"],
+            "cold_s": cold_s,
+            "warm_s": warm_s, "tokens_per_s": tok_s, "step": step_prof,
+            "a_peak": a_peak, "seconds": secs_phase}
 
 
 def train_family_cell(dev, arch):
@@ -3365,7 +3444,7 @@ def train_family_cell(dev, arch):
     fa.reset_launches()
     out = train(cfg, steps=steps, batch=B, seq=S, ckpt_dir=None, device=dev,
                 log=lambda m: log(f"{tag} {m}"))
-    launches = {"flash_fwd": fa.LAUNCHES, **fa.BWD_LAUNCHES}
+    launches = dict(fa.COUNTS["bfloat16"])
     losses, gnorms, secs = out["losses"], out["gnorms"], out["step_seconds"]
     check(out["start"] == 0 and len(losses) == steps, f"{tag} ran "
           f"{len(losses)} steps from {out['start']}")
@@ -3410,7 +3489,8 @@ def train_family_cell(dev, arch):
     log(f"{tag} (c) first step, kernels vs plain attention: "
         f"{first_step_text(first)} in {first_s:.3f} s; the cell "
         f"{secs_cell:.3f} s")
-    return {"params": n_params, "launches": launches, "losses": losses,
+    return {"params": n_params, "launches": launches,
+            "f32_launches": first["f32_launches"], "losses": losses,
             "cold_s": cold_s, "warm_s": warm_s, "tokens_per_s": tok_s,
             "step": prof, "profile_s": prof_s, "peak_gib": peak_gb,
             "step_peak": step_peak_b,
@@ -3433,10 +3513,13 @@ def phase_train_families(dev):
                                  for c in cells.values()),
                 **{k: sum(c["launches"][k] for c in cells.values())
                    for k in fa.BWD_KERNELS}}
+    f32_launches = {k: sum(c["f32_launches"][k] for c in cells.values())
+                    for k in launches}
     secs = time.perf_counter() - t_phase
-    log(f"[train-families] flash launches {launches}; the phase "
-        f"{secs:.3f} s in all")
-    return {"launches": launches, "cells": cells, "seconds": secs}
+    log(f"[train-families] flash launches {launches}; the first steps' f32 "
+        f"kernel passes {f32_launches}; the phase {secs:.3f} s in all")
+    return {"launches": launches, "f32_launches": f32_launches,
+            "cells": cells, "seconds": secs}
 
 
 def roofline_plan() -> list[dict]:
@@ -3642,6 +3725,32 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
 
+    # the f32 kernels run in checks beside the main paths, each counted on
+    # its own: [model]'s and [families]' f32 gates, [serve]'s forward ==
+    # decode check, the first steps' f32 kernel passes ([train] (b),
+    # [train-families] (c))
+    f32_fwd = {"model_f32_gate": model_run["f32_launches"],
+               "serve_forward_vs_decode": serve_run["eq_launches"],
+               "families_f32_gate": families_run["f32_launches"],
+               "train_first_step": train_run["f32_launches"]["flash_fwd"],
+               "train_families_first_step":
+                   train_families_run["f32_launches"]["flash_fwd"]}
+    f32_bwd = {"train_first_step": train_run["f32_launches"],
+               "train_families_first_step":
+                   train_families_run["f32_launches"]}
+    check(all(n > 0 for n in f32_fwd.values()),
+          f"an f32 check launched no f32 flash forward: {f32_fwd}")
+    check(all(c[k] > 0 for c in f32_bwd.values() for k in bwd_kernels),
+          f"an f32 first step launched an f32 flash backward stage no "
+          f"time: {f32_bwd}")
+    bwd_note = ("no TPU kernel: the reference differentiates its plain "
+                "chunked attention through XLA "
+                "(src/repro/models/layers.py:112); the port's attention "
+                "runs through the forward kernel, whose gradient these "
+                "kernels compute")
+    bwd_library = ("torch.autograd.grad of "
+                   "torch.nn.functional.scaled_dot_product_attention")
+
     main_mu = gain_rows[0]
     plan_row, large_row = deficit_rows
     kernels = {"kernels": [{
@@ -3700,14 +3809,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
+        "kernel": FWD_KERNEL_NAMES["bfloat16"],
         "launches": model_run["launches"] + serve_run["launches"]
-        + serve_run["eq_launches"] + train_run["launches"]["flash_fwd"]
-        + families_run["launches"]
+        + train_run["launches"]["flash_fwd"] + families_run["launches"]
         + train_families_run["launches"]["flash_fwd"],
         "launches_by_path": {
             "model": model_run["launches"],
             "serve": serve_run["launches"],
-            "forward_vs_decode": serve_run["eq_launches"],
             "train": train_run["launches"]["flash_fwd"],
             "families": families_run["launches"],
             "train_families": train_families_run["launches"]["flash_fwd"]},
@@ -3715,21 +3823,28 @@ def main() -> int:
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
-        "float32": flash_rows["float32"],
         "bfloat16_hd128": flash_rows["bfloat16_hd128"],
         "families_shapes": families_run["flash"],
+    }, {
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "kernel": FWD_KERNEL_NAMES["float32"],
+        "launches": sum(f32_fwd.values()),
+        "launches_by_path": f32_fwd,
+        **{k: flash_rows["float32"][k] for k in (
+            "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
+            "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
+            "library_ms", "shape")},
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": None,
-        "note": "no TPU kernel: the reference differentiates its plain "
-                "chunked attention through XLA "
-                "(src/repro/models/layers.py:112); the port's attention "
-                "runs through the forward kernel, whose gradient these "
-                "kernels compute",
+        "note": bwd_note,
         "kernels": list(bwd_names[torch.bfloat16]),
-        "kernels_float32": list(bwd_names[torch.float32]),
         "launches": sum(run["launches"][k] for k in bwd_kernels
                         for run in (train_run, train_families_run)),
         "launches_by_kernel": {
@@ -3742,14 +3857,31 @@ def main() -> int:
                                   for k in bwd_kernels)},
         **{k: bwd_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-        "library_call": "torch.autograd.grad of "
-                        "torch.nn.functional.scaled_dot_product_attention",
-        "float32": bwd_rows["float32"],
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_busy_ms", "shape")},
+        "library_call": bwd_library,
         "bfloat16_hd128": bwd_rows["bfloat16_hd128"],
         "bfloat16_train": bwd_rows["bfloat16_train"],
         "whisper_encoder": bwd_rows["whisper_encoder"],
         "whisper_decoder": bwd_rows["whisper_decoder"],
+    }, {
+        "name": "flash_attention_bwd_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": None,
+        "note": bwd_note,
+        "kernels": list(bwd_names[torch.float32]),
+        "launches": sum(c[k] for c in f32_bwd.values() for k in bwd_kernels),
+        "launches_by_kernel": {
+            name: sum(c[k] for c in f32_bwd.values())
+            for k, name in zip(bwd_kernels, bwd_names[torch.float32])},
+        "launches_by_path": {path: sum(c[k] for k in bwd_kernels)
+                             for path, c in f32_bwd.items()},
+        **{k: bwd_rows["float32"][k] for k in (
+            "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
+            "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
+            "library_ms", "library_busy_ms", "shape")},
+        "library_call": bwd_library,
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

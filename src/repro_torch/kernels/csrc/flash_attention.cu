@@ -11,18 +11,22 @@
 // f32) applied after the dot, the running max starting at -1e30, f32
 // running max, sum and output accumulator, masked scores contributing an
 // explicit 0, and the result acc / max(l, 1e-30) rounded once to the input
-// type. hd is 64 or 128. Two kernels compute it, one per input type:
+// type. hd is 64 or 128. Two kernels compute it, one per input type, both
+// on the tensor cores:
 //
-// * bf16: flash_fwd_kernel_wgmma, on the tensor cores.
-// * f32: flash_fwd_kernel, on the CUDA cores (TF32 would keep about three
-//   decimal digits and break the 2e-5 f32 tolerance).
+// * bf16: flash_fwd_kernel_wgmma (wgmma, bf16 operands).
+// * f32: flash_fwd_kernel_tf32 (mma.sync TF32, every product split into
+//   three; see "f32: three-term split TF32" below).
 //
 // Bound on this card: operations. A causal pass does about 2 B H S^2 hd
 // flops (QK^T and PV over the lower triangle): 34.4 GFLOP at B = 4, S =
 // 2048, H = 16, hd = 64, some 0.035 ms at the bf16 tensor-core peak (989
 // TFLOP/s), while it must move only 4 B S H hd * 2 bytes (67 MB, 0.020 ms at
-// 3.35 TB/s). In f32 the same flops take 0.51 ms at the CUDA cores' 67
-// TFLOP/s.
+// 3.35 TB/s). In f32 (134 MB, 0.040 ms) one TF32 product keeps about three
+// decimal digits, which breaks the 2e-5 f32 gate; three of them on split
+// operands keep f32's accuracy, so f32-accurate products run at a third of
+// the TF32 peak (494.7 / 3 = 165 TFLOP/s): 0.208 ms, against 0.51 ms at the
+// CUDA cores' 67 TFLOP/s.
 //
 // The bf16 kernel is the Hopper flash form. One CTA per (128-query tile,
 // b·h) of three warpgroups: two consumers own 64 query rows each, and one
@@ -60,18 +64,6 @@
 // (src/repro/models/layers.py:134, softmax(...).astype(v.dtype)); the sum l
 // stays the f32 sum of the unrounded P. The kernel stays within the
 // reference sweep's 2e-2 bf16 tolerance of the f32 definition.
-//
-// The f32 kernel is the simple form: one CTA per (64-query tile, b·h) walks
-// its key tiles; each thread owns one query row's kDT = 64 head dims (hd =
-// 128 takes two threads per row, which combine their partial dots with one
-// shuffle), with its q slice and output accumulator in registers. K and V
-// tiles of 64 rows are staged through shared memory as f32 (padded rows, so
-// two threads of one query row read different banks), every thread reads
-// each staged row as a broadcast, and the online-softmax update runs once
-// per kChunk = 8 keys. It reads [B, S, H, hd] through its strides,
-// zero-fills and masks keys at the ragged S edge, stops each warp at the
-// last key any of its rows can see when causal, and launches the longest
-// query tiles first. Issue slots, not bytes, set its time.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -80,215 +72,11 @@
 
 namespace {
 
-constexpr int kBQ = 64;       // queries per CTA
-constexpr int kBK = 64;       // keys per shared-memory tile
-constexpr int kDT = 64;       // head dims per thread
-constexpr int kChunk = 8;     // keys per online-softmax update
 constexpr float kNeg = -1e30f;
 
 struct Strides {              // element strides of the b, s and h axes
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {           // 16 bytes = 4 f32
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  }
-  __device__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-
-template <int HD>
-constexpr int smem_bytes() {  // K and V tiles, f32, rows padded by 4
-  return 2 * kBK * (HD + 4) * (int)sizeof(float);
-}
-
-template <typename T, int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kBQ * (HD / kDT)) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-    int S, int H, Strides st, float scale) {
-  constexpr int kTPR = HD / kDT;         // threads per query row
-  constexpr int kThreads = kBQ * kTPR;
-  constexpr int kLD = HD + 4;            // shared row stride, in floats
-  constexpr int kVN = Vec<T>::kN;
-  constexpr int kPerRow = HD / kVN;      // 16-byte vectors per key row
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBK * kLD;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // longest tiles first
-  const int row = threadIdx.x / kTPR;
-  const int part = threadIdx.x % kTPR;
-  const int qpos = q0 + row;
-  const bool live = qpos < S;
-  // the last query row any lane of this warp holds: keys past it are
-  // masked for the whole warp
-  const int warp_last = q0 + ((threadIdx.x | 31) / kTPR);
-
-  float qr[kDT];
-  {
-    const T* src = q + b * st.qb + (long long)min(qpos, S - 1) * st.qs +
-                   h * st.qh + part * kDT;
-#pragma unroll
-    for (int i = 0; i < kDT; i += kVN) Vec<T>::load(src + i, qr + i);
-  }
-  float acc[kDT];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i) acc[i] = 0.0f;
-  float m = kNeg;
-  float l = 0.0f;
-
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int n_tiles = CAUSAL ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                     // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBK * kPerRow; idx += kThreads) {
-      const int r = idx / kPerRow;
-      const int c = (idx % kPerRow) * kVN;
-      const int key = k0 + r;
-      float kb[kVN], vb[kVN];
-      if (key < S) {
-        Vec<T>::load(k + b * st.kb + (long long)key * st.ks + h * st.kh + c,
-                     kb);
-        Vec<T>::load(v + b * st.vb + (long long)key * st.vs + h * st.vh + c,
-                     vb);
-      } else {                           // ragged S edge: zero rows
-#pragma unroll
-        for (int i = 0; i < kVN; ++i) kb[i] = vb[i] = 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kVN; i += 4) {
-        *reinterpret_cast<float4*>(ks + r * kLD + c + i) =
-            make_float4(kb[i], kb[i + 1], kb[i + 2], kb[i + 3]);
-        *reinterpret_cast<float4*>(vs + r * kLD + c + i) =
-            make_float4(vb[i], vb[i + 1], vb[i + 2], vb[i + 3]);
-      }
-    }
-    __syncthreads();
-
-    const int n_keys = min(kBK, S - k0);
-    for (int j0 = 0; j0 < n_keys; j0 += kChunk) {
-      if (CAUSAL && k0 + j0 > warp_last) break;       // warp-uniform
-      float s[kChunk];
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float* kr = ks + (j0 + c) * kLD + part * kDT;
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kDT; i += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + i);
-          dot = fmaf(qr[i], kv.x, dot);
-          dot = fmaf(qr[i + 1], kv.y, dot);
-          dot = fmaf(qr[i + 2], kv.z, dot);
-          dot = fmaf(qr[i + 3], kv.w, dot);
-        }
-        s[c] = dot;
-      }
-#pragma unroll
-      for (int off = 1; off < kTPR; off <<= 1) {
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
-      }
-      unsigned valid = 0;
-      float cmax = kNeg;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int key = k0 + j0 + c;
-        const bool ok = key < S && (!CAUSAL || key <= qpos);
-        s[c] = ok ? s[c] * scale : kNeg;
-        valid |= (ok ? 1u : 0u) << c;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        s[c] = ((valid >> c) & 1u) ? expf(s[c] - m_new) : 0.0f;
-        psum += s[c];
-      }
-      l = l * corr + psum;
-#pragma unroll
-      for (int i = 0; i < kDT; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float* vr = vs + (j0 + c) * kLD + part * kDT;
-#pragma unroll
-        for (int i = 0; i < kDT; i += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + i);
-          acc[i] = fmaf(s[c], vv.x, acc[i]);
-          acc[i + 1] = fmaf(s[c], vv.y, acc[i + 1]);
-          acc[i + 2] = fmaf(s[c], vv.z, acc[i + 2]);
-          acc[i + 3] = fmaf(s[c], vv.w, acc[i + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (live) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* dst = o + b * st.ob + (long long)qpos * st.os + h * st.oh + part * kDT;
-#pragma unroll
-    for (int i = 0; i < kDT; i += kVN) {
-      float buf[kVN];
-#pragma unroll
-      for (int j = 0; j < kVN; ++j) buf[j] = acc[i + j] / denom;
-      Vec<T>::store(dst + i, buf);
-    }
-    // the row's log-sum-exp of the scaled scores; m is in natural units
-    if (lse != nullptr && part == 0)
-      lse[((long long)b * H + h) * S + qpos] = m + logf(l);
-  }
-}
-
-template <typename T, int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, const Strides& st, float scale,
-           cudaStream_t stream) {
-  constexpr int kThreads = kBQ * (HD / kDT);
-  constexpr int kSmem = smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<T, HD, CAUSAL>;
-  // dynamic shared memory above 48 KB is opted into once per device
-  static unsigned long long attr_set = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!((attr_set >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr_set |= 1ull << dev;
-  }
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, st, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int HD>
-int launch_causal(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int S, int H, int causal,
-                  const Strides& st, float scale, cudaStream_t stream) {
-  return causal ? launch<T, HD, true>(q, k, v, o, lse, B, S, H, st, scale,
-                                      stream)
-                : launch<T, HD, false>(q, k, v, o, lse, B, S, H, st, scale,
-                                       stream);
-}
 
 // ---- bf16: wgmma products fed by a TMA ring ----------------------------
 
@@ -922,7 +710,8 @@ int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
 //
 // Bound on this card: operations, the five products QK^T, g V^T, P^T g,
 // dS^T q and dS k over the visible (q, k) pairs (0.087 ms in bf16 at B = 4,
-// S = 2048, H = 16, hd = 64, causal, at 989 TFLOP/s; 1.28 ms at the f32
+// S = 2048, H = 16, hd = 64, causal, at 989 TFLOP/s; in f32 0.521 ms as
+// three TF32 products each at 494.7 TFLOP/s, 1.28 ms at the CUDA cores' f32
 // rate). Two kernels each pass, one per input type:
 //
 // * bf16: flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma, on the tensor
@@ -951,26 +740,19 @@ int launch_wgmma_causal(const void* q, const void* k, const void* v, void* o,
 //   slower on the H100. A persistent grid is the next step. P and dS round
 //   to bf16 before their products (f32 accumulation), as the forward rounds
 //   P before PV.
-// * f32: flash_bwd_dkdv and flash_bwd_dq on the CUDA cores (TF32 would
-//   break the 1e-4 f32 gate): every product in f32, tiles staged as f32
-//   rows padded to HD + 1 floats, so a warp's 16 row reads of one column
-//   fall in 16 banks. Each of 256 threads owns a 4 x 4 block of a 64 x 64
-//   score tile (rows ty + 16 r, columns tx + 16 c) and a 4 x HD/16 block of
-//   the gradient tile.
+// * f32: flash_bwd_dkdv_tf32 and flash_bwd_dq_tf32, every product as
+//   three TF32 products on the tensor cores (mma.sync), built as the f32
+//   forward is (see "f32: three-term split TF32" below). dK/dV pass: a CTA
+//   holds 128 keys at hd 64 (64 at hd 128) and walks query tiles of 16; dQ
+//   pass: a CTA holds 128 queries at hd 64 (64 at hd 128) and walks key
+//   tiles of 16. P and dS feed dV, dK and dQ from registers, unrounded:
+//   each is split into three products as every other operand is.
 
-constexpr int kBwdB = 64;          // queries, and keys, per tile (f32)
-constexpr int kBwdThreads = 256;   // 16 x 16
 constexpr int kDotWarps = 8;       // warps per CTA of flash_bwd_dot
-constexpr int kLDP = kBwdB + 1;    // shared row stride of a score tile
 
 struct BwdStrides {   // element strides of the b, s and h axes of q, k, v, g
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, gb, gs, gh;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // the dot of 16 bytes of a and of b, in f32
 __device__ __forceinline__ float dot16(const float* a, const float* b) {
@@ -1028,252 +810,6 @@ __global__ void __launch_bounds__(32 * kDotWarps) flash_bwd_dot(
   if (lse2 != nullptr)
     lse2[row] = i < S ? lse[bh * S + i] * 1.4426950408889634f
                       : __int_as_float(0x7f800000);   // +inf
-}
-
-// rows [r0, r0 + kBwdB) of one (b, h) slice (src points at row 0 of it; ss
-// is the row stride) into a shared f32 tile of row stride HD + 1, rows past
-// S as zeros
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int r0, int S) {
-  for (int idx = threadIdx.x; idx < kBwdB * HD; idx += kBwdThreads) {
-    const int r = idx / HD;
-    const int d = idx % HD;
-    const int s = r0 + r;
-    dst[r * (HD + 1) + d] = s < S ? src[(long long)s * ss + d] : 0.0f;
-  }
-}
-
-// lse and D of rows [r0, r0 + kBwdB) into shared memory (0 past S)
-__device__ __forceinline__ void load_rows(float* lse_s, float* d_s,
-                                          const float* lse, const float* dsum,
-                                          int r0, int S) {
-  for (int r = threadIdx.x; r < kBwdB; r += kBwdThreads) {
-    const bool ok = r0 + r < S;
-    lse_s[r] = ok ? lse[r0 + r] : 0.0f;
-    d_s[r] = ok ? dsum[r0 + r] : 0.0f;
-  }
-}
-
-// c[r][c] = a[ty + 16 r] . b[tx + 16 c] over HD: rows of two [kBwdB][HD]
-// tiles (row stride HD + 1)
-template <int HD>
-__device__ __forceinline__ void tile_abt(float (&c)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-  constexpr int kLD = HD + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[r][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a[(ty + 16 * r) * kLD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kLD + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[r][j] = fmaf(av[r], bv[j], c[r][j]);
-  }
-}
-
-// c[r][j] += sum_i p[i][ty + 16 r] b[i][tx + 16 j]: the columns of a
-// [kBwdB][kBwdB] score tile (row stride kLDP) against a [kBwdB][HD] tile
-template <int HD>
-__device__ __forceinline__ void tile_atb(float (&c)[4][HD / 16],
-                                         const float* p, const float* b,
-                                         int ty, int tx) {
-  constexpr int kLD = HD + 1;
-#pragma unroll 4
-  for (int i = 0; i < kBwdB; ++i) {
-    float pv[4], bv[HD / 16];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pv[r] = p[i * kLDP + ty + 16 * r];
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) bv[j] = b[i * kLD + tx + 16 * j];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) c[r][j] = fmaf(pv[r], bv[j], c[r][j]);
-  }
-}
-
-// c[r][j] += sum_k p[ty + 16 r][k] b[k][tx + 16 j]: the rows of a score
-// tile against a [kBwdB][HD] tile
-template <int HD>
-__device__ __forceinline__ void tile_ab(float (&c)[4][HD / 16],
-                                        const float* p, const float* b,
-                                        int ty, int tx) {
-  constexpr int kLD = HD + 1;
-#pragma unroll 4
-  for (int k = 0; k < kBwdB; ++k) {
-    float pv[4], bv[HD / 16];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pv[r] = p[(ty + 16 * r) * kLDP + k];
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) bv[j] = b[k * kLD + tx + 16 * j];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) c[r][j] = fmaf(pv[r], bv[j], c[r][j]);
-  }
-}
-
-// P and dS of one (query tile at i0, key tile at k0) pair from the staged
-// q, g, k, v tiles into shared memory (ps may be null: the dq pass needs
-// only dS)
-template <int HD, bool CAUSAL>
-__device__ __forceinline__ void scores(float* ps, float* dss, const float* qs,
-                                       const float* gs, const float* ks,
-                                       const float* vs, const float* lse_s,
-                                       const float* d_s, int i0, int k0,
-                                       int S, float scale, int ty, int tx) {
-  float sc[4][4], dp[4][4];
-  tile_abt<HD>(sc, qs, ks, ty, tx);    // q k^T
-  tile_abt<HD>(dp, gs, vs, ty, tx);    // g v^T
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int ri = ty + 16 * r;
-    const int i = i0 + ri;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int cj = tx + 16 * c;
-      const int j = k0 + cj;
-      const bool ok = i < S && j < S && (!CAUSAL || j <= i);
-      const float p = ok ? expf(fmaf(sc[r][c], scale, -lse_s[ri])) : 0.0f;
-      if (ps != nullptr) ps[ri * kLDP + cj] = p;
-      dss[ri * kLDP + cj] = p * (dp[r][c] - d_s[ri]);
-    }
-  }
-}
-
-template <int HD>
-constexpr int bwd_smem_bytes(int score_tiles) {
-  return (4 * kBwdB * (HD + 1) + score_tiles * kBwdB * kLDP + 2 * kBwdB) *
-         (int)sizeof(float);
-}
-
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ dsum,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int H,
-    BwdStrides st, float scale) {
-  constexpr int kTile = kBwdB * (HD + 1);
-  extern __shared__ float4 bwd_smem4[];
-  float* ks = reinterpret_cast<float*>(bwd_smem4);
-  float* vs = ks + kTile;
-  float* qs = vs + kTile;
-  float* gs = qs + kTile;
-  float* ps = gs + kTile;
-  float* dss = ps + kBwdB * kLDP;
-  float* lse_s = dss + kBwdB * kLDP;
-  float* d_s = lse_s + kBwdB;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int kt = blockIdx.y;          // causal: the longest walks first
-  const int k0 = kt * kBwdB;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* gb = g + b * st.gb + h * st.gh;
-  const long long rows = ((long long)b * H + h) * S;
-  load_tile<HD>(ks, k + b * st.kb + h * st.kh, st.ks, k0, S);
-  load_tile<HD>(vs, v + b * st.vb + h * st.vh, st.vs, k0, S);
-
-  float dka[4][HD / 16], dva[4][HD / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dka[r][j] = dva[r][j] = 0.0f;
-
-  const int n_q = (S + kBwdB - 1) / kBwdB;
-  for (int qt = CAUSAL ? kt : 0; qt < n_q; ++qt) {
-    const int i0 = qt * kBwdB;
-    __syncthreads();                  // the previous tiles are consumed
-    load_tile<HD>(qs, qb, st.qs, i0, S);
-    load_tile<HD>(gs, gb, st.gs, i0, S);
-    load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
-    __syncthreads();
-    scores<HD, CAUSAL>(ps, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S, scale,
-                       ty, tx);
-    __syncthreads();
-    tile_atb<HD>(dva, ps, gs, ty, tx);   // dV += P^T g
-    tile_atb<HD>(dka, dss, qs, ty, tx);  // dK += dS^T q
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + ty + 16 * r;
-    if (j >= S) continue;
-    const long long at = (((long long)b * S + j) * H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      dk[at + tx + 16 * c] = scale * dka[r][c];
-      dv[at + tx + 16 * c] = dva[r][c];
-    }
-  }
-}
-
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ dsum,
-    float* __restrict__ dq, int S, int H, BwdStrides st, float scale) {
-  constexpr int kTile = kBwdB * (HD + 1);
-  extern __shared__ float4 bwd_smem4[];
-  float* qs = reinterpret_cast<float*>(bwd_smem4);
-  float* gs = qs + kTile;
-  float* ks = gs + kTile;
-  float* vs = ks + kTile;
-  float* dss = vs + kTile;
-  float* lse_s = dss + kBwdB * kLDP;
-  float* d_s = lse_s + kBwdB;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int qt = gridDim.y - 1 - blockIdx.y;   // the longest walks first
-  const int i0 = qt * kBwdB;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
-  const long long rows = ((long long)b * H + h) * S;
-  load_tile<HD>(qs, q + b * st.qb + h * st.qh, st.qs, i0, S);
-  load_tile<HD>(gs, g + b * st.gb + h * st.gh, st.gs, i0, S);
-  load_rows(lse_s, d_s, lse + rows, dsum + rows, i0, S);
-
-  float dqa[4][HD / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dqa[r][j] = 0.0f;
-
-  const int n_k = CAUSAL ? qt + 1 : (S + kBwdB - 1) / kBwdB;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kBwdB;
-    __syncthreads();                  // the previous tiles are consumed
-    load_tile<HD>(ks, kb, st.ks, k0, S);
-    load_tile<HD>(vs, vb, st.vs, k0, S);
-    __syncthreads();
-    scores<HD, CAUSAL>(nullptr, dss, qs, gs, ks, vs, lse_s, d_s, i0, k0, S,
-                       scale, ty, tx);
-    __syncthreads();
-    tile_ab<HD>(dqa, dss, ks, ty, tx);   // dQ += dS k
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= S) continue;
-    const long long at = (((long long)b * S + i) * H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c)
-      dq[at + tx + 16 * c] = scale * dqa[r][c];
-  }
 }
 
 // ---- bf16 backward: wgmma products fed by a TMA ring ---------------------
@@ -1705,7 +1241,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
 
 // opts `kernel` into `bytes` of dynamic shared memory, once per device
 template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
+cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set,
+                       bool max_carveout = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1714,9 +1251,882 @@ cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
+    if (max_carveout) {   // shared memory for two CTAs an SM
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return err;
+    }
     *set |= 1ull << dev;
   }
   return cudaSuccess;
+}
+
+// ---- f32: three-term split TF32 on the tensor cores ----------------------
+//
+// The f32 forward and backward passes run every product as mma.sync.m16n8k8
+// TF32 on the tensor cores, three times on split operands: x = x_hi + x_lo
+// with x_hi = rna_tf32(x) and x_lo = rna_tf32(x - x_hi) (cvt.rna's
+// rounding, to nearest with ties away from zero, done on the bits, the low
+// 13 bits cleared, so nothing depends on what the tensor core does with
+// them), and
+//
+//   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi
+//
+// accumulated in f32, the small terms first. What is dropped (a_lo b_lo,
+// the rounding of the lo terms) is ~2^-22 of each product, so the kernels
+// keep the f32 gates (2e-5 forward, 1e-4 backward), where one TF32 product
+// (~2^-11) misses them. The tensor core's f32 accumulation rounds toward
+// zero: the short sums over the head dim (S, dP) run on its accumulator,
+// but the long ones over keys or queries (O, dV, dK, dQ), hundreds of its
+// roundings on one running sum, left a bias that failed the f32 model
+// gates. They are summed two k-steps at a time from zero on the tensor
+// core, and each partial is added on the CUDA cores, rounded to nearest
+// (mma6_tf32_add).
+//
+// What bounds them: three products for each f32 one, so the tensor pipe,
+// and the shared memory that feeds it. A CTA is four warps; each warp owns
+// 16 kMT rows of the products' M (queries in the forward and the dQ pass,
+// keys in the dK/dV pass) and keeps them for the whole walk as a raw f32
+// tile; its A fragments are split in registers as they are read (each
+// feeds every B fragment of the tile). The walked tiles (K and V, or Q
+// and dO) arrive by cp.async into a staging tile while the previous tile
+// is multiplied, and are split once into hi and lo halves; at hd = 64 each
+// B fragment feeds two m16 tiles. Fragments are read register by register,
+// so no operand needs a transpose: a tile whose rows are the product's K
+// dimension (V in P V, dO in dV = P^T dO, Q in dK = dS^T Q, K in dQ = dS K)
+// is read down its columns. P and dS feed their products from registers:
+// an m16n8 accumulator holds row g's columns {2t, 2t + 1} where the A
+// fragment wants {t, t + 4}, so those products read their B operand's K
+// rows in the order 0, 2, 4, 6, 1, 3, 5, 7 within each 8 (a sum over keys,
+// or queries, in any order). Tiles fit two CTAs an SM at hd = 64.
+//
+// Why mma.sync and not wgmma: TF32 wgmma takes its shared-memory operands
+// K-major only (the transpose bit exists for 16-bit types), so four of the
+// seven products would need transposed split copies of their tiles beside
+// the plain ones; with every operand held twice (hi, lo) at 4 bytes an
+// element, the dK/dV pass's K, V, Q, dO and the copies do not fit 227 KB
+// at hd = 128, nor at hd = 64 with two warpgroups of keys.
+
+constexpr int kTfThreads = 128;   // four warps
+
+template <int HD>
+struct TfTiles {
+  // m16 row tiles a warp: at hd = 64 two, so every B fragment loaded from
+  // shared memory feeds two products (at hd = 128 the accumulators of a
+  // second would not fit the registers)
+  static constexpr int kMT = HD == 64 ? 2 : 1;
+  static constexpr int kRows = 4 * 16 * kMT;         // the CTA's M rows
+  static constexpr int kFwdBK = HD == 64 ? 32 : 16;  // keys a forward tile
+  static constexpr int kDqBK = 16;                   // keys a dQ tile
+  static constexpr int kDkvBQ = 16;                  // queries a dK/dV tile
+};
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x, with the low 13 bits cleared: half a
+// unit of the 13th bit added to the magnitude's bits, then masked off (two
+// integer operations; ptxas expands cvt.rna.tf32 for sm_90 into a compare,
+// an add and a select)
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// The float index of element (r, c) in a tile the fragments are read from:
+// rows padded to HD + 4 floats, so a fragment read along the rows (rows g,
+// columns t) and one read down the columns (rows 2t or 2t + 1, columns g)
+// both reach 32 different banks; every fragment address is a per-thread
+// base plus a constant. A split tile of ROWS rows holds the hi halves in
+// ROWS such rows and the lo halves in the next ROWS, so each fragment
+// element lands in the register its product reads.
+template <int HD>
+__device__ __forceinline__ int tf_at(int r, int c) {
+  return r * (HD + 4) + c;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ROWS rows from r0 of one (b, h) slice of an f32 [B, S, H, HD] tensor
+// (src at its row 0, ss its row stride) into a raw f32 tile of the
+// shared memory, one cp.async of 16 bytes a step (rows past S as zeros).
+// A: the tile is an A operand's (tf_at); else staging, rows of HD floats
+template <int ROWS, int HD, bool A>
+__device__ __forceinline__ void tf_fetch(float* raw, const float* src,
+                                         long long ss, int r0, int S) {
+  constexpr int kPerRow = HD / 4;
+  static_assert(ROWS * kPerRow % kTfThreads == 0, "whole steps a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kPerRow / kTfThreads; ++i) {
+    const int idx = threadIdx.x + i * kTfThreads;
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * 4;
+    const bool ok = r0 + r < S;
+    cp_async16(smem_addr(raw + (A ? tf_at<HD>(r, c) : r * HD + c)),
+               src + (long long)(ok ? r0 + r : 0) * ss + c, ok);
+  }
+}
+
+// a staged tile of ROWS rows split into the hi and lo halves of a B
+// operand's tile
+template <int ROWS, int HD>
+__device__ __forceinline__ void tf_split(float* tile, const float* raw) {
+  constexpr int kPerRow = HD / 4;
+#pragma unroll
+  for (int i = 0; i < ROWS * kPerRow / kTfThreads; ++i) {
+    const int idx = threadIdx.x + i * kTfThreads;
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * HD + c);
+    uint32_t hi[4], lo[4];
+    split_tf32(x.x, hi[0], lo[0]);
+    split_tf32(x.y, hi[1], lo[1]);
+    split_tf32(x.z, hi[2], lo[2]);
+    split_tf32(x.w, hi[3], lo[3]);
+    float* dst = tile + tf_at<HD>(r, c);
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                    __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    *reinterpret_cast<float4*>(dst + ROWS * (HD + 4)) =
+        make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                    __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  }
+}
+
+// m16n8k8 fragments (lane = 4 g + t), split. A: rows r0 + g, r0 + g + 8 by
+// columns c0 + t, c0 + t + 4 of a raw tile whose columns are K (r0 a
+// multiple of 8)
+template <int HD>
+__device__ __forceinline__ void tf_frag_a(const float* raw, int r0, int c0,
+                                          int g, int t4, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_tf32(raw[tf_at<HD>(r0 + g, c0 + t4)], hi[0], lo[0]);
+  split_tf32(raw[tf_at<HD>(r0 + g + 8, c0 + t4)], hi[1], lo[1]);
+  split_tf32(raw[tf_at<HD>(r0 + g, c0 + t4 + 4)], hi[2], lo[2]);
+  split_tf32(raw[tf_at<HD>(r0 + g + 8, c0 + t4 + 4)], hi[3], lo[3]);
+}
+
+// one element of a split tile of ROWS rows: its hi and lo halves
+template <int ROWS, int HD>
+__device__ __forceinline__ void tf_elem(const float* tile, int r, int c,
+                                        uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(tile[tf_at<HD>(r, c)]);
+  lo = __float_as_uint(tile[ROWS * (HD + 4) + tf_at<HD>(r, c)]);
+}
+
+// B of a split tile whose columns are K (n along its rows): (k, n) = (t,
+// g) and (t + 4, g) at row n0 + g, columns k0 + t, k0 + t + 4
+template <int ROWS, int HD>
+__device__ __forceinline__ void tf_frag_b_rows(const float* tile, int n0,
+                                               int k0, int g, int t4,
+                                               uint32_t (&hi)[2],
+                                               uint32_t (&lo)[2]) {
+  tf_elem<ROWS, HD>(tile, n0 + g, k0 + t4, hi[0], lo[0]);
+  tf_elem<ROWS, HD>(tile, n0 + g, k0 + t4 + 4, hi[1], lo[1]);
+}
+
+// B of a split tile whose rows are K, for an accumulator fed as A
+// (tf_acc_as_a): logical k = t is row k0 + 2t, k = t + 4 is row k0 + 2t +
+// 1, column n0 + g
+template <int ROWS, int HD>
+__device__ __forceinline__ void tf_frag_b_cols(const float* tile, int k0,
+                                               int n0, int g, int t4,
+                                               uint32_t (&hi)[2],
+                                               uint32_t (&lo)[2]) {
+  tf_elem<ROWS, HD>(tile, k0 + 2 * t4, n0 + g, hi[0], lo[0]);
+  tf_elem<ROWS, HD>(tile, k0 + 2 * t4 + 1, n0 + g, hi[1], lo[1]);
+}
+
+// an m16n8 accumulator (row g: columns 2t, 2t + 1 in c[0], c[1]; row g + 8
+// in c[2], c[3]), split, as the A fragment of a k-step whose logical
+// columns t and t + 4 are its columns 2t and 2t + 1
+__device__ __forceinline__ void tf_acc_as_a(const float (&c)[4],
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three TF32 products, the small terms first
+__device__ __forceinline__ void mma3_tf32(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// d = a b, summed from zero
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// d += a0 b0 + a1 b1 over two k-steps, for the long sums (over keys or
+// queries): the six TF32 products are summed from zero on the tensor core,
+// small terms first, and the partial is added to d on the CUDA cores,
+// rounded to nearest. The tensor core's f32 accumulation rounds toward zero,
+// and hundreds of its roundings on one running sum leave a bias that fails
+// the f32 model gates; a partial of two k-steps keeps it small.
+__device__ __forceinline__ void mma6_tf32_add(
+    float (&d)[4], const uint32_t (&ah0)[4], const uint32_t (&al0)[4],
+    const uint32_t (&bh0)[2], const uint32_t (&bl0)[2],
+    const uint32_t (&ah1)[4], const uint32_t (&al1)[4],
+    const uint32_t (&bh1)[2], const uint32_t (&bl1)[2]) {
+  float t[4];
+  mma_tf32_zero(t, al0, bh0[0], bh0[1]);
+  mma_tf32(t, al1, bh1[0], bh1[1]);
+  mma_tf32(t, ah0, bl0[0], bl0[1]);
+  mma_tf32(t, ah1, bl1[0], bl1[1]);
+  mma_tf32(t, ah0, bh0[0], bh0[1]);
+  mma_tf32(t, ah1, bh1[0], bh1[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// One online-softmax step, in base 2, on the raw scores s (q . k) of the
+// key tile at k0 in one m16 tile's fragment (rows row0 and row0 + 8, keys
+// k0 + 8 j + 2 t + {0, 1}): updates the running max m (of score * scale *
+// log2 e), this thread's shares l of the row sums and corr, the factor that
+// rescales O, and leaves P in s. MASK: the tile holds keys past S or above
+// the diagonal; they contribute an explicit 0.
+template <int BK, bool MASK, bool CAUSAL>
+__device__ __forceinline__ void tf_softmax(float (&s)[BK / 8][4],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], float sl2,
+                                           int k0, int S, int row0, int t4) {
+  auto visible = [&](int j, int e) {
+    const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+    return key < S && (!CAUSAL || key <= row0 + 8 * (e >> 1));
+  };
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && !visible(j, e)) s[j][e] = kNeg;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // the four threads of a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * sl2);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[j][e], sl2, -m[e >> 1]));
+      if (MASK && !visible(j, e)) p = 0.0f;
+      psum[e >> 1] += p;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+}
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&a)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[i][j][e] = 0.0f;
+}
+
+// The f32 forward: a CTA holds kRows queries of one (b, h) (raw, 16 kMT a
+// warp) and walks the key tiles up to the diagonal: S = Q K^T, the online
+// softmax, O += P V, then acc / max(l, 1e-30) and the rows' LSE.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kTfThreads) flash_fwd_kernel_tf32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, Strides st, float scale) {
+  constexpr int MT = TfTiles<HD>::kMT;
+  constexpr int BQ = TfTiles<HD>::kRows;
+  constexpr int BK = TfTiles<HD>::kFwdBK;
+  // a warp's rows span whole key tiles, so every key tile of its walk
+  // ends at or before its last row: no 8-key step lies wholly above it
+  static_assert((16 * MT) % BK == 0, "key tiles within a warp's rows");
+  static_assert(BK % 16 == 0, "key tiles of whole pairs of k-steps");
+  extern __shared__ float4 tf_smem[];
+  constexpr int LD = HD + 4;
+  float* sq = reinterpret_cast<float*>(tf_smem);   // BQ x LD, raw
+  float* sk = sq + BQ * LD;                         // BK x LD pairs
+  float* sv = sk + 2 * BK * LD;
+  float* rk = sv + 2 * BK * LD;                     // BK x HD, raw
+  float* rv = rk + BK * HD;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;
+  const int t4 = lane % 4;
+  const int wr = 16 * MT * warp;        // this warp's first row in the CTA
+  const int wfirst = q0 + wr;
+  const int wlast = wfirst + 16 * MT - 1;
+  const float sl2 = scale * 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const int q_last = min(q0 + BQ, S) - 1;
+  // key tiles wholly above the diagonal are never loaded; a warp stops at
+  // the last tile any of its rows sees
+  const int n_tiles = CAUSAL ? q_last / BK + 1 : (S + BK - 1) / BK;
+  const int n_mine = wfirst >= S ? 0
+                     : CAUSAL ? min(n_tiles, wlast / BK + 1) : n_tiles;
+
+  tf_fetch<BQ, HD, true>(sq, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  tf_fetch<BK, HD, false>(rk, kb, st.ks, 0, S);
+  tf_fetch<BK, HD, false>(rv, vb, st.vs, 0, S);
+  cp_async_commit();
+
+  float acc[MT][HD / 8][4], s[MT][BK / 8][4];
+  zero(acc);
+  float m[MT][2], l[MT][2];       // l: this thread's share of the row sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNeg;
+    l[mt][0] = l[mt][1] = 0.0f;
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait_all();
+    __syncthreads();              // tile kt landed; kt - 1 is consumed
+    tf_split<BK, HD>(sk, rk);
+    tf_split<BK, HD>(sv, rv);
+    __syncthreads();
+    if (kt + 1 < n_tiles) {       // in flight while this tile is multiplied
+      tf_fetch<BK, HD, false>(rk, kb, st.ks, k0 + BK, S);
+      tf_fetch<BK, HD, false>(rv, vb, st.vs, k0 + BK, S);
+      cp_async_commit();
+    }
+    if (kt >= n_mine) continue;
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {         // S = Q K^T
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf_frag_a<HD>(sq, wr + 16 * mt, 8 * kk, gr, t4, ah[mt], al[mt]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        tf_frag_b_rows<BK, HD>(sk, 8 * j, 8 * kk, gr, t4, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_tf32(s[mt][j], ah[mt], al[mt], bh, bl);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int first = wfirst + 16 * mt;
+      float corr[2];
+      if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > first))
+        tf_softmax<BK, true, CAUSAL>(s[mt], m[mt], l[mt], corr, sl2, k0, S,
+                                     first + gr, t4);
+      else
+        tf_softmax<BK, false, CAUSAL>(s[mt], m[mt], l[mt], corr, sl2, k0, S,
+                                      first + gr, t4);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[mt][n][0] *= corr[0];
+        acc[mt][n][1] *= corr[0];
+        acc[mt][n][2] *= corr[1];
+        acc[mt][n][3] *= corr[1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; j += 2) {        // O += P V, 2 k-steps
+      uint32_t ph[2][MT][4], pl[2][MT][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          tf_acc_as_a(s[mt][j + u], ph[u][mt], pl[u][mt]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          tf_frag_b_cols<BK, HD>(sv, 8 * (j + u), 8 * n, gr, t4, bh[u],
+                                 bl[u]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma6_tf32_add(acc[mt][n], ph[0][mt], pl[0][mt], bh[0], bl[0],
+                        ph[1][mt], pl[1][mt], bh[1], bl[1]);
+      }
+    }
+  }
+  if (wfirst >= S) return;
+
+  // epilogue: acc / max(l, 1e-30); the rows' log-sum-exp of the scaled
+  // scores: m is in log2 units, so lse = (m + log2 l) ln 2
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float den = fmaxf(lr, 1e-30f);
+      const int row = wfirst + 16 * mt + gr + 8 * r;
+      if (row >= S) continue;
+      float* dst = o + b * st.ob + (long long)row * st.os + h * st.oh + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            acc[mt][n][2 * r] / den, acc[mt][n][2 * r + 1] / den);
+      if (lse != nullptr && t4 == 0)
+        lse[((long long)b * H + h) * S + row] =
+            (m[mt][r] + log2f(lr)) * 0.6931471805599453f;
+    }
+}
+
+// The dK/dV pass: a CTA holds kRows keys of one (b, h) with their values
+// (raw, 16 kMT a warp, keys as the products' M) and walks the query tiles
+// (from the diagonal on when causal): S^T = K Q^T and dP^T = V dO^T, P^T =
+// exp2(S^T scale log2 e - lse log2 e) (0 for a query past S or, causal,
+// before the key), dS^T = P^T (dP^T - D), dV += P^T dO, dK += dS^T Q.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kTfThreads) flash_bwd_dkdv_tf32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+    BwdStrides st, float scale) {
+  constexpr int MT = TfTiles<HD>::kMT;
+  constexpr int BKV = TfTiles<HD>::kRows;
+  constexpr int BQ = TfTiles<HD>::kDkvBQ;
+  static_assert(BQ % 16 == 0, "query tiles of whole pairs of k-steps");
+  extern __shared__ float4 tf_smem[];
+  constexpr int LD = HD + 4;
+  float* sk = reinterpret_cast<float*>(tf_smem);   // BKV x LD, raw
+  float* sv = sk + BKV * LD;
+  float* sq = sv + BKV * LD;                        // BQ x LD pairs
+  float* sg = sq + 2 * BQ * LD;
+  float* rq = sg + 2 * BQ * LD;                     // BQ x HD, raw
+  float* rg = rq + BQ * HD;
+  float* lrow = rg + BQ * HD;                       // lse log2 e of BQ rows
+  float* drow = lrow + BQ;                          // and D
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int k0 = blockIdx.y * BKV;       // causal: the longest walks first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;
+  const int t4 = lane % 4;
+  const int wr = 16 * MT * warp;
+  const int kw = k0 + wr;                // this warp's keys
+  const int kw_last = kw + 16 * MT - 1;
+  const bool live = kw < S;
+  const float sl2 = scale * 1.4426950408889634f;
+  const long long rows = ((long long)b * H + h) * S;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* gb = dout + b * st.gb + h * st.gh;
+  // query tiles from the diagonal on: tiles wholly before the key tile see
+  // none of its keys
+  const int t0 = CAUSAL ? k0 / BQ : 0;
+  const int n_tiles = (S + BQ - 1) / BQ - t0;
+
+  tf_fetch<BKV, HD, true>(sk, k + b * st.kb + h * st.kh, st.ks, k0, S);
+  tf_fetch<BKV, HD, true>(sv, v + b * st.vb + h * st.vh, st.vs, k0, S);
+  float lr = 0.0f, dr = 0.0f;     // row threadIdx.x of the next tile
+  auto fetch = [&](int i0) {
+    tf_fetch<BQ, HD, false>(rq, qb, st.qs, i0, S);
+    tf_fetch<BQ, HD, false>(rg, gb, st.gs, i0, S);
+    cp_async_commit();
+    const int i = i0 + (int)threadIdx.x;
+    const bool ok = threadIdx.x < BQ && i < S;
+    lr = ok ? lse[rows + i] * 1.4426950408889634f : 0.0f;
+    dr = ok ? dsum[rows + i] : 0.0f;
+  };
+  fetch(t0 * BQ);
+
+  float dka[MT][HD / 8][4], dva[MT][HD / 8][4];
+  float sa[MT][BQ / 8][4], pa[MT][BQ / 8][4];
+  zero(dka);
+  zero(dva);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int i0 = (t0 + t) * BQ;
+    cp_async_wait_all();
+    __syncthreads();              // tile t landed; t - 1 is consumed
+    tf_split<BQ, HD>(sq, rq);
+    tf_split<BQ, HD>(sg, rg);
+    if (threadIdx.x < BQ) {
+      lrow[threadIdx.x] = lr;
+      drow[threadIdx.x] = dr;
+    }
+    __syncthreads();
+    if (t + 1 < n_tiles) fetch(i0 + BQ);
+    // a tile whose queries all precede this warp's keys: no product
+    if (!live || (CAUSAL && i0 + BQ - 1 < kw)) continue;
+    zero(sa);
+    zero(pa);
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {   // S^T = K Q^T, dP^T = V dO^T
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf_frag_a<HD>(sk, wr + 16 * mt, 8 * kk, gr, t4, ah[mt], al[mt]);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        tf_frag_b_rows<BQ, HD>(sq, 8 * j, 8 * kk, gr, t4, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_tf32(sa[mt][j], ah[mt], al[mt], bh, bl);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf_frag_a<HD>(sv, wr + 16 * mt, 8 * kk, gr, t4, ah[mt], al[mt]);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        tf_frag_b_rows<BQ, HD>(sg, 8 * j, 8 * kk, gr, t4, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_tf32(pa[mt][j], ah[mt], al[mt], bh, bl);
+      }
+    }
+    const bool edge = i0 + BQ > S || (CAUSAL && kw_last > i0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const int query = i0 + col;
+          const int key = kw + 16 * mt + gr + 8 * (e >> 1);
+          float p = ex2(fmaf(sa[mt][j][e], sl2, -lrow[col]));
+          if (edge && (query >= S || (CAUSAL && key > query))) p = 0.0f;
+          sa[mt][j][e] = p;
+          pa[mt][j][e] = p * (pa[mt][j][e] - drow[col]);
+        }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; j += 2) {   // 2 k-steps of queries
+      uint32_t ah[2][MT][4], al[2][MT][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          tf_acc_as_a(sa[mt][j + u], ah[u][mt], al[u][mt]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {   // dV += P^T dO
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          tf_frag_b_cols<BQ, HD>(sg, 8 * (j + u), 8 * n, gr, t4, bh[u],
+                                 bl[u]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma6_tf32_add(dva[mt][n], ah[0][mt], al[0][mt], bh[0], bl[0],
+                        ah[1][mt], al[1][mt], bh[1], bl[1]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          tf_acc_as_a(pa[mt][j + u], ah[u][mt], al[u][mt]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {   // dK += dS^T Q
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          tf_frag_b_cols<BQ, HD>(sq, 8 * (j + u), 8 * n, gr, t4, bh[u],
+                                 bl[u]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma6_tf32_add(dka[mt][n], ah[0][mt], al[0][mt], bh[0], bl[0],
+                        ah[1][mt], al[1][mt], bh[1], bl[1]);
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + 16 * mt + gr + 8 * r;
+      if (key >= S) continue;
+      const long long at = (((long long)b * S + key) * H + h) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(
+            scale * dka[mt][n][2 * r], scale * dka[mt][n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + at + 8 * n) =
+            make_float2(dva[mt][n][2 * r], dva[mt][n][2 * r + 1]);
+      }
+    }
+}
+
+// The dQ pass: a CTA holds kRows queries of one (b, h) with their dO rows
+// (raw, 16 kMT a warp), lse and D, and walks the key tiles up to the
+// diagonal: S = Q K^T and dP = dO V^T, dS = P (dP - D), dQ += dS K.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kTfThreads) flash_bwd_dq_tf32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    float* __restrict__ dq, int S, int H, BwdStrides st, float scale) {
+  constexpr int MT = TfTiles<HD>::kMT;
+  constexpr int BQ = TfTiles<HD>::kRows;
+  constexpr int BK = TfTiles<HD>::kDqBK;
+  // a warp's rows span whole key tiles, so every key tile of its walk
+  // ends at or before its last row: no 8-key step lies wholly above it
+  static_assert((16 * MT) % BK == 0, "key tiles within a warp's rows");
+  static_assert(BK % 16 == 0, "key tiles of whole pairs of k-steps");
+  extern __shared__ float4 tf_smem[];
+  constexpr int LD = HD + 4;
+  float* sq = reinterpret_cast<float*>(tf_smem);   // BQ x LD, raw
+  float* sg = sq + BQ * LD;
+  float* sk = sg + BQ * LD;                         // BK x LD pairs
+  float* sv = sk + 2 * BK * LD;
+  float* rk = sv + 2 * BK * LD;                     // BK x HD, raw
+  float* rv = rk + BK * HD;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;
+  const int t4 = lane % 4;
+  const int wr = 16 * MT * warp;
+  const int wfirst = q0 + wr;
+  const int wlast = wfirst + 16 * MT - 1;
+  const float sl2 = scale * 1.4426950408889634f;
+  const long long rows = ((long long)b * H + h) * S;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int n_tiles = CAUSAL ? q_last / BK + 1 : (S + BK - 1) / BK;
+  const int n_mine = wfirst >= S ? 0
+                     : CAUSAL ? min(n_tiles, wlast / BK + 1) : n_tiles;
+  float l2[MT][2], dd[MT][2];           // lse log2 e and D of the rows
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wfirst + 16 * mt + gr + 8 * r;
+      l2[mt][r] = row < S ? lse[rows + row] * 1.4426950408889634f : 0.0f;
+      dd[mt][r] = row < S ? dsum[rows + row] : 0.0f;
+    }
+
+  tf_fetch<BQ, HD, true>(sq, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  tf_fetch<BQ, HD, true>(sg, dout + b * st.gb + h * st.gh, st.gs, q0, S);
+  tf_fetch<BK, HD, false>(rk, kb, st.ks, 0, S);
+  tf_fetch<BK, HD, false>(rv, vb, st.vs, 0, S);
+  cp_async_commit();
+
+  float dqa[MT][HD / 8][4], sa[MT][BK / 8][4], pa[MT][BK / 8][4];
+  zero(dqa);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait_all();
+    __syncthreads();              // tile t landed; t - 1 is consumed
+    tf_split<BK, HD>(sk, rk);
+    tf_split<BK, HD>(sv, rv);
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      tf_fetch<BK, HD, false>(rk, kb, st.ks, k0 + BK, S);
+      tf_fetch<BK, HD, false>(rv, vb, st.vs, k0 + BK, S);
+      cp_async_commit();
+    }
+    if (t >= n_mine) continue;
+    zero(sa);
+    zero(pa);
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {   // S = Q K^T, dP = dO V^T
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf_frag_a<HD>(sq, wr + 16 * mt, 8 * kk, gr, t4, ah[mt], al[mt]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        tf_frag_b_rows<BK, HD>(sk, 8 * j, 8 * kk, gr, t4, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_tf32(sa[mt][j], ah[mt], al[mt], bh, bl);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf_frag_a<HD>(sg, wr + 16 * mt, 8 * kk, gr, t4, ah[mt], al[mt]);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        tf_frag_b_rows<BK, HD>(sv, 8 * j, 8 * kk, gr, t4, bh, bl);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3_tf32(pa[mt][j], ah[mt], al[mt], bh, bl);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row0 = wfirst + 16 * mt + gr;   // rows row0 and row0 + 8
+      // edge tiles (keys past S or above a row of this m16 tile) are masked
+      const bool edge = k0 + BK > S || (CAUSAL && k0 + BK - 1 > row0 - gr);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+          float p = ex2(fmaf(sa[mt][j][e], sl2, -l2[mt][r]));
+          if (edge && (key >= S || (CAUSAL && key > row0 + 8 * r)))
+            p = 0.0f;
+          pa[mt][j][e] = p * (pa[mt][j][e] - dd[mt][r]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; j += 2) {   // dQ += dS K, 2 k-steps
+      uint32_t ah[2][MT][4], al[2][MT][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          tf_acc_as_a(pa[mt][j + u], ah[u][mt], al[u][mt]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          tf_frag_b_cols<BK, HD>(sk, 8 * (j + u), 8 * n, gr, t4, bh[u],
+                                 bl[u]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma6_tf32_add(dqa[mt][n], ah[0][mt], al[0][mt], bh[0], bl[0],
+                        ah[1][mt], al[1][mt], bh[1], bl[1]);
+      }
+    }
+  }
+  if (wfirst >= S) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wfirst + 16 * mt + gr + 8 * r;
+      if (row >= S) continue;
+      const long long at = (((long long)b * S + row) * H + h) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(dq + at + 8 * n) = make_float2(
+            scale * dqa[mt][n][2 * r], scale * dqa[mt][n][2 * r + 1]);
+    }
+}
+
+template <int HD>
+struct TfSmem {   // dynamic shared memory of the three kernels, in bytes
+  using T = TfTiles<HD>;
+  static constexpr int kLD = HD + 4;   // a padded row, in elements
+  // raw A rows, split B tiles (pairs), the B tiles' staging
+  static constexpr int kFwd =
+      (T::kRows * kLD + 4 * T::kFwdBK * kLD + 2 * T::kFwdBK * HD) * 4;
+  static constexpr int kDkv = (2 * T::kRows * kLD + 4 * T::kDkvBQ * kLD +
+                               2 * T::kDkvBQ * HD + 2 * T::kDkvBQ) * 4;
+  static constexpr int kDq =
+      (2 * T::kRows * kLD + 4 * T::kDqBK * kLD + 2 * T::kDqBK * HD) * 4;
+};
+
+template <int HD, bool CAUSAL>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int S, int H, const Strides& st,
+                    float scale, cudaStream_t stream) {
+  constexpr int kRows = TfTiles<HD>::kRows;
+  static unsigned long long set = 0;
+  auto kernel = flash_fwd_kernel_tf32<HD, CAUSAL>;
+  const cudaError_t err = allow_smem(kernel, TfSmem<HD>::kFwd, &set, true);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + kRows - 1) / kRows));
+  kernel<<<grid, kTfThreads, TfSmem<HD>::kFwd, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, st,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_fwd_tf32_causal(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int S, int H,
+                           int causal, const Strides& st, float scale,
+                           cudaStream_t stream) {
+  return causal ? launch_fwd_tf32<HD, true>(q, k, v, o, lse, B, S, H, st,
+                                            scale, stream)
+                : launch_fwd_tf32<HD, false>(q, k, v, o, lse, B, S, H, st,
+                                             scale, stream);
+}
+
+template <int HD, bool CAUSAL>
+int launch_bwd_tf32(int pass, const void* q, const void* k, const void* v,
+                    const void* g, const float* lse, const float* dsum,
+                    void* d0, void* d1, int B, int S, int H,
+                    const BwdStrides& st, float scale, cudaStream_t stream) {
+  constexpr int kRows = TfTiles<HD>::kRows;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + kRows - 1) / kRows));
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(g);
+  cudaError_t err;
+  if (pass == 0) {
+    static unsigned long long set = 0;
+    auto kernel = flash_bwd_dkdv_tf32<HD, CAUSAL>;
+    err = allow_smem(kernel, TfSmem<HD>::kDkv, &set, true);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kTfThreads, TfSmem<HD>::kDkv, stream>>>(
+        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0),
+        static_cast<float*>(d1), S, H, st, scale);
+  } else {
+    static unsigned long long set = 0;
+    auto kernel = flash_bwd_dq_tf32<HD, CAUSAL>;
+    err = allow_smem(kernel, TfSmem<HD>::kDq, &set, true);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kTfThreads, TfSmem<HD>::kDq, stream>>>(
+        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0), S, H, st, scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -1729,38 +2139,6 @@ int launch_bwd_dot(const void* o, const void* g, const float* lse,
   flash_bwd_dot<T, HD><<<grid, 32 * kDotWarps, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(g), lse, dsum, lse2, B,
       S, H, pitch, st[0], st[1], st[2], st[3], st[4], st[5]);
-  return (int)cudaGetLastError();
-}
-
-template <int HD, bool CAUSAL>
-int launch_bwd(int pass, const void* q, const void* k, const void* v,
-               const void* g, const float* lse, const float* dsum, void* d0,
-               void* d1, int B, int S, int H, const BwdStrides& st,
-               float scale, cudaStream_t stream) {
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBwdB - 1) / kBwdB));
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* gt = static_cast<const float*>(g);
-  cudaError_t err;
-  if (pass == 0) {
-    static unsigned long long set = 0;
-    constexpr int kSmem = bwd_smem_bytes<HD>(2);
-    auto kernel = flash_bwd_dkdv<HD, CAUSAL>;
-    err = allow_smem(kernel, kSmem, &set);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kBwdThreads, kSmem, stream>>>(
-        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0),
-        static_cast<float*>(d1), S, H, st, scale);
-  } else {
-    static unsigned long long set = 0;
-    constexpr int kSmem = bwd_smem_bytes<HD>(1);
-    auto kernel = flash_bwd_dq<HD, CAUSAL>;
-    err = allow_smem(kernel, kSmem, &set);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kBwdThreads, kSmem, stream>>>(
-        qt, kt, vt, gt, lse, dsum, static_cast<float*>(d0), S, H, st, scale);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -1825,10 +2203,10 @@ int launch_bwd_causal(int pass, int causal, int dtype, const void* q,
   const BwdStrides st = {strides[0], strides[1], strides[2],  strides[3],
                          strides[4], strides[5], strides[6],  strides[7],
                          strides[8], strides[9], strides[10], strides[11]};
-  return causal ? launch_bwd<HD, true>(pass, q, k, v, g, lse, dsum, d0, d1,
-                                       B, S, H, st, scale, stream)
-                : launch_bwd<HD, false>(pass, q, k, v, g, lse, dsum, d0, d1,
-                                        B, S, H, st, scale, stream);
+  return causal ? launch_bwd_tf32<HD, true>(pass, q, k, v, g, lse, dsum, d0,
+                                            d1, B, S, H, st, scale, stream)
+                : launch_bwd_tf32<HD, false>(pass, q, k, v, g, lse, dsum, d0,
+                                             d1, B, S, H, st, scale, stream);
 }
 
 }  // namespace
@@ -1836,7 +2214,7 @@ int launch_bwd_causal(int pass, int causal, int dtype, const void* q,
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
 // cudaErrorInvalidValue for a head dim or type the kernels do not take, and
 // minus the CUresult when the driver refuses a bf16 tensor map. `dtype` is
-// 0 for f32 (flash_fwd_kernel), 1 for bf16 (flash_fwd_kernel_wgmma);
+// 0 for f32 (flash_fwd_kernel_tf32), 1 for bf16 (flash_fwd_kernel_wgmma);
 // `strides` holds the element strides of the b, s and h axes of q, k, v and
 // out, in that order (12 values; the hd axis is contiguous); `scale` is
 // hd^-0.5 rounded to f32 by the caller. `lse`, when not null, receives the
@@ -1862,11 +2240,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
   if (dtype == 0 && hd == 64)
-    return launch_causal<float, 64>(q, k, v, o, lse, B, S, H, causal, st,
-                                    scale, s);
+    return launch_fwd_tf32_causal<64>(q, k, v, o, lse, B, S, H, causal, st,
+                                      scale, s);
   if (dtype == 0 && hd == 128)
-    return launch_causal<float, 128>(q, k, v, o, lse, B, S, H, causal, st,
-                                     scale, s);
+    return launch_fwd_tf32_causal<128>(q, k, v, o, lse, B, S, H, causal, st,
+                                       scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1907,9 +2285,10 @@ extern "C" int flash_attention_bwd_dot_launch(const void* o, const void* g,
 // hd contiguous; for bf16 also what the tensor maps need, as for
 // flash_attention_launch); the gradients are written contiguous [B, S, H,
 // hd] in the inputs' type. `lse` and `dsum` are flash_bwd_dot's rows of
-// pitch `pitch`: for f32 (flash_bwd_dkdv, flash_bwd_dq) the natural-log LSE
-// with pitch == S; for bf16 (flash_bwd_dkdv_wgmma, flash_bwd_dq_wgmma) its
-// lse2, with pitch a multiple of 128 (kRowsPad) of at least S. Returns as
+// pitch `pitch`: for f32 (flash_bwd_dkdv_tf32, flash_bwd_dq_tf32) the
+// natural-log LSE with pitch == S; for bf16 (flash_bwd_dkdv_wgmma,
+// flash_bwd_dq_wgmma) its lse2, with pitch a multiple of 128 (kRowsPad) of
+// at least S. Returns as
 // flash_attention_launch.
 extern "C" int flash_attention_bwd_launch(int pass, const void* q,
                                           const void* k, const void* v,

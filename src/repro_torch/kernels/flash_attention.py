@@ -13,16 +13,19 @@ after the dot and the result in q's dtype. Two executors compute it
   masked in the kernel, ``[B, S, H, hd]`` read through its strides. bf16
   inputs go to ``flash_fwd_kernel_wgmma`` (bf16 ``wgmma`` products on the
   tensor cores, K/V tiles fed by TMA through a shared-memory ring), f32
-  inputs to ``flash_fwd_kernel`` (products on the CUDA cores in f32). Both
+  inputs to ``flash_fwd_kernel_tf32`` (``mma.sync`` TF32 products on the
+  tensor cores, each f32 product split into three: a_lo b_hi + a_hi b_lo +
+  a_hi b_hi with x_hi = rna_tf32(x), x_lo = rna_tf32(x - x_hi)). Both
   take hd 64 and 128; anything else raises. They serve CUDA tensors.
 * :func:`attention_plain` — the dense-softmax definition in f32, chunked
   over queries so no score block exceeds :data:`PLAIN_ELEMS` elements (it
   fits at S = 2048). It serves CPU tensors.
 
-In f32 the kernel and the plain version differ only in the order of f32
-sums. In bf16 the output rounds once, at the end, in both; the bf16 kernel
-also rounds the softmax weights P to bf16 before the PV product, as the
-reference's model attention does.
+In f32 the kernel and the plain version differ in the order of f32 sums
+and in the split products' dropped terms (~2^-22 of each product). In bf16
+the output rounds once, at the end, in both; the bf16 kernel also rounds
+the softmax weights P to bf16 before the PV product, as the reference's
+model attention does.
 
 Both forward kernels also write the rows' log-sum-exp of the scaled scores
 (``lse`` [B, H, S], f32) when asked. The backward has no TPU counterpart:
@@ -36,8 +39,10 @@ and a dQ pass, each gradient summed by one CTA in a fixed order (no
 atomics: the same bits on every run). bf16 inputs go to
 ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma`` (``wgmma`` on the
 tensor cores, fed by a TMA ring; P and dS rounded to bf16 before their
-products), f32 inputs to ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (the CUDA
-cores, in f32). :class:`FlashAttentionFn` saves ``q, k, v, o, lse`` in the
+products), f32 inputs to ``flash_bwd_dkdv_tf32`` and ``flash_bwd_dq_tf32``
+(split TF32 on the tensor cores, as the f32 forward). :data:`COUNTS`
+holds the launches by input type; ``LAUNCHES`` and ``BWD_LAUNCHES`` read
+their totals. :class:`FlashAttentionFn` saves ``q, k, v, o, lse`` in the
 forward and launches them in the backward; :func:`flash_attention` takes it
 only when the mode resolves to the kernel and a gradient is needed, so
 serving keeps the forward without the LSE store. On the CPU autograd runs
@@ -65,24 +70,35 @@ BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
 BWD_KERNEL_NAMES = {
     torch.bfloat16: ("flash_bwd_dot", "flash_bwd_dkdv_wgmma",
                      "flash_bwd_dq_wgmma"),
-    torch.float32: BWD_KERNELS,
+    torch.float32: ("flash_bwd_dot", "flash_bwd_dkdv_tf32",
+                    "flash_bwd_dq_tf32"),
 }
 ROWS_PAD = 128   # the bf16 passes' lse and D rows: padded to a multiple
 
-LAUNCHES = 0     # forward kernel launches made by flash_attention (only there)
-# backward kernel launches, one count per kernel, made by the backward
-# wrapper (only there)
-BWD_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
+# launches made by the wrappers (only there), by input type: the forward
+# kernel's under "flash_fwd", each backward stage's under its BWD_KERNELS
+# name
+COUNTS = {dt: dict.fromkeys(("flash_fwd",) + BWD_KERNELS, 0)
+          for dt in ("bfloat16", "float32")}
 _COUNT_LOCK = threading.Lock()   # launches may come from several threads
+
+
+def __getattr__(name: str):
+    """``LAUNCHES``, the forward kernel's launches, and ``BWD_LAUNCHES``,
+    each backward stage's: :data:`COUNTS` summed over the input types."""
+    if name == "LAUNCHES":
+        return sum(c["flash_fwd"] for c in COUNTS.values())
+    if name == "BWD_LAUNCHES":
+        return {k: sum(c[k] for c in COUNTS.values()) for k in BWD_KERNELS}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
     """Set the forward and backward launch counts to 0."""
-    global LAUNCHES
     with _COUNT_LOCK:
-        LAUNCHES = 0
-        for name in BWD_KERNELS:
-            BWD_LAUNCHES[name] = 0
+        for counts in COUNTS.values():
+            for name in counts:
+                counts[name] = 0
 
 
 def _chunk(B, S, H) -> int:
@@ -180,7 +196,7 @@ def _launcher():
 
 def _rows_aligned(x: torch.Tensor) -> bool:
     """Whether every hd-row of ``x`` starts on a 16-byte boundary and is
-    contiguous: what the f32 kernel's vector loads need, and what the bf16
+    contiguous: what the f32 kernels' 16-byte copies need, and what the bf16
     kernel's tensor maps need (a 16-byte-aligned base, strides that are
     multiples of 16 bytes)."""
     vec = 16 // x.element_size()
@@ -217,18 +233,14 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _count(name: str | None = None) -> None:
-    global LAUNCHES
+def _count(dtype: torch.dtype, name: str = "flash_fwd") -> None:
     with _COUNT_LOCK:
-        if name is None:
-            LAUNCHES += 1
-        else:
-            BWD_LAUNCHES[name] += 1
+        COUNTS[str(dtype).removeprefix("torch.")][name] += 1
 
 
 def _flash_kernel(q, k, v, causal: bool, want_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on the current stream: the
-    ``wgmma`` kernel for bf16, the CUDA-core kernel for f32. Returns the
+    ``wgmma`` kernel for bf16, the split-TF32 kernel for f32. Returns the
     output, and with ``want_lse`` also the rows' log-sum-exp [B, H, S]
     f32."""
     B, S, H, hd = q.shape
@@ -252,7 +264,7 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool = False):
                      B, S, H, hd, KERNEL_DTYPES[q.dtype], int(causal),
                      strides, hd ** -0.5, stream)
     _raise_on(err, "flash_attention")
-    _count()
+    _count(q.dtype)
     return (out, lse) if want_lse else out
 
 
@@ -298,15 +310,15 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
                              0 if lse2 is None else lse2.data_ptr(), B, S, H,
                              hd, dt, pitch, dot_strides, stream),
                   "flash_bwd_dot")
-        _count("flash_bwd_dot")
+        _count(q.dtype, "flash_bwd_dot")
         _raise_on(fns["bwd"](0, *ptrs, dk.data_ptr(), dv.data_ptr(), B, S,
                              H, hd, dt, int(causal), pitch, strides,
                              hd ** -0.5, stream), "flash_bwd_dkdv")
-        _count("flash_bwd_dkdv")
+        _count(q.dtype, "flash_bwd_dkdv")
         _raise_on(fns["bwd"](1, *ptrs, dq.data_ptr(), 0, B, S, H, hd, dt,
                              int(causal), pitch, strides, hd ** -0.5,
                              stream), "flash_bwd_dq")
-        _count("flash_bwd_dq")
+        _count(q.dtype, "flash_bwd_dq")
     return dq, dk, dv
 
 

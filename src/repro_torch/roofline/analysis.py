@@ -38,11 +38,15 @@ HW = HWSpec()
 # peak 989.4 TFLOP/s, HBM3 3.35 TB/s, NVLink 900 GB/s in both directions
 # (450 GB/s each way), 80 GB. H100_F32 is the same card at the f32 rate
 # outside the tensor cores (66.9 TFLOP/s): the rate of f32 matrix products
-# with TF32 switched off.
+# with TF32 switched off. H100_TF32 is its dense TF32 tensor-core rate (494.7
+# TFLOP/s, same datasheet); an f32-accurate product split into three TF32
+# products (the f32 flash kernels) runs at a third of it.
 H100 = HWSpec(name="h100-sxm5", peak_flops=989.4e12, hbm_bw=3.35e12,
               link_bw=450e9, hbm_bytes=80e9)
 H100_F32 = dataclasses.replace(H100, name="h100-sxm5-f32",
                                peak_flops=66.9e12)
+H100_TF32 = dataclasses.replace(H100, name="h100-sxm5-tf32",
+                                peak_flops=494.7e12)
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1,

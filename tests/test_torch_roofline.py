@@ -148,9 +148,18 @@ def test_h100_specs():
     assert t["compute_s"] == 1.0 and t["dominant"] == "compute"
 
 
+def test_h100_tf32_spec():
+    """The same datasheet's dense TF32 tensor-core rate, 494.7 TFLOP/s, on
+    the H100's memory and links."""
+    h, t = port.H100, port.H100_TF32
+    assert t.peak_flops == 494.7e12
+    assert dataclasses.replace(t, name=h.name, peak_flops=h.peak_flops) == h
+
+
 def test_package_exports():
     assert roofline.HW is port.HW
     assert roofline.H100 is port.H100 and roofline.H100_F32 is port.H100_F32
+    assert roofline.H100_TF32 is port.H100_TF32
     assert roofline.collective_bytes is port.collective_bytes
     assert roofline.roofline_terms is port.roofline_terms
 
