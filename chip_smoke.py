@@ -179,10 +179,23 @@ reference package ``repro``. Phases, each fatal on failure:
    bound on one H100 (``roofline.analysis.H100``; its dominant term) and
    its share of the warm wall time and of the profiled busy time, each at
    most ``ROOFLINE_SHARE_MAX``; the step's arguments plus temporaries
-   against its measured peak memory, within 2x.
+   against its measured peak memory, within 2x;
+20. the port's four examples (``[examples]``, ``repro_torch.examples``),
+   each through its ``main(argv)`` with no ``--device``, within
+   ``EXAMPLES_SECONDS`` in all, held to the reference examples' output
+   on the CPU: (a) quickstart's cost table, every -LS cost at or below its
+   greedy cost, the exact audit's optimum; (b) the fleet's robust variants
+   and worst-member costs, its joint mapping search and three rolling
+   windows (through the gain kernel); (c) serve at its defaults: the
+   admission plan, the coalescing, the degradation to asap, a JSONL trace
+   of every span under ``chiprun_out/``, every request finished; (d)
+   train on the example's 100M config at full width, 80 steps (a cut of
+   120) with injected failures: the plan, the waits, one restart, the
+   simulated clock, finite losses, the last below the first (through the
+   f32 flash forward and backward).
 
-Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18) is driven with the
-kernels' launch counts set to 0 just before it and read just after; a
+Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20) is driven with
+the kernels' launch counts set to 0 just before it and read just after; a
 kernel the path runs that was never launched fails the run. f32 matrix
 products on the card run in full f32: TF32 is switched off for matmuls
 and cuDNN before any phase (the f32 flash kernels' split TF32 is their
@@ -191,9 +204,10 @@ JSON object with one entry per kernel, the f32 flash forward and backward
 apart from the bf16 ones: the bf16 kernels' launches are their main
 paths', the f32 kernels' those of the f32 checks beside them
 (``[model]``'s and ``[families]``' f32 gates, ``[serve]``'s forward ==
-decode check, the first steps' f32 kernel passes), each under its own
-key; the last line is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero before either is printed.
+decode check, the first steps' f32 kernel passes) and of the train
+example, each under its own key; every kernel an example launched has an
+``examples`` count among its paths; the last line is ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero before either is printed.
 """
 from __future__ import annotations
 
@@ -353,6 +367,44 @@ FLASH_FAMILY_SHAPES = {
 ROOFLINE_SHARE_MAX = 1.05
 ROOFLINE_PEAK_RATIO = 2.0
 ROOFLINE_SECONDS = 30.0
+# [examples]: the port's four examples (repro_torch.examples), each called
+# through its main(argv) on the card, within EXAMPLES_SECONDS in all. The
+# values they must show are the reference examples' own output on the CPU:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python examples/quickstart.py
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python examples/fleet_scheduler.py
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python examples/serve_batched.py
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python examples/train_carbon_aware.py \
+#       --steps 80 --chunk 20 --batch 2 --seq 32 --inject-failure
+# (the train example's plan, waits, restarts and clock do not depend on the
+# model's size or the batch). The fleet reads no dry-run record (a checkout
+# holds none): every job takes the 1-s fallback, as in those runs.
+EXAMPLES_SECONDS = 120.0
+EXAMPLES_TRACE = os.path.join(ROOT, "chiprun_out",
+                              "examples_serve_trace.jsonl")
+QUICKSTART_ASAP = 17966
+QUICKSTART_COSTS = {
+    "slack": 154, "slack-LS": 154, "slackR": 0, "slackR-LS": 0,
+    "slackW": 1145, "slackW-LS": 689, "slackWR": 1145, "slackWR-LS": 689,
+    "press": 308, "press-LS": 308, "pressR": 264, "pressR-LS": 264,
+    "pressW": 308, "pressW-LS": 286, "pressWR": 44, "pressWR-LS": 44}
+QUICKSTART_OPTIMUM = 1101
+# fleet: (robust variant, its worst-member cost, ASAP's worst) per fleet
+FLEET_ROBUST = {"train-heavy": ("press-LS", 11168470, 58483778),
+                "mixed-serve": ("press-LS", 41010010, 70932450)}
+FLEET_JOINT = {"fixed": 8103099, "searched": 5513727, "candidates": 15,
+               "rounds": 2, "winner": "r1:swap"}
+FLEET_WINDOWS = [("press-LS", 26099599), ("press-LS", 10541339),
+                 ("pressR-LS", 31701720)]
+# serve at its defaults (12 requests, 4 slots, 24 new tokens)
+SERVE_ADMISSION = {"chunks": 3, "cost": 4286, "asap_cost": 8174,
+                   "starts": [19, 24, 29], "coalesced": 4, "batches": 2,
+                   "fallback_stage": "asap", "spans": 26}
+# train: the example's real config at full width, 80 steps (a cut of 120)
+TRAIN_EXAMPLE_ARGV = ["--model-size", "100m", "--steps", "80", "--chunk",
+                      "20", "--inject-failure"]
+TRAIN_EXAMPLE_PLAN = (34570, 75990)          # cost, ASAP cost
+TRAIN_EXAMPLE_WAITS = [(0, 100.0)]           # (chunk, simulated seconds)
+TRAIN_EXAMPLE_END = (80, 1, 180.0)           # steps, restarts, clock
 
 
 class SmokeFailure(Exception):
@@ -3669,6 +3721,147 @@ def phase_roofline(counts: list[dict], readings: list[dict]) -> list[dict]:
     return rows
 
 
+def example_launches() -> dict:
+    """Every kernel's launch count since the last
+    :func:`reset_example_launches`: the scheduler kernels' and each flash
+    stage's by input type (``flash_fwd_float32``, ...)."""
+    from repro_torch.kernels import carbon_cost, gain_scan
+    from repro_torch.kernels import flash_attention as fa
+
+    return {"gain_scan": gain_scan.LAUNCHES,
+            "carbon_cost": carbon_cost.LAUNCHES,
+            **{f"{name}_{dt}": n for dt, c in fa.COUNTS.items()
+               for name, n in c.items()}}
+
+
+def reset_example_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import carbon_cost, gain_scan
+    from repro_torch.kernels import flash_attention as fa
+
+    gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    fa.reset_launches()
+
+
+def phase_examples() -> dict:
+    """[examples]: the port's four examples, each through ``main(argv)``
+    with no ``--device`` (the card), held to the reference examples'
+    output (the ``QUICKSTART_*``, ``FLEET_*``, ``SERVE_*`` and
+    ``TRAIN_EXAMPLE_*`` constants): (a) quickstart's 17-variant cost table,
+    every -LS cost at or below its greedy cost, the exact audit's optimum;
+    (b) the fleet's robust variants and worst-member costs on the 1-s
+    fallback, the joint mapping search and the three rolling windows; (c)
+    serve at its defaults, its admission plan, coalescing and degradation,
+    a trace of parseable JSONL with every span, every request finished;
+    (d) train on the 100M config at full width with injected failures:
+    the plan, the waits, one restart, the simulated clock, finite losses,
+    the last below the first. Each example's kernel launches are counted
+    from 0; the fleet must launch the gain kernel and train the f32 flash
+    forward and every backward stage. Returns each example's seconds and
+    launches."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import (fleet_scheduler, quickstart,
+                                      serve_batched, train_carbon_aware)
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(EXAMPLES_TRACE), exist_ok=True)
+    if os.path.exists(EXAMPLES_TRACE):
+        os.remove(EXAMPLES_TRACE)
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    runs = {}
+
+    def drive(name, module, argv):
+        reset_example_launches()
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "launches": {k: n for k, n in example_launches().items()
+                                   if n}}
+        check(out["device"].startswith("cuda"), f"[examples] {name} ran on "
+              f"{out['device']}")
+        return out
+
+    # (a) quickstart
+    q = drive("quickstart", quickstart, [])
+    check(q["asap"] == QUICKSTART_ASAP and q["costs"] == QUICKSTART_COSTS,
+          f"[examples] (a) quickstart's costs: ASAP {q['asap']}, "
+          f"{q['costs']}")
+    check(all(c <= q["costs"][v.removesuffix("-LS")]
+              for v, c in q["costs"].items() if v.endswith("-LS")),
+          f"[examples] (a) an -LS cost above its greedy cost: {q['costs']}")
+    check(q["optimum"] == QUICKSTART_OPTIMUM and q["gap"] >= 1.0,
+          f"[examples] (a) exact audit: optimum {q['optimum']}, gap "
+          f"{q['gap']}")
+
+    # (b) fleet
+    f = drive("fleet_scheduler", fleet_scheduler, [])
+    check(set(f["step_sources"].values()) == {fleet_scheduler.FALLBACK},
+          f"[examples] (b) the fleet read dry-run records: "
+          f"{f['step_sources']}")
+    got = {n: (r["robust"], r["worst"], r["asap_worst"])
+           for n, r in f["fleets"].items()}
+    check(got == FLEET_ROBUST, f"[examples] (b) robust picks {got}")
+    check(f["joint"] == FLEET_JOINT, f"[examples] (b) joint {f['joint']}")
+    check(f["windows"] == FLEET_WINDOWS,
+          f"[examples] (b) windows {f['windows']}")
+    check(runs["fleet_scheduler"]["launches"].get("gain_scan", 0) > 0,
+          "[examples] (b) the fleet never launched the gain kernel")
+
+    # (c) serve at its defaults
+    s = drive("serve_batched", serve_batched, ["--trace-out", EXAMPLES_TRACE])
+    a = s["admission"]
+    check({k: a[k] for k in SERVE_ADMISSION} == SERVE_ADMISSION
+          and not a["degraded"], f"[examples] (c) admission {a}")
+    with open(EXAMPLES_TRACE) as fh:
+        spans = [json.loads(line) for line in fh]
+    check(len(spans) == SERVE_ADMISSION["spans"], f"[examples] (c) "
+          f"{len(spans)} spans in {EXAMPLES_TRACE}")
+    check(all(r.done for r in s["requests"]) and len(s["requests"]) == 12,
+          "[examples] (c) a request did not finish")
+
+    # (d) train, the 100M config
+    t = drive("train_carbon_aware", train_carbon_aware,
+              TRAIN_EXAMPLE_ARGV + ["--ckpt-dir",
+                                    os.path.join(ckpt.name, "ckpt")])
+    ckpt.cleanup()
+    losses = [loss for loss, _ in t["logged"].values()]
+    check((t["cost"], t["asap_cost"]) == TRAIN_EXAMPLE_PLAN,
+          f"[examples] (d) plan {t['cost']} vs {t['asap_cost']}")
+    check(t["waits"] == TRAIN_EXAMPLE_WAITS, f"[examples] (d) waits "
+          f"{t['waits']}")
+    check((t["steps"], t["restarts"], t["clock"]) == TRAIN_EXAMPLE_END,
+          f"[examples] (d) {t['steps']} steps, {t['restarts']} restarts, "
+          f"clock {t['clock']}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"[examples] (d) losses {losses}")
+    tl = runs["train_carbon_aware"]["launches"]
+    check(all(tl.get(f"{k}_float32", 0) > 0
+              for k in ("flash_fwd",) + BWD_KERNELS),
+          f"[examples] (d) an f32 flash stage was never launched: {tl}")
+
+    secs = time.perf_counter() - t_phase
+    for name, r in runs.items():
+        log(f"[examples] {name}: {r['seconds']:.3f} s, launches "
+            f"{r['launches']}")
+    log(f"[examples] (a) quickstart ASAP {q['asap']}, best {q['best']}, "
+        f"exact optimum {q['optimum']} (gap {q['gap']:.3f}); (b) fleet "
+        f"robust {got}, joint {f['joint']}, windows {f['windows']}; (c) "
+        f"serve {a['chunks']} chunks {a['cost']} vs {a['asap_cost']} starts "
+        f"{a['starts']}, {a['coalesced']} coalesced into {a['batches']}, "
+        f"degraded to {a['fallback_stage']}, {len(spans)} spans; (d) train "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[examples] four examples in {secs:.3f} s (limit "
+        f"{EXAMPLES_SECONDS} s)")
+    check(secs <= EXAMPLES_SECONDS, f"[examples] took {secs:.3f} s")
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3721,23 +3914,38 @@ def main() -> int:
     train_families_run = phase_train_families(dev)
     phase_roofline(roofline_counts, roofline_readings(
         model_run, train_run, families_run, train_families_run))
+    examples_run = phase_examples()
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
 
+    def examples(key):
+        """The examples' launches of one kernel (``example_launches``'s
+        key), summed over the four."""
+        return sum(r["launches"].get(key, 0) for r in examples_run.values())
+
     # the f32 kernels run in checks beside the main paths, each counted on
     # its own: [model]'s and [families]' f32 gates, [serve]'s forward ==
     # decode check, the first steps' f32 kernel passes ([train] (b),
-    # [train-families] (c))
+    # [train-families] (c)); and on a main path of their own, the train
+    # example's 100M config in f32 ([examples] (d))
     f32_fwd = {"model_f32_gate": model_run["f32_launches"],
                "serve_forward_vs_decode": serve_run["eq_launches"],
                "families_f32_gate": families_run["f32_launches"],
                "train_first_step": train_run["f32_launches"]["flash_fwd"],
                "train_families_first_step":
-                   train_families_run["f32_launches"]["flash_fwd"]}
+                   train_families_run["f32_launches"]["flash_fwd"],
+               "examples": examples("flash_fwd_float32")}
     f32_bwd = {"train_first_step": train_run["f32_launches"],
                "train_families_first_step":
-                   train_families_run["f32_launches"]}
+                   train_families_run["f32_launches"],
+               "examples": {k: examples(f"{k}_float32")
+                            for k in bwd_kernels}}
+    # the examples' launches of the other kernels, where they ran
+    ran = {k: examples(k) for k in ("gain_scan", "carbon_cost",
+                                    "flash_fwd_bfloat16")}
+    ran_bwd = sum(examples(f"{k}_bfloat16") for k in bwd_kernels)
+    by_examples = {k: {"examples": n} if n else {} for k, n in ran.items()}
     check(all(n > 0 for n in f32_fwd.values()),
           f"an f32 check launched no f32 flash forward: {f32_fwd}")
     check(all(c[k] > 0 for c in f32_bwd.values() for k in bwd_kernels),
@@ -3764,7 +3972,8 @@ def main() -> int:
                              "session": session_launches["gain_scan"],
                              "mapping": mapping_run["gain_scan"],
                              "service": service_run["gain_scan"],
-                             "sharded": sharded_run["gain_scan"]},
+                             "sharded": sharded_run["gain_scan"],
+                             **by_examples["gain_scan"]},
         "max_abs_err": main_mu["max_abs_err"],
         "ms": main_mu["ms"],
         "ms_from": main_mu["ms_from"],
@@ -3784,12 +3993,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/carbon_cost.py:31",
         "launches": cost_launches + exact_launches["carbon_cost"]
         + session_launches["carbon_cost"] + mapping_run["carbon_cost"]
-        + service_run["carbon_cost"],
+        + service_run["carbon_cost"] + ran["carbon_cost"],
         "launches_by_path": {"cost": cost_launches,
                              "exact": exact_launches["carbon_cost"],
                              "session": session_launches["carbon_cost"],
                              "mapping": mapping_run["carbon_cost"],
-                             "service": service_run["carbon_cost"]},
+                             "service": service_run["carbon_cost"],
+                             **by_examples["carbon_cost"]},
         "max_abs_err": plan_row["max_abs_err"],
         "ms": plan_row["ms"],
         "ms_from": plan_row["ms_from"],
@@ -3812,13 +4022,15 @@ def main() -> int:
         "kernel": FWD_KERNEL_NAMES["bfloat16"],
         "launches": model_run["launches"] + serve_run["launches"]
         + train_run["launches"]["flash_fwd"] + families_run["launches"]
-        + train_families_run["launches"]["flash_fwd"],
+        + train_families_run["launches"]["flash_fwd"]
+        + ran["flash_fwd_bfloat16"],
         "launches_by_path": {
             "model": model_run["launches"],
             "serve": serve_run["launches"],
             "train": train_run["launches"]["flash_fwd"],
             "families": families_run["launches"],
-            "train_families": train_families_run["launches"]["flash_fwd"]},
+            "train_families": train_families_run["launches"]["flash_fwd"],
+            **by_examples["flash_fwd_bfloat16"]},
         **{k: flash_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -3846,15 +4058,17 @@ def main() -> int:
         "note": bwd_note,
         "kernels": list(bwd_names[torch.bfloat16]),
         "launches": sum(run["launches"][k] for k in bwd_kernels
-                        for run in (train_run, train_families_run)),
+                        for run in (train_run, train_families_run))
+        + ran_bwd,
         "launches_by_kernel": {
             name: train_run["launches"][k]
-            + train_families_run["launches"][k]
+            + train_families_run["launches"][k] + examples(f"{k}_bfloat16")
             for k, name in zip(bwd_kernels, bwd_names[torch.bfloat16])},
         "launches_by_path": {
             "train": sum(train_run["launches"][k] for k in bwd_kernels),
             "train_families": sum(train_families_run["launches"][k]
-                                  for k in bwd_kernels)},
+                                  for k in bwd_kernels),
+            **({"examples": ran_bwd} if ran_bwd else {})},
         **{k: bwd_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -40,7 +40,12 @@ stages likewise), which is what :mod:`chip_smoke`'s ``[roofline]`` phase
 bounds its timed steps with.
 
 Usage: python -m repro_torch.launch.dryrun --arch qwen2.5-3b \
-         --shape train_4k --mesh none --mode both --out experiments/dryrun
+         --shape train_4k --mesh none --mode both \
+         --out experiments/dryrun_torch
+
+``--out`` defaults to ``experiments/dryrun_torch``, the port's own
+directory: the reference's dry run writes the same file names into
+``experiments/dryrun``.
 """
 from __future__ import annotations
 
@@ -712,7 +717,7 @@ def main(argv=None):
                     choices=["none", "single", "multi"])
     ap.add_argument("--mode", default="both",
                     choices=["compile", "cost", "both"])
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--mp", action="store_true",
                     help="bf16 live params + f32 master (halves gathers)")

@@ -1,7 +1,7 @@
 """The dry run of every (arch x shape) cell at ``--mesh none``, as a table.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun_sweep \
-        [--out experiments/dryrun] [--mesh none]
+        [--out experiments/dryrun_torch] [--mesh none]
 
 Runs :func:`repro_torch.launch.dryrun.run_cell` (mode ``both``) for every
 architecture and shape on the meta device (no card, no memory), writes
@@ -38,7 +38,7 @@ def cell(rec: dict) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--mesh", default="none", choices=["none", "single"])
     args = ap.parse_args(argv)
     shapes = list(SHAPES)

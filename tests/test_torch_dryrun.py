@@ -420,6 +420,39 @@ def test_cli_writes_its_json_without_a_gpu(tmp_path):
     assert m["argument_size_in_bytes"] > 0 and m["temp_size_in_bytes"] > 0
 
 
+def test_cli_writes_under_the_port_s_own_default(tmp_path, monkeypatch,
+                                                 capsys):
+    """Without ``--out`` the dry run writes into experiments/dryrun_torch,
+    never the reference's experiments/dryrun."""
+    monkeypatch.chdir(tmp_path)
+    prev = ctx.host_device_count()
+    try:
+        D.main(["--arch", "smollm-360m", "--shape", "train_4k", "--mesh",
+                "none", "--mode", "cost"])
+    finally:
+        ctx.set_host_device_count(prev)
+    capsys.readouterr()
+    assert os.listdir(tmp_path / "experiments") == ["dryrun_torch"]
+    with open(tmp_path / "experiments" / "dryrun_torch"
+              / "smollm-360m_train_4k_none.json") as f:
+        assert json.load(f)["roofline"]["hw"] == "h100-sxm5"
+
+
+def test_sweep_writes_under_the_port_s_own_default(monkeypatch, capsys):
+    from repro_torch.launch import dryrun_sweep
+
+    dirs = set()
+
+    def run_cell(arch, shape, mesh, mode, out_dir):
+        dirs.add(out_dir)
+        return {"skipped": "stand-in"}
+
+    monkeypatch.setattr(dryrun_sweep, "run_cell", run_cell)
+    dryrun_sweep.main([])
+    capsys.readouterr()
+    assert dirs == {"experiments/dryrun_torch"}
+
+
 def test_single_mesh_checks_specs_and_records_per_device_bytes(tmp_path):
     """A full-width cell on the 256-device production mesh: the spec trees
     shard evenly, the arguments per device are the whole ones divided as
