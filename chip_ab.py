@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Time the scheduler kernels of two checkouts on one NVIDIA GPU, in turns.
+"""Time the scheduler kernels, or the train step, of two checkouts on one
+NVIDIA GPU, in turns.
 
-    python3 chip_ab.py PARENT_ROOT
+    python3 chip_ab.py [--train] [--rounds N] PARENT_ROOT
 
 The change is the checkout this script lies in. For each run, a process
-of its own imports that checkout's ``chip_smoke.py``, builds its
-kernels and runs its kernel phases: the gain sweep against its plain
-version at the climb's shape (R=32, Np=4352, Tp=1024; mu = 10 and 42) and
-the deficit timeline at the plan's shape (N=4304, T=776) and the large one
-(N=30000, T=4096), each with the profiler's device time, a CUDA-graph
-replay, eager CUDA events and the plain version's time. It then times the
-cost oracle's call, ``ops.carbon_cost`` on numpy arrays at the plan's
-shape, on the host clock, each call ending in the copy of its cost to the
-host. The runs go parent, change, change, parent, so both are measured in
-one call on one card. Prints one ``AB {...}`` JSON line per run, then the
-card's name and power limit and one JSON summary line.
+of its own imports that checkout's ``chip_smoke.py`` and builds its
+kernels. By default it then runs its kernel phases: the gain sweep
+against its plain version at the climb's shape (R=32, Np=4352, Tp=1024;
+mu = 10 and 42) and the deficit timeline at the plan's shape (N=4304,
+T=776) and the large one (N=30000, T=4096), each with the profiler's
+device time, a CUDA-graph replay, eager CUDA events and the plain
+version's time. It then times the cost oracle's call, ``ops.carbon_cost``
+on numpy arrays at the plan's shape, on the host clock, each call ending
+in the copy of its cost to the host. With ``--train`` it runs instead the
+train entry point as ``chip_smoke.py``'s ``[train]`` (a) calls it (its
+arch, steps, batch and sequence, the CarbonGate, checkpoints), with no
+mesh, and reads its step seconds: the cold first step and the median,
+least and most of the warm ones. The runs go parent, change, change,
+parent, ``N`` times over (default 1), so both are measured in one call on
+one card. Prints one ``AB {...}`` JSON line per run, then the card's name
+and power limit and one JSON summary line: each metric's readings per
+side, in run order, and their median.
 """
 from __future__ import annotations
 
 import json
+import operator
 import os
 import subprocess
 import sys
@@ -54,6 +62,37 @@ print("AB " + json.dumps({"gain": gain, "deficit": deficit,
                           "oracle_ms": oracle_ms}), flush=True)
 """
 
+TRAIN_CHILD = r"""
+import json, os, sys, tempfile
+root = sys.argv[1]
+sys.path.insert(0, root)
+import chip_smoke as cs
+sys.path.insert(0, cs.SRC)
+import numpy as np
+import torch
+from repro_torch import obs
+from repro_torch.configs import ARCHS
+from repro_torch.launch.train import train
+
+obs.configure(tracing=False, torch_hooks_on=True)      # as chip_smoke's main
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.build_kernels()
+with tempfile.TemporaryDirectory(prefix="chip_ab_train_") as tmp:
+    out = train(ARCHS[cs.TRAIN_ARCH], steps=cs.TRAIN_STEPS, batch=cs.TRAIN_B,
+                seq=cs.TRAIN_S, carbon_gate=True,
+                ckpt_dir=os.path.join(tmp, "cli"),
+                device=torch.device("cuda"), log=lambda m: None)
+secs = out["step_seconds"]
+print("AB " + json.dumps({"cold_s": secs[0],
+                          "warm_s": float(np.median(secs[1:])),
+                          "warm_min_s": min(secs[1:]),
+                          "warm_max_s": max(secs[1:])}), flush=True)
+"""
+
+TRAIN_METRICS = {f"train_{k}": operator.itemgetter(k) for k in
+                 ("cold_s", "warm_s", "warm_min_s", "warm_max_s")}
+
 METRICS = {                     # summary name -> how to read it from a run
     "gain_scan_mu10_ms": lambda r: r["gain"][0]["ms"],
     "gain_scan_mu42_ms": lambda r: r["gain"][1]["ms"],
@@ -63,8 +102,8 @@ METRICS = {                     # summary name -> how to read it from a run
 }
 
 
-def run(root: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD, root],
+def run(root: str, child: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", child, root],
                           capture_output=True, text=True, timeout=900)
     sys.stdout.write(proc.stdout)
     if proc.returncode != 0:
@@ -76,22 +115,33 @@ def run(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
-    parent = os.path.abspath(sys.argv[1])
+    import argparse
+    import statistics
+
+    ap = argparse.ArgumentParser(usage=__doc__)
+    ap.add_argument("parent")
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    child, metrics = (TRAIN_CHILD, TRAIN_METRICS) if args.train \
+        else (CHILD, METRICS)
+    parent = os.path.abspath(args.parent)
     change = os.path.dirname(os.path.abspath(__file__))
     order = (("parent", parent), ("change", change), ("change", change),
-             ("parent", parent))
+             ("parent", parent)) * args.rounds
     runs = {"parent": [], "change": []}
     for label, root in order:
         print(f"[ab] {label}: {root}", flush=True)
-        runs[label].append(run(root))
+        runs[label].append(run(root, child))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    summary = {name: {label: [read(r) for r in rs]
-                      for label, rs in runs.items()}
-               for name, read in METRICS.items()}
+    summary = {}
+    for name, read in metrics.items():
+        readings = {label: [read(r) for r in rs]
+                    for label, rs in runs.items()}
+        summary[name] = {**readings, "median": {
+            label: statistics.median(xs) for label, xs in readings.items()}}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     return 0

@@ -27,10 +27,10 @@ reference package ``repro``. Phases, each fatal on failure:
 4. the heuristic plan: ``Planner(platform, engine="torch").plan(...)`` on
    the paper's section 6.1 matrix (72-processor small cluster, the four
    nf-core families at 2000 workflow tasks, HEFT-mapped, deadline 2x ASAP,
-   the S1-S4 ensemble, all 17 variants), cold and warm; every schedule is
-   validated, every -LS cost is <= its greedy cost, and the non-LS columns
-   equal the port's numpy engine bitwise; the cold plan's span split from
-   the port's tracer and ``obs.torch_hooks.snapshot()``;
+   the S1-S4 ensemble, all 17 variants), cold (the warm re-plan is cut);
+   every schedule is validated, every -LS cost is <= its greedy cost, and
+   the non-LS columns equal the port's numpy engine bitwise; the span
+   split from the port's tracer and ``obs.torch_hooks.snapshot()``;
 5. the cost oracle: every schedule of that plan costed through
    ``ops.carbon_cost`` on the card equals its int64 cost, and its deficit
    timeline equals numpy's bitwise; the oracle's wall time per schedule;
@@ -192,22 +192,33 @@ reference package ``repro``. Phases, each fatal on failure:
    train on the example's 100M config at full width, 80 steps (a cut of
    120) with injected failures: the plan, the waits, one restart, the
    simulated clock, finite losses, the last below the first (through the
-   f32 flash forward and backward).
+   f32 flash forward and backward);
+21. training under the parallel plan (``[mesh]``): ``launch.train.train``
+   with ``mesh=`` a (data=1, model=1) mesh over a one-process NCCL group
+   (DTensor over a ``DeviceMesh``; the attention's flash kernels on local
+   shards), SmolLM-360M at full width, B=8, S=256: an f32 copy of the
+   config, ``MESH_STEPS`` steps, losses and gradient norms against the
+   unsharded step of the same model within 1e-5, the first step's
+   gradients within 1e-4 / 1e-5, 64 forward and 32 of each backward f32
+   flash launch a step; then ``MESH_STEPS`` bf16 steps over f32 masters at
+   [train]'s TP of 16, their warm step beside [train]'s (the cost of
+   DTensor dispatch).
 
-Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20) is driven with
-the kernels' launch counts set to 0 just before it and read just after; a
-kernel the path runs that was never launched fails the run. f32 matrix
-products on the card run in full f32: TF32 is switched off for matmuls
-and cuDNN before any phase (the f32 flash kernels' split TF32 is their
+Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20, 21) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after; a kernel the path runs that was never launched fails the run. f32
+matrix products on the card run in full f32: TF32 is switched off for
+matmuls and cuDNN before any phase (the f32 flash kernels' split TF32 is their
 own arithmetic and reads no such flag). The line before the last is a
 JSON object with one entry per kernel, the f32 flash forward and backward
 apart from the bf16 ones: the bf16 kernels' launches are their main
 paths', the f32 kernels' those of the f32 checks beside them
 (``[model]``'s and ``[families]``' f32 gates, ``[serve]``'s forward ==
 decode check, the first steps' f32 kernel passes) and of the train
-example, each under its own key; every kernel an example launched has an
-``examples`` count among its paths; the last line is ``{"ok": true,
-"device": {...}}``. Any failure exits non-zero before either is printed.
+example's and ``[mesh]``'s f32 runs, each under its own key; every kernel
+an example launched has an ``examples`` count among its paths; the last
+line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before either is printed.
 """
 from __future__ import annotations
 
@@ -304,6 +315,17 @@ RESTART_EVERY = 2            # (c): a checkpoint every 2 steps (4 saves)
 RESTART_KEEP = 2             # (c): checkpoints kept (so 2 are deleted)
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6    # that test's tolerance
 MP_STEPS = 1                 # (d): --mp, one step, its checkpoint (a cut of 3)
+# [mesh]: the train step under the parallel plan (DTensor over a DeviceMesh,
+# one process a mesh position) at [train]'s batch: one process, NCCL, mesh
+# (data=1, model=1), full width. Four processes sharing cuda:0 over gloo
+# do not run on the card's torch: DTensor's all-gather (a functional
+# collective) dies with SIGSEGV there (PERF.md section 7)
+MESH_STEPS = 3
+# against the unsharded step of the same model: tests/test_torch_train.py's
+# LOSS_RTOL (loss and gradient norm per step) and GRAD_RTOL / GRAD_ATOL (the
+# first step's gradients; atol a fraction of the leaf's largest magnitude)
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 1e-4, 1e-5
 # (b) first step, kernel vs plain attention, f32 copy of the config: the
 # loss and the gradients differ only by the order of f32 sums in the two
 # attentions, carried through 32 layers: elementwise
@@ -1053,18 +1075,16 @@ def phase_plan(plat, insts, grid):
     split = span_split(tracer.finished(), (
         "plan", "prepare_graph", "bucket_launch", "ls_climb",
         "ls_device_climb", "ls_polish"))
-    warm, warm_s = timed_plan(planner, request)
+    # no warm re-plan (a cut, PERF.md section 4): [sharded] (c) and
+    # [service] (a) plan the matrix again on the card, held to this plan
     I, P, V = cold.costs.shape
     check((I, P, V) == (len(insts), len(SCENARIOS), 17),
           f"cost tensor shape {cold.costs.shape}")
-    check(np.array_equal(cold.costs, warm.costs), "warm plan != cold plan")
     log(f"[plan] I x P x V = {I} x {P} x {V}, engine={cold.engine}; cold "
-        f"{cold_s:.3f} s, warm {warm_s:.3f} s; gain_scan launches "
-        f"{launches} (cold plan)")
-    for tag, res in (("cold", cold), ("warm", warm)):
-        phases = ", ".join(f"{k} {v:.3f}" for k, v in
-                           res.phase_seconds.items())
-        log(f"[plan] {tag} split (s): {phases}")
+        f"{cold_s:.3f} s; gain_scan launches {launches}")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in
+                       cold.phase_seconds.items())
+    log(f"[plan] cold split (s): {phases}")
     log(f"[plan] cold span split: {split_text(split)}")
     log(f"[plan] torch_hooks.snapshot(): "
         f"{json.dumps(torch_hooks.snapshot(obs.registry()))}")
@@ -1108,7 +1128,7 @@ def phase_plan(plat, insts, grid):
             f"{cold.costs[i, :, asap].tolist()}, saving "
             f"{np.round(saving, 4).tolist()}); nominal best {nominal}; "
             f"robust {rv} (worst {rworst})")
-    return cold, launches, cold_s, warm_s
+    return cold, launches, cold_s
 
 
 def cpu_replan(i, threads):
@@ -3460,6 +3480,172 @@ def phase_train(dev):
             "a_peak": a_peak, "seconds": secs_phase}
 
 
+def phase_mesh(dev, train_warm_s):
+    """[mesh]: the dense family's train step under the reference's
+    parallel plan, through the train driver's ``mesh=`` (DTensor over a
+    ``DeviceMesh``, the attention's flash kernels on local shards), one
+    process over NCCL on a (data=1, model=1) mesh, SmolLM-360M at full
+    width: an f32 copy of the config, ``MESH_STEPS`` steps held to the
+    unsharded step of the same model (TP 1, seed 0) per step, and the
+    first step's gradients; then ``MESH_STEPS`` bf16 steps over f32
+    masters at [train]'s TP of 16, their warm step against [train]'s, and
+    one profiled warm step."""
+    import dataclasses
+    import gc
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.sharding import ctx, place
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import (init_state, loss_and_grads,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[TRAIN_ARCH]
+    L = cfg.num_layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    warmup = min(50, MESH_STEPS // 5 + 1)       # the driver's, at 3 steps
+    data = SyntheticTokens(cfg32, ShapeConfig("cli", "train", TRAIN_S,
+                                              TRAIN_B), seed=0)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    tmp = tmp_dir.name
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def per_step(got, want, rtol, what):
+        for s, (a, b) in enumerate(zip(got, want)):
+            check(math.isfinite(a) and abs(a - b) <= rtol * abs(b),
+                  f"[mesh] {what} step {s}: {a!r} vs {b!r} (rtol {rtol})")
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    launch_mesh.init_process_group(dev, store=os.path.join(tmp, "store"))
+    try:
+        mesh = launch_mesh.init_mesh((1, 1), ("data", "model"), dev)
+        backend = dist.get_backend()
+        check(backend == "nccl", f"[mesh] the one-process group is {backend}")
+
+        # the unsharded step of the same model (TP 1, seed 0)
+        t0 = time.perf_counter()
+        model = build_model(cfg32, tp=1, device=dev)
+        state = init_state(model, gen())
+        _, g_plain = loss_and_grads(model, state["params"], data.batch(0))
+        step = make_train_step(model, warmup=warmup, donate=True)
+        plain_l, plain_n = [], []
+        for s in range(MESH_STEPS):
+            state, m = step(state, data.batch(s))
+            plain_l.append(float(m["loss"]))
+            plain_n.append(float(m["gnorm"]))
+        del state, step
+        plain_s = time.perf_counter() - t0
+
+        # the first step's gradients, placed on the mesh
+        ctx.configure(mesh)
+        placed = place.place_state(init_state(model, gen()), mesh,
+                                   device=dev)
+        _, g_mesh = loss_and_grads(model, placed["params"], data.batch(0))
+        worst, bitwise = 0.0, True
+        placements = {path: p.placements for path, p, _ in
+                      leaf_pairs(placed["params"], placed["params"])}
+        for path, a, b in leaf_pairs(g_mesh, g_plain):
+            check(a.placements == placements[path], f"[mesh] gradient "
+                  f"{path} placed {a.placements}, its parameter "
+                  f"{placements[path]}")
+            a = a.to_local()
+            atol = MESH_GRAD_ATOL * float(b.abs().max())
+            err = float(((a - b).abs() - MESH_GRAD_RTOL * b.abs()).max())
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+            bitwise &= bool(torch.equal(a, b))
+            check(err <= atol, f"[mesh] first-step gradient {path}: "
+                  f"|g - g_plain| - rtol |g_plain| reaches {err} > {atol}")
+        del placed, g_mesh, g_plain, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the driver on the mesh, f32: the path
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = train(cfg32, steps=MESH_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                    ckpt_dir=None, device=dev, mesh=mesh,
+                    log=lambda m: log(f"[mesh] {m}"))
+        mesh_s = time.perf_counter() - t0
+        f32_launches = dict(fa.COUNTS["float32"])
+        want = {"flash_fwd": 2 * L * MESH_STEPS,
+                **{k: L * MESH_STEPS for k in fa.BWD_KERNELS}}
+        check(f32_launches == want, f"[mesh] f32 flash launches "
+              f"{f32_launches}, predicted {want}")
+        loss_err = per_step(out["losses"], plain_l, MESH_LOSS_RTOL, "loss")
+        norm_err = per_step(out["gnorms"], plain_n, MESH_LOSS_RTOL, "gnorm")
+        check(all(x.to_local().shape == x.shape
+                  for x in tree_leaves(out["state"]["params"])),
+              "[mesh] a shard on a (1, 1) mesh is not its whole leaf")
+        losses32, secs32 = out["losses"], out["step_seconds"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[mesh] {cfg.name} f32 ({L} layers, d={cfg.d_model}, vocab "
+            f"{cfg.vocab}) on a (data=1, model=1) mesh over {backend}, "
+            f"B={TRAIN_B} S={TRAIN_S}, {MESH_STEPS} steps in {mesh_s:.3f} s "
+            f"(step s {[round(x, 4) for x in secs32]}): losses "
+            f"{[round(x, 6) for x in losses32]} vs unsharded "
+            f"{[round(x, 6) for x in plain_l]} (worst relative {loss_err:.3g}"
+            f"; norms {norm_err:.3g}; <= {MESH_LOSS_RTOL}); first-step "
+            f"gradients worst |g - g_plain| / max |g_plain| {worst:.3g} "
+            f"(bitwise equal: {bitwise}); the unsharded run {plain_s:.3f} s; "
+            f"f32 flash launches {f32_launches}")
+
+        # bf16 over f32 masters at [train]'s TP, timed against [train]
+        fa.reset_launches()
+        out = train(cfg, steps=MESH_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                    ckpt_dir=None, device=dev, mesh=mesh, tp=16,
+                    log=lambda m: log(f"[mesh] bf16 {m}"))
+        bf16_launches = dict(fa.COUNTS["bfloat16"])
+        check(bf16_launches == want, f"[mesh] bf16 flash launches "
+              f"{bf16_launches}, predicted {want}")
+        check(all(math.isfinite(x) for x in out["losses"] + out["gnorms"]),
+              f"[mesh] bf16 losses {out['losses']}")
+        secs16 = out["step_seconds"]
+        warm16 = float(np.median(secs16[1:]))
+        # one profiled warm step: the driver's step function on its state
+        state, step_fn = out["state"], out["step_fn"]
+        batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
+                                                 TRAIN_B), seed=0).batch(
+                                                     MESH_STEPS)
+        step_prof = device_breakdown(lambda: step_fn(state, batch), 1,
+                                     PROFILE_OUT)
+        del out, state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[mesh] bf16 over f32 masters (TP 16, as [train]): step s "
+            f"{[round(x, 4) for x in secs16]}, warm {warm16:.4f} (median of "
+            f"{len(secs16) - 1}) vs [train]'s warm {train_warm_s:.4f}: "
+            f"{warm16 / train_warm_s:.3f}x, {warm16 - train_warm_s:+.4f} s a "
+            f"step of DTensor dispatch; bf16 flash launches {bf16_launches}")
+        log(f"[mesh] bf16 profiled warm step: {breakdown_text(step_prof)}")
+    finally:
+        ctx.reset()
+        dist.destroy_process_group()
+
+    tmp_dir.cleanup()
+    secs = time.perf_counter() - t_phase
+    log(f"[mesh] phase {secs:.3f} s")
+    return {"launches": bf16_launches, "f32_launches": f32_launches,
+            "warm_s": warm16, "step": step_prof, "seconds": secs}
+
+
 def train_family_cell(dev, arch):
     """One configuration of ``[train-families]``: (a) ``launch.train.train``
     at full width (``TRAIN_FAMILY_CELLS``; random weights and synthetic
@@ -3896,7 +4082,7 @@ def main() -> int:
     cpu_run = wait_cpu(cpu_job)
     gain_rows = phase_kernels(dev)
     deficit_rows = phase_deficit(dev)
-    card, launches, cold_s, _ = phase_plan(plat, insts, grid)
+    card, launches, cold_s = phase_plan(plat, insts, grid)
     cost_launches, oracle_ms = phase_cost_oracle(insts, grid, card, dev)
     phase_cpu(cpu_run, grid, card, eager)
     phase_blocked(plat, insts, grid, card, eager)
@@ -3915,6 +4101,7 @@ def main() -> int:
     phase_roofline(roofline_counts, roofline_readings(
         model_run, train_run, families_run, train_families_run))
     examples_run = phase_examples()
+    mesh_run = phase_mesh(dev, train_run["warm_s"])
 
     from repro_torch.kernels.flash_attention import (
         BWD_KERNEL_NAMES as bwd_names, BWD_KERNELS as bwd_kernels)
@@ -3935,12 +4122,14 @@ def main() -> int:
                "train_first_step": train_run["f32_launches"]["flash_fwd"],
                "train_families_first_step":
                    train_families_run["f32_launches"]["flash_fwd"],
-               "examples": examples("flash_fwd_float32")}
+               "examples": examples("flash_fwd_float32"),
+               "mesh": mesh_run["f32_launches"]["flash_fwd"]}
     f32_bwd = {"train_first_step": train_run["f32_launches"],
                "train_families_first_step":
                    train_families_run["f32_launches"],
                "examples": {k: examples(f"{k}_float32")
-                            for k in bwd_kernels}}
+                            for k in bwd_kernels},
+               "mesh": mesh_run["f32_launches"]}
     # the examples' launches of the other kernels, where they ran
     ran = {k: examples(k) for k in ("gain_scan", "carbon_cost",
                                     "flash_fwd_bfloat16")}
@@ -4023,14 +4212,15 @@ def main() -> int:
         "launches": model_run["launches"] + serve_run["launches"]
         + train_run["launches"]["flash_fwd"] + families_run["launches"]
         + train_families_run["launches"]["flash_fwd"]
-        + ran["flash_fwd_bfloat16"],
+        + ran["flash_fwd_bfloat16"] + mesh_run["launches"]["flash_fwd"],
         "launches_by_path": {
             "model": model_run["launches"],
             "serve": serve_run["launches"],
             "train": train_run["launches"]["flash_fwd"],
             "families": families_run["launches"],
             "train_families": train_families_run["launches"]["flash_fwd"],
-            **by_examples["flash_fwd_bfloat16"]},
+            **by_examples["flash_fwd_bfloat16"],
+            "mesh": mesh_run["launches"]["flash_fwd"]},
         **{k: flash_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "event_ms", "graph_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -4058,17 +4248,20 @@ def main() -> int:
         "note": bwd_note,
         "kernels": list(bwd_names[torch.bfloat16]),
         "launches": sum(run["launches"][k] for k in bwd_kernels
-                        for run in (train_run, train_families_run))
+                        for run in (train_run, train_families_run,
+                                    mesh_run))
         + ran_bwd,
         "launches_by_kernel": {
             name: train_run["launches"][k]
             + train_families_run["launches"][k] + examples(f"{k}_bfloat16")
+            + mesh_run["launches"][k]
             for k, name in zip(bwd_kernels, bwd_names[torch.bfloat16])},
         "launches_by_path": {
             "train": sum(train_run["launches"][k] for k in bwd_kernels),
             "train_families": sum(train_families_run["launches"][k]
                                   for k in bwd_kernels),
-            **({"examples": ran_bwd} if ran_bwd else {})},
+            **({"examples": ran_bwd} if ran_bwd else {}),
+            "mesh": sum(mesh_run["launches"][k] for k in bwd_kernels)},
         **{k: bwd_rows["bfloat16"][k] for k in (
             "max_abs_err", "ms", "ms_from", "kernel_ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,4 +1,14 @@
-"""Checkpoint rotation + async save thread."""
+"""Checkpoint rotation + async save thread.
+
+With a ``mesh`` (a :class:`repro_torch.sharding.ctx.Mesh` whose state is
+placed on its ``DeviceMesh``) every rank calls :meth:`save` and
+:meth:`restore_latest` at the same steps: a save gathers the full state
+(a collective, :func:`repro_torch.sharding.place.gather_state`; an
+asynchronous save takes the same host copy) and rank 0 writes it, the
+same file an unsharded run writes; a restore reads on every rank the
+checkpoint rank 0 names and places it again
+(:func:`repro_torch.sharding.place.place_state`).
+"""
 from __future__ import annotations
 
 import os
@@ -10,11 +20,12 @@ from repro_torch.checkpoint.ckpt import latest_checkpoint, load_checkpoint, save
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, every: int = 50,
-                 async_save: bool = False):
+                 async_save: bool = False, mesh=None):
         self.directory = directory
         self.keep = keep
         self.every = every
         self.async_save = async_save
+        self.mesh = mesh
         self._thread: threading.Thread | None = None
 
     def maybe_save(self, state, step: int) -> bool:
@@ -23,7 +34,18 @@ class CheckpointManager:
         self.save(state, step)
         return True
 
+    def _rank(self) -> int:
+        import torch.distributed as dist
+        return dist.get_rank()
+
     def save(self, state, step: int) -> None:
+        if self.mesh is not None or self.async_save:
+            # a host copy, gathered under a mesh (every rank takes part):
+            # the caller's next in-place step cannot reach the save thread's
+            from repro_torch.sharding.place import gather_state
+            state = gather_state(state)
+            if self.mesh is not None and self._rank() != 0:
+                return
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -45,7 +67,19 @@ class CheckpointManager:
 
     def restore_latest(self, like=None):
         self.wait()
-        path = latest_checkpoint(self.directory)
+        if self.mesh is None:
+            path = latest_checkpoint(self.directory)
+        else:
+            import torch.distributed as dist
+            dist.barrier()                    # rank 0's writes are done
+            box = [latest_checkpoint(self.directory)
+                   if self._rank() == 0 else None]
+            dist.broadcast_object_list(box, src=0)
+            path = box[0]
         if path is None:
             return None, -1
-        return load_checkpoint(path, like=like)
+        state, step = load_checkpoint(path, like=like)
+        if self.mesh is not None:
+            from repro_torch.sharding.place import place_state
+            state = place_state(state, self.mesh)
+        return state, step

@@ -18,6 +18,15 @@ step's one-query attention over the cache stay plain torch
 standard RoPE (``rope == "std"``), Qwen2-VL's M-RoPE (``"mrope"``,
 [3, B, S] positions) or none (``"abs"``: Whisper adds learned positions to
 its inputs).
+
+Under a mesh (:func:`repro_torch.sharding.ctx.configure` with a
+``DeviceMesh``) the parameters and activations are DTensors and the
+reference's annotations place them (:func:`~repro_torch.sharding.ctx.shard`:
+q and the attention output on ("batch", -, "tp", -), the SwiGLU hidden on
+("batch", -, "tp")); the projections are DTensor matmuls, and the rotary
+positions and the attention itself run on each rank's local shards
+(``local_map``): batch rows over the batch axes, heads over "model". So the
+flash kernels run under TP on the card as they do on one device.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import torch
 
 from repro_torch.kernels.backend import resolve_mode
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import shard
 
 NEG = -1e30
 QCHUNK = 512     # query rows a block of the plain model attention (as there)
@@ -223,21 +234,68 @@ def self_attention(q, k, v, causal=True, mode=None):
     return attention_plain_model(q, k, v, causal)
 
 
+def _attention_core(q, k, v, cfg, pos, causal):
+    """Rotary positions, then :func:`self_attention` (or
+    :func:`gqa_scores_out` where the key length differs from the
+    queries': the kernel takes q, k, v of one shape)."""
+    q, k = _rope(q, k, cfg, pos)
+    if k.shape[1] != q.shape[1]:
+        return gqa_scores_out(q, k, v, causal)
+    return self_attention(q, k, v, causal)
+
+
+def _attention_local(q, k, v, cfg, pos, causal):
+    """:func:`_attention_core` of DTensors q, k, v, pos on each rank's
+    local shards (``local_map``): rows over the batch axes, q heads over
+    "model" where their count divides by its size (else every rank takes
+    all). kv heads split with q's when theirs divide too, so a rank's
+    q heads meet their own kv group; otherwise each rank expands all kv
+    heads and keeps its q heads' share."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = q.device_mesh
+    tp = ctx.tp_size()
+    hq, hkv = q.shape[2], k.shape[2]
+    heads = "tp" if hq % tp == 0 else None
+    qp = ctx.logical_placements(4, "batch", None, heads, None)
+    kv_split = heads is not None and hkv % tp == 0
+    kvp = qp if kv_split else ctx.logical_placements(4, "batch", None,
+                                                     None, None)
+    posp = None if pos is None else ctx.logical_placements(
+        pos.ndim, *(("batch", None) if pos.ndim == 2
+                    else (None, "batch", None)))
+
+    def local(q, k, v, pos):
+        if heads is not None and not kv_split:
+            k, v = _expand_kv(k, v, hq)
+            r, n = dm.get_local_rank("model"), q.shape[2]
+            k, v = k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n]
+        return _attention_core(q, k, v, cfg, pos, causal)
+
+    fn = local_map(local, out_placements=(qp,),
+                   in_placements=(qp, kvp, kvp, posp), device_mesh=dm,
+                   redistribute_inputs=True)
+    return fn(q, k, v, pos)
+
+
 def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
     """Full-sequence attention: projections, rotary positions (``pos``
     [B,S], [3,B,S] or None), then :func:`self_attention`, causal or not.
     ``kv_override`` (k, v) replaces the layer's own keys and values
     (cross-attention); where their length differs from the queries' the
     attention is :func:`gqa_scores_out`, as the kernel takes q, k, v of one
-    shape."""
+    shape. On DTensors the rotation and the attention run on local shards
+    (:func:`_attention_local`)."""
     q, k, v = _qkv(p, x, cfg)
     if kv_override is not None:
         k, v = kv_override
-    q, k = _rope(q, k, cfg, pos)
-    if k.shape[1] != q.shape[1]:
-        o = gqa_scores_out(q, k, v, causal)
+    if ctx.is_dtensor(q):
+        q = shard(q, "batch", None, "tp", None)
+        o = _attention_local(q, k, v, cfg, pos, causal)
     else:
-        o = self_attention(q, k, v, causal)
+        q, k = _rope(q, k, cfg, pos)
+        q = shard(q, "batch", None, "tp", None)
+        o = _attention_core(q, k, v, cfg, None, causal)
+    o = shard(o, "batch", None, "tp", None)
     return _out_proj(o, p["wo"].to(x.dtype))
 
 
@@ -273,6 +331,7 @@ def mlp(p, x):
     dt = x.dtype
     h = torch.nn.functional.silu(torch.matmul(x, p["w1"].to(dt)))
     h = h * torch.matmul(x, p["w3"].to(dt))
+    h = shard(h, "batch", None, "tp")
     return torch.matmul(h, p["w2"].to(dt))
 
 
@@ -281,9 +340,44 @@ def unembed(x, embed):
     return torch.matmul(x, embed.to(x.dtype).t())
 
 
-def softmax_xent(logits, labels):
-    """Mean cross-entropy from f32 logits."""
+def embed_lookup(embed, tokens):
+    """``embed[tokens]``. A DTensor table (vocab over "model", FSDP over
+    "data") is gathered whole and each rank looks up its own token rows
+    (``local_map``); the table's gradient is then a partial sum over the
+    batch axes, reduced back onto its shards."""
+    if not ctx.is_dtensor(embed):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    dm = embed.device_mesh
+    whole = ctx.logical_placements(2)
+    rows = ctx.logical_placements(tokens.ndim, "batch")
+    grad = tuple(Partial() if r != w else w for r, w in zip(rows, whole))
+    fn = local_map(lambda e, t: e[t], out_placements=(
+        ctx.logical_placements(tokens.ndim + 1, "batch"),),
+        in_placements=(whole, rows), in_grad_placements=(grad, rows),
+        device_mesh=dm, redistribute_inputs=True)
+    return fn(embed, tokens)
+
+
+def _xent_rows(logits, labels):
+    """Each row's cross-entropy, logsumexp - the label's logit, in f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - ll).mean()
+    return lse - ll
+
+
+def softmax_xent(logits, labels):
+    """Mean cross-entropy from f32 logits. DTensor logits (vocab over
+    "model") are gathered over the vocab and each rank takes its own rows
+    (``local_map``: a row's reductions are the unsharded ones); the mean
+    comes back replicated."""
+    if not ctx.is_dtensor(logits):
+        return _xent_rows(logits, labels).mean()
+    from torch.distributed.tensor.experimental import local_map
+    rows = ctx.logical_placements(labels.ndim, "batch")
+    fn = local_map(_xent_rows, out_placements=(rows,), in_placements=(
+        ctx.logical_placements(logits.ndim, "batch"), rows),
+        device_mesh=logits.device_mesh, redistribute_inputs=True)
+    return shard(fn(logits, labels).mean())

@@ -34,6 +34,11 @@ the counterpart of the reference's ``jax.checkpoint``). The VLM takes
 [3, B, S]; a token batch without positions gets the three streams equal to
 the token index (text only). Whisper is
 :class:`repro_torch.models.whisper.EncDecModel`.
+
+Under a mesh a training parameter tree and batch may be DTensors
+(:mod:`repro_torch.sharding.place`): the residual stream is pinned to
+("batch", -, -) after the embedding and after every block (each hybrid
+layer), as in the reference, and the positions are placed with the rows.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
-from repro_torch.sharding.ctx import head_plan
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import head_plan, shard
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
@@ -151,7 +157,10 @@ def unbind_layers(group: dict, n: int) -> list[dict]:
 
 
 def _as_tensor(x, device):
-    """A batch leaf (numpy, a list or a tensor) as a tensor on ``device``."""
+    """A batch leaf (numpy, a list or a tensor) as a tensor on ``device``;
+    a DTensor (a placed batch) as it is."""
+    if ctx.is_dtensor(x):
+        return x
     return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
                            device=device)
 
@@ -189,7 +198,7 @@ class DecoderModel(ParamTree):
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
         x = x + L.attention_train(attn, h, cfg, pos)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        return x + self._ffn(mlp, moe, h)
+        return shard(x + self._ffn(mlp, moe, h), "batch", None, None)
 
     def _group(self, x, pos, ln1, ln2, attn, mambas, mlps, moes):
         """One hybrid group: attention at j == 0, Mamba after; MoE at odd
@@ -206,6 +215,7 @@ class DecoderModel(ParamTree):
                 x = x + self._ffn({}, moes[j // 2], h)
             else:
                 x = x + L.mlp(mlps[j // 2], h)
+            x = shard(x, "batch", None, None)
         return x
 
     # -- forward (prefill / scoring / training) ------------------------------
@@ -217,7 +227,7 @@ class DecoderModel(ParamTree):
             x = _as_tensor(batch["embeds"], self.device).to(dt)
         else:
             tokens = _as_tensor(batch["tokens"], self.device).long()
-            x = embed[tokens].to(dt)
+            x = L.embed_lookup(embed, tokens).to(dt)
         B, S = x.shape[:2]
         if cfg.rope == "mrope" and "positions" in batch:
             pos = _as_tensor(batch["positions"], self.device).long()
@@ -225,7 +235,11 @@ class DecoderModel(ParamTree):
             pos = torch.arange(S, device=self.device)[None].expand(B, S)
             if cfg.rope == "mrope":
                 pos = pos[None].expand(3, B, S)
-        return x, pos
+            if ctx.is_dtensor(x):
+                pos = ctx.distribute(pos.contiguous(), *(
+                    (None, "batch", None) if pos.ndim == 3
+                    else ("batch", None)))
+        return shard(x, "batch", None, None), pos
 
     def _hidden(self, params, batch, remat: bool):
         """Final hidden states [B,S,d] of ``params``; with ``remat`` each

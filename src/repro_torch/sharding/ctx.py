@@ -16,15 +16,21 @@ the port's ``--xla_force_host_platform_device_count``). The scheduler's
 grid launch splits its instance rows over a :func:`grid_mesh`
 (:func:`repro_torch.core.greedy_torch.greedy_fanout_grid_torch`).
 
-:func:`shard` is the identity: the reference's
-``with_sharding_constraint`` placement has no counterpart yet, because the
-port's models place their own tensors; with a mesh configured it checks
-that the logical axes resolve.
+Under a mesh the port runs one process per mesh position, as
+``torch.distributed`` does: :func:`configure` also binds the
+``DeviceMesh`` the mesh carries (a mesh from
+:func:`repro_torch.launch.mesh.init_mesh`), and tensors placed on it are
+DTensors (:mod:`repro_torch.sharding.place`). :func:`shard` is then the
+counterpart of ``with_sharding_constraint``: a DTensor is redistributed to
+the placements its logical axes resolve to. A plain tensor, or any tensor
+with no mesh configured, passes through unchanged once the axes are
+checked, so single-device runs make no DTensor.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import torch
@@ -42,6 +48,7 @@ class Mesh:
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    device_mesh: object = None       # its torch DeviceMesh, one per process
 
     def __post_init__(self):
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
@@ -105,11 +112,13 @@ def visible_devices(device=None) -> list[torch.device]:
 
 
 def configure(mesh: Mesh) -> None:
-    """Bind logical axes to this mesh ('pod', 'data', 'model')."""
+    """Bind logical axes to this mesh ('pod', 'data', 'model'), and the
+    ``DeviceMesh`` it carries, if any."""
     global _CTX
     batch = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
     _CTX = {
         "mesh": mesh,
+        "device_mesh": mesh.device_mesh,
         "rules": {
             "batch": batch,
             "data": "data",
@@ -125,6 +134,25 @@ def configure(mesh: Mesh) -> None:
 def reset() -> None:
     global _CTX
     _CTX = None
+
+
+def current_mesh() -> Mesh | None:
+    """The configured :class:`Mesh`, or None."""
+    return None if _CTX is None else _CTX["mesh"]
+
+
+def device_mesh():
+    """The configured mesh's ``DeviceMesh``, or None (no mesh, or a mesh
+    with no process group behind it)."""
+    return None if _CTX is None else _CTX["device_mesh"]
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor. Imports nothing: before
+    ``torch.distributed.tensor`` is imported no DTensor can exist, and
+    the unsharded paths never import it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def grid_mesh(devices: int | None = None, device=None) -> Mesh:
@@ -156,18 +184,21 @@ def axis_size(logical: str) -> int:
     return mesh.shape[rule]
 
 
-def shard(x, *axes):
-    """The identity; with a mesh configured, first checks that every
-    logical axis has a rule naming axes of the mesh and that ``x`` has at
-    least ``len(axes)`` dimensions."""
-    if _CTX is None:
-        return x
+def logical_spec(ndim: int, *axes):
+    """The mesh-axis :class:`~repro_torch.sharding.specs.PartitionSpec`
+    that logical ``axes`` (one a leading dimension of a tensor of ``ndim``
+    dimensions; None = whole) resolve to under the configured rules.
+    Raises ``ValueError`` for an unknown axis, one whose rule names an axis
+    the mesh lacks, or more axes than dimensions."""
+    from repro_torch.sharding.specs import P
     rules, mesh = _CTX["rules"], _CTX["mesh"]
-    if len(axes) > x.ndim:
+    if len(axes) > ndim:
         raise ValueError(f"{len(axes)} logical axes for a tensor of "
-                         f"{x.ndim} dimensions")
+                         f"{ndim} dimensions")
+    parts = []
     for a in axes:
         if a is None:
+            parts.append(None)
             continue
         if a not in rules:
             raise ValueError(f"unknown logical axis {a!r}")
@@ -178,7 +209,43 @@ def shard(x, *axes):
         if missing:
             raise ValueError(f"logical axis {a!r} maps to {missing}, not "
                              f"axes of the mesh {mesh.axis_names}")
-    return x
+        parts.append(rule)
+    return P(*parts)
+
+
+def logical_placements(ndim: int, *axes):
+    """DTensor placements on the bound ``DeviceMesh`` of logical ``axes``
+    (:func:`logical_spec`)."""
+    from repro_torch.sharding.specs import placements
+    return placements(logical_spec(ndim, *axes), device_mesh())
+
+
+def distribute(x, *axes):
+    """A full plain tensor ``x``, the same on every rank, as a DTensor on
+    the bound ``DeviceMesh`` placed by logical ``axes``: this rank's shard
+    of it, and no data moves."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, device_mesh(),
+                             logical_placements(x.ndim, *axes),
+                             src_data_rank=None)
+
+
+def shard(x, *axes):
+    """Pin ``x`` to logical ``axes``, the counterpart of
+    ``with_sharding_constraint``. No mesh configured: the identity. With a
+    mesh, the axes are checked first (:func:`logical_spec`); then a DTensor
+    is redistributed to the placements they resolve to (a mesh axis that
+    no dimension names is replicated), and a plain tensor passes
+    unchanged."""
+    if _CTX is None:
+        return x
+    spec = logical_spec(x.ndim, *axes)
+    if not is_dtensor(x):
+        return x
+    from repro_torch.sharding.specs import placements
+    want = placements(spec, x.device_mesh)
+    return x if tuple(x.placements) == want \
+        else x.redistribute(x.device_mesh, want)
 
 
 def tp_size() -> int:

@@ -13,7 +13,9 @@ Baseline plan:
 
 Rules are (regex over the param path, axis-from-end for "model"); axes only
 shard when divisible: non-divisible cases fall back to replication, which
-keeps every architecture placeable on the same mesh.
+keeps every architecture placeable on the same mesh. :func:`placements`
+turns a spec into the DTensor placements of a ``DeviceMesh`` (the port's
+``NamedSharding``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,28 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+def placements(spec, device_mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``device_mesh`` (anything with
+    ``mesh_dim_names``): a mesh axis named in entry ``i`` shards tensor
+    dimension ``i`` over that mesh dimension (``Shard(i)``); a tuple entry
+    such as ``("pod", "data")`` shards it over each, the major axis first,
+    as jax lays it out (DTensor's default order is the mesh's, and a spec's
+    tuple names its axes in mesh order); a mesh axis no entry names is
+    ``Replicate()``. A name the mesh lacks raises ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        for name in entry if isinstance(entry, tuple) else (entry,):
+            if name is None:
+                continue
+            if name not in names:
+                raise ValueError(f"spec {spec!r} names {name!r}, not an "
+                                 f"axis of the mesh {names}")
+            out[names.index(name)] = Shard(i)
+    return tuple(out)
 
 # (path regex, axis_from_end that takes the TP axis)
 _TP_RULES: tuple[tuple[str, int], ...] = (

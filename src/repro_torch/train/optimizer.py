@@ -9,6 +9,11 @@ makes new tensors and leaves its inputs as they were, as the reference's
 functions do. ``compress_grads`` rounds gradients through bf16 (the
 reference's hook for a bf16 data-parallel all-reduce; on one card it only
 rounds).
+
+The leaves may be DTensors (a state placed on a mesh): the global norm
+sums each leaf's local squares, adds the leaves in the same sorted order
+and ends replicated; the clip, the moments and the update are elementwise
+on the local shards, and ``inplace`` writes into them.
 """
 from __future__ import annotations
 
@@ -60,9 +65,20 @@ def lr_schedule(step, *, peak: float = 3e-4, warmup: int = 200,
     return torch.where(step < warmup, warm, cos)
 
 
+def _replicated(x):
+    """A DTensor reduced to replicated (a partial sum all-reduced); any
+    other tensor as it is."""
+    from repro_torch.sharding.ctx import is_dtensor
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
 def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """sqrt of the sum of squares of every leaf, in f32 (leaves in sorted
+    key order; each DTensor leaf's sum replicated before it is added)."""
+    return torch.sqrt(sum(_replicated(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
 
 

@@ -6,6 +6,12 @@ The state is the reference's dict, ``{"params", "opt": {"m", "v", "step"[,
 ``CheckpointManager`` and ``runtime.fault.run_with_restarts`` take it as
 they are. A state read back from a checkpoint (numpy leaves, bf16 leaves as
 CPU tensors) is moved to the model's device by the step itself.
+
+Under a mesh (:func:`repro_torch.sharding.ctx.configure`) the state is
+placed by :func:`repro_torch.sharding.place.place_state` and the step is the
+reference's sharded step: each (micro)batch is split from the global batch
+and then placed by ``batch_specs``, the gradients come back in their
+parameters' placements, and the metrics are replicated 0-d DTensors.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.sharding import ctx
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
                                          cast_params, compress_grads,
                                          lr_schedule, tree_leaves, tree_map,
@@ -49,8 +56,10 @@ def init_state(model, generator: torch.Generator,
 
 def on_device(tree, device):
     """Every leaf of ``tree`` as a tensor on ``device`` (numpy arrays and
-    scalars converted, tensors moved; a leaf already there is kept)."""
-    return tree_map(lambda x: torch.as_tensor(x, device=device), tree)
+    scalars converted, tensors moved; a leaf already there, or a DTensor,
+    is kept)."""
+    return tree_map(lambda x: x if ctx.is_dtensor(x)
+                    else torch.as_tensor(x, device=device), tree)
 
 
 def _split(name: str, x, microbatches: int):
@@ -71,20 +80,34 @@ def loss_and_grads(model, params, batch, microbatches: int = 1):
     remat). With ``microbatches`` > 1 the batch is split along its batch
     axis (:func:`_split`) into equal parts whose gradients are summed into
     f32 accumulators, and the sums divided, as the reference's scan
-    does."""
+    does.
+
+    DTensor ``params`` (a placed state): each microbatch is cut from the
+    global batch first and then placed by ``batch_specs``
+    (:func:`repro_torch.sharding.place.place_batch`), and each gradient is
+    redistributed to its parameter's placements."""
+    sharded = ctx.is_dtensor(tree_leaves(params)[0])
 
     def value_and_grad(mb):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(live)
+        if sharded:
+            from repro_torch.sharding.place import place_batch
+            mb = place_batch(mb, model.cfg)
         with torch.enable_grad():
             loss = model.loss(mb, params=live, remat=True)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
+            grads = torch.autograd.grad(loss, leaves)
+        if sharded:
+            grads = [g if g.placements == p.placements
+                     else g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
         return loss.detach(), tree_unflatten(live, grads)
 
     if microbatches == 1:
         return value_and_grad(batch)
     mbs = {k: _split(k, v, microbatches) for k, v in batch.items()}
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
     lsum = 0.0
     for i in range(microbatches):
         loss, g = value_and_grad({k: v[i] for k, v in mbs.items()})

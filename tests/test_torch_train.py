@@ -633,8 +633,13 @@ def test_train_driver_resumes_from_its_checkpoint(tmp_path, mp):
 
 
 def test_train_cli_mesh_is_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    """``--mesh single`` on a one-process world stops with the production
+    mesh's ``ValueError`` naming (16, 16), as the reference does without
+    the chips, and leaves no process group behind."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match=r"\(16, 16\)"):
         tl.main(["--mesh", "single"])
+    assert not dist.is_initialized()
 
 
 def test_train_needs_the_card(monkeypatch, tmp_path):
