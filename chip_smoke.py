@@ -157,8 +157,8 @@ reference package ``repro``. Phases, each fatal on failure:
    causal S=1500, H=32, hd=64; causal S=2048, H=32, hd=128) against the
    plain version, with its time, bound and SDPA's time;
 18. the families' training at full width (``[train-families]``):
-   ``launch.train.train`` on granite-moe (B=8, S=256, 10 steps: the MoE
-   backward), Whisper large-v3 (B=1, 1,500 frames and 1,500 tokens, 10
+   ``launch.train.train`` on granite-moe (B=8, S=256, 6 steps: the MoE
+   backward), Whisper large-v3 (B=1, 1,500 frames and 1,500 tokens, 6
    steps: the non-causal and causal flash backward at S=1500) and
    xLSTM-125M (B=8, S=256, 3 steps: the recurrences' backward), each with
    its f32 parameters, gradients and AdamW moments on the card: finite
@@ -168,7 +168,18 @@ reference package ``repro``. Phases, each fatal on failure:
    first step's gradients through the kernels against the plain model
    attention by (16) (b)'s rule, an MoE's recompute routing bitwise equal
    to its forward's (:func:`first_step`). Qwen2-VL and Jamba do not fit
-   one card with AdamW in f32: the CPU tests hold their training;
+   one card with AdamW in f32: the CPU tests hold their training. Then (d)
+   the families under the reference's parallel plan
+   (:func:`phase_mesh_families`): granite-moe under each of its three MoE
+   dispatches, Whisper and xLSTM at full width, Jamba and Qwen2-VL at the
+   CPU tests' reduced widths (``MESH_FAMILY_REDUCED``), each in f32 through
+   ``train(mesh=)`` on a (data=1, model=1) mesh over one-process NCCL and
+   through ``loss_and_grads`` on the placed parameters: the loss and every
+   gradient leaf's bits (:func:`bits_fingerprint`) equal to the unsharded
+   f32 kernel pass of the same config, seed and batch ((c)'s; the MoE's
+   routings replayed as there), its flash launches the path
+   ``mesh_families``. (a) runs granite-moe and Whisper 6 steps (a cut of
+   10; the warm median over 5);
 19. the roofline (``[roofline]``): each of the eleven steps timed above
    (the Qwen1.5 loss forward and decode step, the SmolLM step, the five
    family forwards, the three family steps) counted by the port's dry run
@@ -202,7 +213,7 @@ reference package ``repro``. Phases, each fatal on failure:
    gradients within 1e-4 / 1e-5, 64 forward and 32 of each backward f32
    flash launch a step; then ``MESH_STEPS`` bf16 steps over f32 masters at
    [train]'s TP of 16, their warm step beside [train]'s (the cost of
-   DTensor dispatch).
+   DTensor dispatch; no profiled step, a depth cut).
 
 Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20, 21) is driven
 with the kernels' launch counts set to 0 just before it and read just
@@ -215,7 +226,8 @@ apart from the bf16 ones: the bf16 kernels' launches are their main
 paths', the f32 kernels' those of the f32 checks beside them
 (``[model]``'s and ``[families]``' f32 gates, ``[serve]``'s forward ==
 decode check, the first steps' f32 kernel passes) and of the train
-example's and ``[mesh]``'s f32 runs, each under its own key; every kernel
+example's, ``[mesh]``'s and ``[train-families]`` (d)'s
+(``mesh_families``) f32 runs, each under its own key; every kernel
 an example launched has an ``examples`` count among its paths; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before either is printed.
@@ -362,15 +374,33 @@ WHISPER_DECODE_STEPS = 16
 # (~30 s of trace); 256 positions keep every kind of launch
 FAMILY_PROFILE_S = {"xlstm-125m": 256}
 # [train-families]: (batch, sequence, steps) of launch.train.train at full
-# width a configuration: granite-moe at the train CLI's B=8, S=256 (10 of
-# its 100 steps: a cut), Whisper at one 30-s window (1,500 frames and 1,500
-# decoder tokens), xLSTM at the CLI's traffic for 3 steps (its step is
-# host-bound); each holds params, gradients and both AdamW moments in f32
+# width a configuration: granite-moe at the train CLI's B=8, S=256 (6 of
+# its 100 steps: a cut, 10 before [train-families] (d) came), Whisper at one
+# 30-s window (1,500 frames and 1,500 decoder tokens, 6 steps, 10 before),
+# xLSTM at the CLI's traffic for 3 steps (its step is host-bound); each
+# holds params, gradients and both AdamW moments in f32
 TRAIN_FAMILY_CELLS = {
-    "granite-moe-1b-a400m": (8, 256, 10),
-    "whisper-large-v3": (1, 1500, 10),
+    "granite-moe-1b-a400m": (8, 256, 6),
+    "whisper-large-v3": (1, 1500, 6),
     "xlstm-125m": (8, 256, 3),
 }
+# [train-families] (d): the families under the parallel plan, f32, on a
+# (data=1, model=1) mesh over one-process NCCL: the first step through
+# train(mesh=) and the placed gradients held bitwise to the unsharded f32
+# kernel pass of the same config, seed and batch (c) keeps (a (1, 1) mesh
+# reduces nothing); the MoE under each dispatch. Qwen2-VL and Jamba train
+# at full width only on four cards: they run at the CPU tests' reduced
+# widths (tests/test_torch_mesh_moe.py: reduced, head_dim 64, the flash
+# kernels' smallest, B=4, S=32) against their own unsharded f32 kernel pass
+MESH_FAMILY_DISPATCHES = ("global", "sharded", "shardmap")
+MESH_FAMILY_REDUCED = {"jamba-v0.1-52b": {"head_dim": 64},
+                       "qwen2-vl-7b": {"head_dim": 64,
+                                       "mrope_sections": (8, 12, 12)}}
+MESH_FAMILY_REDUCED_CELL = (4, 32)
+# the step counts [train-families] (a) ran before (d) came and the cut to
+# TRAIN_FAMILY_CELLS' 6 (granite-moe and Whisper), for the saving it prints
+TRAIN_FAMILY_STEPS_BEFORE = {"granite-moe-1b-a400m": 10,
+                             "whisper-large-v3": 10}
 # the profiled warm step at a shorter sequence: xLSTM's S=256 step is ~40k
 # launches, whose trace costs ~18 s; 64 positions keep every kind of launch
 TRAIN_FAMILY_PROFILE_S = {"xlstm-125m": 64}
@@ -1734,19 +1764,28 @@ def phase_mapping(plat, n=MAPPING_TASKS):
     # (b) full cluster width, default options
     wf, forecasts, cropped, T = mapping_cell(plat, n)
     opts = MappingOptions()
-    planner = Planner(plat, engine="torch")
     request = PlanRequest(instances=wf, profiles=forecasts, mapping="search",
                           deadline_scale=FACTOR,
                           mapping_options=opts.to_dict())
     # the seed round is profiled on the card (its idle share) while the
-    # tracer times every span of the search
-    tracer = round_profiler(0)
-    prev = obs.set_tracer(tracer)
-    gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
-    try:
-        res, secs = timed_plan(planner, request)
-    finally:
-        obs.set_tracer(prev)
+    # tracer times every span of the search. A profiler trace can lose
+    # launches behind its warm-up step (PERF.md section 7): a trace short
+    # of one is taken once more, by the same search on a fresh planner
+    for attempt in range(2):
+        planner = Planner(plat, engine="torch")
+        tracer = round_profiler(0)
+        prev = obs.set_tracer(tracer)
+        gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+        try:
+            res, secs = timed_plan(planner, request)
+        finally:
+            obs.set_tracer(prev)
+        busy_ms, kernels = tracer.busy()
+        seen = sum(c for k, c in kernels.items() if "gain_scan_kernel" in k)
+        if seen == tracer.launches:
+            break
+        log(f"[mapping] the seed round's trace holds {seen} of its "
+            f"{tracer.launches} gain_scan launches: profiled again")
     gain_launches = gain_scan.LAUNCHES
     check(gain_launches > 0, "the mapping search did not launch the "
           "gain_scan kernel")
@@ -1758,8 +1797,6 @@ def phase_mapping(plat, n=MAPPING_TASKS):
     buckets = sorted({s.attrs["bucket"] for s in spans
                       if s.name == "bucket_launch"})
     rnd = tracer.round_span
-    busy_ms, kernels = tracer.busy()
-    seen = sum(c for k, c in kernels.items() if "gain_scan_kernel" in k)
     check(seen == tracer.launches, f"[mapping] the seed round's trace holds "
           f"{seen} of its {tracer.launches} gain_scan launches")
     round_ms = 1e3 * rnd.duration
@@ -3125,6 +3162,10 @@ def first_step(cfg, dev, B, S, tag):
     by layer in reverse), which must agree bitwise, and the other three
     passes replay them, so the comparisons see the attention alone.
 
+    The f32 kernel pass's loss and its gradients' bits
+    (:func:`grad_bits`), and the routings, are kept in the result for
+    ``[train-families]`` (d).
+
     Gates, by ``[train]`` (b)'s rule: the f32 gradients elementwise,
     ``|g - g_plain| <= F32_GRAD_TOL (|g_plain| + max |g_plain|)``; each
     bf16 leaf no further from the f32 plain gradient than the plain bf16
@@ -3187,6 +3228,8 @@ def first_step(cfg, dev, B, S, tag):
 
     out = {}
     loss16_k, g16_k = run("bfloat16", record=True)
+    # (d) replays the routings: kept without their graphs
+    out["routes"] = [{k: v.detach() for k, v in r.items()} for r in routes]
     if moe:
         L = len(routes) // 2
         check(len(routes) == 2 * L and L > 0, f"{tag} {len(routes)} "
@@ -3202,9 +3245,11 @@ def first_step(cfg, dev, B, S, tag):
         del model, params
         dist = {path: rel_err(a, b) for path, a, b in leaf_pairs(g16_k, g32)}
         out.update(loss16=loss16_k, loss32=loss32, bf16_to_f32=dist,
-                   f32_launches=f32_launched())
+                   f32_launches=f32_launched(), f32_loss=loss32,
+                   f32_bits=grad_bits(g32))
         return out
     loss32_k, g32_k = run("float32")
+    out.update(f32_loss=loss32_k, f32_bits=grad_bits(g32_k))
     loss32_p, g32 = run("float32", plain=True)
     check(abs(loss32_k - loss32_p) <= F32_GRAD_TOL * abs(loss32_p),
           f"{tag} f32 first-step loss {loss32_k} != plain {loss32_p}")
@@ -3249,6 +3294,32 @@ def first_step(cfg, dev, B, S, tag):
                f32_plain_s=secs["float32", True],
                f32_launches=f32_launched())
     return out
+
+
+def bits_fingerprint(t, chunk: int = 1 << 24) -> tuple[int, int]:
+    """Two exact integer sums of a 32-bit tensor's words: their sum, and
+    their sum weighted by (index mod 65521) + 1, over chunks of ``chunk``
+    elements on the tensor's device. Equal bits give equal sums, and a
+    tensor with other bits almost surely other sums; no copy of the tensor
+    leaves the card."""
+    import torch
+
+    w = t.detach().contiguous().view(-1).view(torch.int32)
+    s1 = s2 = 0
+    for i in range(0, w.numel(), chunk):
+        c = w[i:i + chunk].to(torch.int64)
+        idx = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        s1 += int(c.sum())
+        s2 += int((c * idx).sum())
+    return s1, s2
+
+
+def grad_bits(grads) -> dict:
+    """Each gradient leaf's :func:`bits_fingerprint` by its tree path (a
+    DTensor's local shard)."""
+    return {path: bits_fingerprint(g.to_local() if hasattr(g, "to_local")
+                                   else g)
+            for path, g, _ in leaf_pairs(grads, grads)}
 
 
 def first_step_text(r: dict) -> str:
@@ -3488,8 +3559,8 @@ def phase_mesh(dev, train_warm_s):
     width: an f32 copy of the config, ``MESH_STEPS`` steps held to the
     unsharded step of the same model (TP 1, seed 0) per step, and the
     first step's gradients; then ``MESH_STEPS`` bf16 steps over f32
-    masters at [train]'s TP of 16, their warm step against [train]'s, and
-    one profiled warm step."""
+    masters at [train]'s TP of 16, their warm step against [train]'s (no
+    profiled step: a depth cut)."""
     import dataclasses
     import gc
     import math
@@ -3619,22 +3690,15 @@ def phase_mesh(dev, train_warm_s):
               f"[mesh] bf16 losses {out['losses']}")
         secs16 = out["step_seconds"]
         warm16 = float(np.median(secs16[1:]))
-        # one profiled warm step: the driver's step function on its state
-        state, step_fn = out["state"], out["step_fn"]
-        batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", TRAIN_S,
-                                                 TRAIN_B), seed=0).batch(
-                                                     MESH_STEPS)
-        step_prof = device_breakdown(lambda: step_fn(state, batch), 1,
-                                     PROFILE_OUT)
-        del out, state, step_fn
+        del out
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[mesh] bf16 over f32 masters (TP 16, as [train]): step s "
             f"{[round(x, 4) for x in secs16]}, warm {warm16:.4f} (median of "
             f"{len(secs16) - 1}) vs [train]'s warm {train_warm_s:.4f}: "
             f"{warm16 / train_warm_s:.3f}x, {warm16 - train_warm_s:+.4f} s a "
-            f"step of DTensor dispatch; bf16 flash launches {bf16_launches}")
-        log(f"[mesh] bf16 profiled warm step: {breakdown_text(step_prof)}")
+            f"step of DTensor dispatch; bf16 flash launches {bf16_launches}; "
+            f"no profiled step (a depth cut)")
     finally:
         ctx.reset()
         dist.destroy_process_group()
@@ -3643,7 +3707,7 @@ def phase_mesh(dev, train_warm_s):
     secs = time.perf_counter() - t_phase
     log(f"[mesh] phase {secs:.3f} s")
     return {"launches": bf16_launches, "f32_launches": f32_launches,
-            "warm_s": warm16, "step": step_prof, "seconds": secs}
+            "warm_s": warm16, "seconds": secs}
 
 
 def train_family_cell(dev, arch):
@@ -3732,7 +3796,7 @@ def train_family_cell(dev, arch):
             "cold_s": cold_s, "warm_s": warm_s, "tokens_per_s": tok_s,
             "step": prof, "profile_s": prof_s, "peak_gib": peak_gb,
             "step_peak": step_peak_b,
-            "first_step_s": first_s,
+            "first_step_s": first_s, "first": first,
             "seconds": secs_cell}
 
 
@@ -3753,11 +3817,165 @@ def phase_train_families(dev):
                    for k in fa.BWD_KERNELS}}
     f32_launches = {k: sum(c["f32_launches"][k] for c in cells.values())
                     for k in launches}
-    secs = time.perf_counter() - t_phase
+    saved = sum((TRAIN_FAMILY_STEPS_BEFORE[a] - TRAIN_FAMILY_CELLS[a][2])
+                * cells[a]["warm_s"] for a in TRAIN_FAMILY_STEPS_BEFORE)
     log(f"[train-families] flash launches {launches}; the first steps' f32 "
-        f"kernel passes {f32_launches}; the phase {secs:.3f} s in all")
+        f"kernel passes {f32_launches}; (a) at 6 steps, not 10, for "
+        f"granite-moe and Whisper saves {saved:.3f} s (4 warm steps each "
+        f"at this run's warm step s)")
+    mesh = phase_mesh_families(dev, {a: c.pop("first")
+                                     for a, c in cells.items()})
+    secs = time.perf_counter() - t_phase
+    log(f"[train-families] the phase {secs:.3f} s in all")
     return {"launches": launches, "f32_launches": f32_launches,
-            "cells": cells, "seconds": secs}
+            "cells": cells, "mesh": mesh, "seconds": secs}
+
+
+def unsharded_f32_first_step(dev, cfg, B, S) -> dict:
+    """The f32 first step's loss and gradient bits of ``cfg`` (seed-0
+    parameters at TP 16, the train CLI's batch 0) through the kernels,
+    unsharded: what (c) keeps for a full-width cell."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train.step import loss_and_grads
+
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", S, B),
+                            seed=0).batch(0)
+    loss, g = loss_and_grads(model, model.param_tree(), batch)
+    return {"f32_loss": float(loss), "f32_bits": grad_bits(g),
+            "routes": []}
+
+
+def mesh_family_cell(dev, mesh, tag, cfg, B, S, want) -> dict:
+    """One configuration of (d) on the (1, 1) ``mesh``: the f32 first step
+    through ``train(mesh=)`` (one step, the model at TP 16 as (c)'s) and
+    ``loss_and_grads`` on the placed seed-0 parameters, an MoE replaying
+    (c)'s recorded routings as (c)'s f32 pass did; the loss and every
+    gradient leaf's bits against ``want``'s."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.sharding import place
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.step import loss_and_grads
+
+    def replay():
+        return routing(want["routes"], replay=True) if want["routes"] \
+            else contextlib.nullcontext()
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with replay():
+        out = train(cfg, steps=1, batch=B, seq=S, ckpt_dir=None, device=dev,
+                    mesh=mesh, tp=16, log=lambda m: None)
+    loss = out["losses"][0]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(loss == want["f32_loss"], f"[train-families] (d) {tag}: "
+          f"train(mesh=)'s first loss {loss!r} != the unsharded f32 "
+          f"kernel pass's {want['f32_loss']!r}")
+    model = build_model(cfg, tp=16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = place.place_params(tree_map(torch.Tensor.detach,
+                                         model.param_tree()), mesh,
+                                device=dev)
+    batch = SyntheticTokens(cfg, ShapeConfig("cli", "train", S, B),
+                            seed=0).batch(0)
+    with replay():
+        g_loss, grads = loss_and_grads(model, params, batch)
+    bits = grad_bits(grads)
+    del model, params, grads
+    g_loss = float(g_loss)
+    check(g_loss == want["f32_loss"], f"[train-families] (d) {tag}: the "
+          f"placed first step's loss {g_loss!r} != {want['f32_loss']!r}")
+    check(sorted(bits) == sorted(want["f32_bits"]), f"[train-families] "
+          f"(d) {tag}: gradient leaves {sorted(bits)}")
+    apart = [p for p in bits if bits[p] != want["f32_bits"][p]]
+    check(not apart, f"[train-families] (d) {tag}: the placed gradients' "
+          f"bits differ from the unsharded f32 kernel pass's at {apart}")
+    secs = time.perf_counter() - t0
+    log(f"[train-families] (d) {tag} ({cfg.family}, B={B} S={S}, f32) on "
+        f"a (1, 1) mesh: train(mesh=)'s first loss {loss!r} and the placed "
+        f"gradients' {len(bits)} leaves bitwise equal to the unsharded f32 "
+        f"kernel pass's; {secs:.3f} s")
+    return {"loss": loss, "leaves": len(bits), "seconds": secs}
+
+
+def phase_mesh_families(dev, firsts: dict) -> dict:
+    """[train-families] (d): every family but the dense one under the
+    reference's parallel plan (``train(mesh=)`` and ``loss_and_grads`` on
+    the placed state, DTensor over a one-process NCCL ``DeviceMesh`` of
+    shape (data=1, model=1)), f32, each first step bitwise equal to the
+    unsharded f32 kernel pass of the same config, seed and batch: the
+    full-width cells' (``firsts``, kept by (c)), granite-moe under each of
+    its three dispatches; Jamba and Qwen2-VL at the CPU tests' reduced
+    widths against their own unsharded pass, run first. The flash launches
+    of the mesh runs are the path ``mesh_families``, counted from 0."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.sharding import ctx
+
+    t_phase = time.perf_counter()
+    cells = []
+    for arch, first in firsts.items():
+        cfg = dataclasses.replace(ARCHS[arch], dtype="float32")
+        B, S, _ = TRAIN_FAMILY_CELLS[arch]
+        for d in MESH_FAMILY_DISPATCHES if cfg.moe is not None else (None,):
+            c = cfg if d is None else dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, dispatch=d))
+            cells.append((arch + (f" {d}" if d else ""), c, B, S, first))
+    B, S = MESH_FAMILY_REDUCED_CELL
+    for arch, widths in MESH_FAMILY_REDUCED.items():
+        cfg = dataclasses.replace(reduced(ARCHS[arch]), **widths)
+        cells.append((f"{arch} (reduced)", cfg, B, S,
+                      unsharded_f32_first_step(dev, cfg, B, S)))
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_families_")
+    launch_mesh.init_process_group(dev, store=os.path.join(tmp_dir.name,
+                                                           "store"))
+    fa.reset_launches()
+    try:
+        mesh = launch_mesh.init_mesh((1, 1), ("data", "model"), dev)
+        rows = {tag: mesh_family_cell(dev, mesh, tag, cfg, B, S, want)
+                for tag, cfg, B, S, want in cells}
+        launches = dict(fa.COUNTS["float32"])
+    finally:
+        ctx.reset()
+        dist.destroy_process_group()
+        tmp_dir.cleanup()
+    # two passes a cell (train(mesh=)'s step and the placed gradients), each
+    # a forward, its recompute and one backward of every attention layer
+    n_attn = sum(flash_per_forward(cfg) for _, cfg, _, _, _ in cells)
+    want = {"flash_fwd": 4 * n_attn,
+            **{k: 2 * n_attn for k in fa.BWD_KERNELS}}
+    check(launches == want, f"[train-families] (d) f32 flash launches "
+          f"{launches}, predicted {want}")
+    check(not any(fa.COUNTS["bfloat16"].values()), f"[train-families] (d) "
+          f"bf16 flash launches {fa.COUNTS['bfloat16']}")
+    secs = time.perf_counter() - t_phase
+    log(f"[train-families] (d) {len(cells)} configurations on a (1, 1) "
+        f"mesh, every first step bitwise equal to its unsharded f32 kernel "
+        f"pass; f32 flash launches {launches}; (d) {secs:.3f} s")
+    return {"launches": launches, "cells": rows, "seconds": secs}
 
 
 def roofline_plan() -> list[dict]:
@@ -4114,8 +4332,9 @@ def main() -> int:
     # the f32 kernels run in checks beside the main paths, each counted on
     # its own: [model]'s and [families]' f32 gates, [serve]'s forward ==
     # decode check, the first steps' f32 kernel passes ([train] (b),
-    # [train-families] (c)); and on a main path of their own, the train
-    # example's 100M config in f32 ([examples] (d))
+    # [train-families] (c)); and on main paths of their own, the train
+    # example's 100M config in f32 ([examples] (d)), [mesh]'s f32 run and
+    # the families under the parallel plan ([train-families] (d))
     f32_fwd = {"model_f32_gate": model_run["f32_launches"],
                "serve_forward_vs_decode": serve_run["eq_launches"],
                "families_f32_gate": families_run["f32_launches"],
@@ -4123,13 +4342,16 @@ def main() -> int:
                "train_families_first_step":
                    train_families_run["f32_launches"]["flash_fwd"],
                "examples": examples("flash_fwd_float32"),
-               "mesh": mesh_run["f32_launches"]["flash_fwd"]}
+               "mesh": mesh_run["f32_launches"]["flash_fwd"],
+               "mesh_families":
+                   train_families_run["mesh"]["launches"]["flash_fwd"]}
     f32_bwd = {"train_first_step": train_run["f32_launches"],
                "train_families_first_step":
                    train_families_run["f32_launches"],
                "examples": {k: examples(f"{k}_float32")
                             for k in bwd_kernels},
-               "mesh": mesh_run["f32_launches"]}
+               "mesh": mesh_run["f32_launches"],
+               "mesh_families": train_families_run["mesh"]["launches"]}
     # the examples' launches of the other kernels, where they ran
     ran = {k: examples(k) for k in ("gain_scan", "carbon_cost",
                                     "flash_fwd_bfloat16")}

@@ -10,11 +10,11 @@ every aten op of it, the backward and the optimizer included:
 
 * compile -- under ``--mesh single|multi`` the spec trees of the
   production mesh (``tree_param_specs``, ``batch_specs``,
-  ``cache_specs`` over ``make_production_mesh``, after ``configure``)
+  ``cache_specs`` over :func:`production_mesh`, after ``configure``)
   must shard every dimension they name evenly, the counterpart of
   ``.lower().compile()`` succeeding; then the traced step's memory
-  (arguments, outputs, and under ``--mesh none`` the peak of its
-  temporaries) and its counts;
+  (arguments, outputs, and the peak of its temporaries: a device's under
+  a mesh) and its counts;
 * cost -- the whole step's FLOPs and bytes and its roofline terms. The
   port's layer loops are Python loops, so the count sees every layer at
   the true depth: none of the reference's depth calibration (unrolled
@@ -26,9 +26,21 @@ every aten op of it, the backward and the optimizer included:
 roofline on :data:`~repro_torch.roofline.analysis.H100` (or ``H100_F32``
 for a config whose matrix products run in f32). ``single`` and ``multi``
 keep the reference's TPU ``HW`` so their records compare with the
-reference's; the port shards no model yet (ROADMAP Queue 1 item 2b), so
-their collective term is not modelled (``collective_bytes_per_chip`` is
-null) and neither are a device's temporaries.
+reference's, and trace the **sharded** step of train and prefill cells
+(:func:`fake_mesh`): a ``fake``-backend process group of the mesh's size
+(256 or 512) in this process, the production mesh over it, the state
+placed by ``place_state``'s specs as DTensors of meta-device local
+shards, and the step run as one rank of it. As in the reference, FLOPs,
+bytes and memory are then one device's (its local shards' ops, ``hlo_flops``
+that times the chips), and ``collective_bytes_per_chip`` is the sum of
+the operand bytes of the functional collectives the step issues
+(``StepCounter.collectives``, in ``roofline.analysis.collective_bytes``'s
+layout: bytes and counts by kind), which the roofline's collective term
+reads. Decode cells need the sequence-sharded cache of ``cache_specs``,
+which is not ported (ROADMAP Queue 1 item 2, the decode cells' collective
+term): they trace the unsharded step, their collective term and a device's
+temporaries stay null with a note, as does a train cell whose microbatch
+rows do not split evenly over the batch axes.
 
 Attention is counted as the plain model path computes it off the card
 (``layers.attention_plain_model``: dense scores per block of 512 queries,
@@ -51,10 +63,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import math
 import os
+import sys
 import time
 import weakref
 
@@ -63,17 +77,17 @@ from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, SHAPES, shape_applicable
-from repro_torch.launch.mesh import batch_axes, data_size, make_production_mesh
+from repro_torch.launch.mesh import batch_axes, data_size
 from repro_torch.models import build_model, input_specs, model_flops
 from repro_torch.models import layers as L
 from repro_torch.roofline.analysis import (H100, H100_F32, HW,
                                            collective_bytes, roofline_terms)
 from repro_torch.sharding import ctx
+from repro_torch.sharding.place import place_batch, place_params, place_state
 from repro_torch.sharding.specs import (P, batch_specs, cache_specs,
                                         tree_param_specs)
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
-                                         cast_params, lr_schedule,
-                                         tree_leaves, tree_map)
+                                         cast_params, lr_schedule, tree_map)
 from repro_torch.train.step import loss_and_grads
 
 MICROBATCHES = {
@@ -87,8 +101,21 @@ HOST_DEVICES = 512
 # the head plan's TP width: the production meshes' "model" axis, and the
 # card's models (build_model's default)
 TP = 16
-NOT_SHARDED = ("the port shards no model yet (ROADMAP Queue 1 item 2b): "
-               "not modelled")
+NOT_SHARDED = ("a decode cell needs the sequence-sharded cache of "
+               "cache_specs, not ported (ROADMAP Queue 1 item 2, the decode "
+               "cells' collective term): not modelled")
+UNEVEN = ("the microbatch's rows do not split evenly over the batch axes: "
+          "traced unsharded, not modelled")
+# the functional collectives a sharded step issues, by the reference's kind
+_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
 
 aten = torch.ops.aten
 # allocate without touching their memory: no bytes
@@ -107,8 +134,12 @@ _TEMPORARY = {aten.logsumexp}
 
 
 def _tensors(tree):
-    """The tensors of nested dicts, lists and tuples."""
+    """The tensors of nested dicts, lists and tuples; a DTensor's local
+    shard for a DTensor."""
     if isinstance(tree, torch.Tensor):
+        if ctx.is_dtensor(tree):
+            with torch.no_grad():
+                return [tree.to_local()]
         return [tree]
     if isinstance(tree, dict):
         tree = tree.values()
@@ -142,11 +173,20 @@ class StepCounter(TorchDispatchMode):
       beyond the arguments), with the temporary of a kernel in
       :data:`_TEMPORARY` counted while it runs.
 
-    An op with an input on the host (a copy to the device, such as the
-    rotary frequencies' first use, which ``layers`` caches) counts
-    nothing. ``aten.bincount`` has no meta kernel: on a meta input it is the
-    counts' shape, ``[minlength]`` (the MoE's experts, every index below
-    it), counted as a reduction. :meth:`add` counts work that ran outside
+    * ``collectives``: a functional collective's operand bytes and count
+      by kind (:data:`_COLLECTIVE_KINDS`), the layout of
+      ``roofline.analysis.collective_bytes``; its bytes are not added to
+      ``bytes``.
+
+    An op on DTensors is left to DTensor (``NotImplemented``), whose local
+    ops on the local shards and collectives then come here: under a mesh
+    the counts are one device's. The ops DTensor runs on fake tensors to
+    propagate shapes count nothing, and so does an op with an input on the
+    host or an output there (a copy to the device, such as the rotary
+    frequencies' first use, which ``layers`` caches; DTensor's own index
+    bookkeeping). ``aten.bincount`` has no meta kernel: on a meta input it
+    is the counts' shape, ``[minlength]`` (the MoE's experts, every index
+    below it), counted as a reduction. :meth:`add` counts work that ran outside
     aten (the flash kernels under ``attention="kernel"``).
     """
 
@@ -158,6 +198,7 @@ class StepCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self._stores: dict = {}      # id(storage) -> (weakref, live bytes)
         self._cache: dict = {}
+        self.collectives = collective_bytes("")
         self.argument_bytes = self._track(_tensors(arguments), live=False)
 
     def _free(self, ref) -> None:
@@ -186,7 +227,27 @@ class StepCounter(TorchDispatchMode):
         self.flops += flops
         self.bytes += nbytes
 
+    def _collective(self, func, args) -> None:
+        kind = _COLLECTIVE_KINDS.get(func.overloadpacket.__name__)
+        if kind is None:
+            return
+        n = sum(_nbytes(t) for t in _tensors(list(args[:1])))
+        self.collectives[kind] += n
+        self.collectives["total"] += n
+        self.collectives["counts"][kind] += 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            # DTensor's sharding propagation runs the op on fake tensors of
+            # the global shapes to learn its output's: no work of the step
+            return func(*args, **(kwargs or {}))
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            self._collective(func, args)
+            out = func(*args, **(kwargs or {}))
+            self._track(_tensors(out))
+            return out
         ins = []
         key = _walk(args, ins)
         if kwargs:
@@ -199,9 +260,16 @@ class StepCounter(TorchDispatchMode):
             return func(*args, **kwargs)
         key = None if key is _NO else (func, key)
         hit = self._cache.get(key) if key is not None else None
+        if hit is _HOST:
+            return func(*args, **kwargs)
         if hit is None:
             out = self._run(func, args, kwargs, ins)
             outs = _tensors(out)
+            if not all(t.is_meta for t in outs):
+                # made on the host (DTensor's own index bookkeeping)
+                if key is not None:
+                    self._cache[key] = _HOST
+                return out
             flops, nbytes, work = self._work(func, args, kwargs, ins, outs,
                                              out)
             metas = None
@@ -258,7 +326,16 @@ class StepCounter(TorchDispatchMode):
         return float(flops), float(nbytes), work
 
 
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
+
+
+def _is_dtensor_type(t) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and issubclass(t, mod.DTensor)
+
+
 _NO = object()
+_HOST = object()
 _SIMPLE = {bool, float, str, type(None), torch.dtype, torch.device,
            torch.layout, torch.memory_format}
 
@@ -387,7 +464,9 @@ def kernel_attention(counter: StepCounter):
 class Trace:
     """One traced step: the counts of one microbatch's forward and backward
     (``fb``; the whole step when it does not train) and of the optimizer
-    (``opt``), the microbatches ``mb``, and the memory of the trace."""
+    (``opt``), the microbatches ``mb``, and the memory of the trace;
+    ``sharded``: one rank's counts of the sharded step, whose collectives
+    are ``fb_collectives`` and ``opt_collectives``."""
     fb_flops: float
     fb_bytes: float
     opt_flops: float
@@ -399,6 +478,11 @@ class Trace:
     seconds: float
     arguments: dict
     outputs: object
+    sharded: bool = False
+    fb_collectives: dict = dataclasses.field(
+        default_factory=lambda: collective_bytes(""))
+    opt_collectives: dict = dataclasses.field(
+        default_factory=lambda: collective_bytes(""))
 
     @property
     def flops(self) -> float:
@@ -439,7 +523,7 @@ def _microbatch(batch: dict, mb: int) -> dict:
 
 def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
                mp: bool = False, donate: bool = False,
-               attention: str = "plain") -> Trace:
+               attention: str = "plain", mesh=None) -> Trace:
     """Run one step of ``cfg`` at ``shape`` on the meta device under a
     :class:`StepCounter`. ``step`` (default: ``shape.kind``):
 
@@ -455,31 +539,47 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
     * ``"loss"``: the scoring forward ``model.loss(batch)``.
 
     ``attention``: ``"plain"`` (the model's path off the card) or
-    ``"kernel"`` (:func:`kernel_attention`)."""
+    ``"kernel"`` (:func:`kernel_attention`).
+
+    ``mesh`` (a mesh over a process group, :func:`fake_mesh`): a train or
+    prefill step runs sharded, as one rank of it. The mesh is configured,
+    the state (the parameters) placed by the reference's specs as
+    DTensors of meta local shards and the batch by ``batch_specs`` (the
+    train step places each microbatch itself); a prefill runs the
+    forward on the placed parameters. The counts are then this rank's."""
     step = step or shape.kind
     t0 = time.perf_counter()
     model = build_model(cfg, tp=TP, device="meta")
     train = step == "train"
+    sharded = mesh is not None and step in ("train", "prefill")
+    if sharded:
+        ctx.configure(mesh)
     if train:
-        args = {"state": _meta_state(model, mp),
-                "batch": input_specs(cfg, shape)}
+        state = _meta_state(model, mp)
+        if sharded:
+            state = place_state(state, mesh, device="meta")
+        args = {"state": state, "batch": input_specs(cfg, shape)}
     elif step == "decode":
         args = {"params": model.param_tree(),
                 **input_specs(cfg, shape, model=model)}
     else:
-        args = {"params": model.param_tree(),
-                "batch": input_specs(cfg, dataclasses.replace(
-                    shape, kind="prefill"))}
+        params = model.param_tree()
+        batch = input_specs(cfg, dataclasses.replace(shape, kind="prefill"))
+        if sharded:
+            params = place_params(params, mesh, device="meta")
+            batch = place_batch(batch, cfg, shape, mesh, device="meta")
+        args = {"params": params, "batch": batch}
     counter = StepCounter(args)
     att = (kernel_attention(counter) if attention == "kernel"
            else contextlib.nullcontext())
-    fb = None
+    fb = fb_coll = None
     with counter, att:
         if train:
             state = args["state"]
             _, grads = loss_and_grads(model, state["params"],
                                       _microbatch(args["batch"], mb))
             fb = (counter.flops, counter.bytes)
+            fb_coll = copy.deepcopy(counter.collectives)
             lr = lr_schedule(state["opt"]["step"] + 1)
             new_p, new_opt, gnorm = adamw_update(
                 state["params"], grads, state["opt"], lr, inplace=donate)
@@ -490,18 +590,13 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
             out = model.decode_step(args["cache"], args["tokens"])
         elif step == "loss":
             out = model.loss(args["batch"])
-        elif cfg.family == "audio":
-            enc = model.encode(args["batch"]["enc_embeds"])
-            out = (enc[:, -1],) + model._cross_kv(model.param_tree(), enc)
         else:
-            h = model.apply(args["batch"])
-            out = L.unembed(h[:, -1:], model.embed)[:, 0]
+            out = _prefill(model, args["params"], args["batch"])
     total = (counter.flops, counter.bytes)
     fb = fb or total
     temp = counter.peak_bytes
     if train and mb > 1:
-        temp += sum(4 * p.numel()
-                    for p in tree_leaves(args["state"]["params"]))
+        temp += sum(4 * p.numel() for p in _tensors(args["state"]["params"]))
     arg_ids = {id(t.untyped_storage()) for t in _tensors(args)}
     out_stores = {id(t.untyped_storage()): t.untyped_storage().nbytes()
                   for t in _tensors(out)}
@@ -512,7 +607,37 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
                  argument_bytes=counter.argument_bytes,
                  output_bytes=output_bytes, temp_bytes=temp,
                  seconds=time.perf_counter() - t0, arguments=args,
-                 outputs=out)
+                 outputs=out, sharded=sharded,
+                 fb_collectives=fb_coll or counter.collectives,
+                 opt_collectives=_mix(counter.collectives, fb_coll, y=-1)
+                 if fb_coll else collective_bytes(""))
+
+
+def _prefill(model, params, batch):
+    """The reference's ``lower_prefill``: the last position's logits (audio:
+    the encoder's last frame and every layer's cross-attention K/V), of
+    ``params`` (the module's own, or a placed tree)."""
+    with torch.no_grad():
+        if model.cfg.family == "audio":
+            enc = model._encode(params, batch["enc_embeds"], remat=False)
+            return (enc[:, -1],) + model._cross_kv(params, enc)
+        h = model._hidden(params, batch, remat=False)
+        return L.unembed(h[:, -1:], params["embed"])[:, 0]
+
+
+def _mix(a: dict, b: dict, x: int = 1, y: int = 1) -> dict:
+    """Collective counts ``x a + y b`` (``collective_bytes``'s layout)."""
+    out = {k: x * a[k] + y * b[k] for k in a if k != "counts"}
+    out["counts"] = {k: x * a["counts"][k] + y * b["counts"][k]
+                     for k in a["counts"]}
+    return out
+
+
+def step_collectives(tr: "Trace") -> dict:
+    """The whole step's collectives (``collective_bytes``'s layout):
+    ``mb`` times one microbatch's forward and backward plus the
+    optimizer's, as the reference's ``cost_cell`` combines them."""
+    return _mix(tr.fb_collectives, tr.opt_collectives, tr.mb)
 
 
 def roofline_hw(cfg):
@@ -613,8 +738,8 @@ def per_device_bytes(specs, tree, mesh) -> int:
 # cell driver
 # ---------------------------------------------------------------------------
 
-def _memory(trace: Trace, specs, out_specs, mesh) -> dict:
-    if mesh is None:
+def _memory(trace: Trace, specs, out_specs, mesh, note: str) -> dict:
+    if mesh is None or trace.sharded:
         return {"argument_size_in_bytes": trace.argument_bytes,
                 "output_size_in_bytes": trace.output_bytes,
                 "temp_size_in_bytes": trace.temp_bytes}
@@ -625,13 +750,49 @@ def _memory(trace: Trace, specs, out_specs, mesh) -> dict:
                 specs, trace.arguments, mesh),
             "output_size_in_bytes": per_device_bytes(out_specs, outs, mesh),
             "temp_size_in_bytes": None,
-            "temp_note": "a device's temporaries: " + NOT_SHARDED}
+            "temp_note": "a device's temporaries: " + note}
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axis_names):
+    """A mesh of ``shape`` over a ``fake``-backend process group of its
+    size in this process (this process its rank 0), carrying its
+    ``DeviceMesh``: DTensors on it hold meta local shards, and the
+    collectives they issue run no communication (their meta kernels give
+    the outputs' shapes). The group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import init_mesh
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's fake mesh needs a process with no "
+                           "process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_mesh(shape, axis_names, "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def production_mesh(mesh_kind: str):
+    """The reference's production mesh of ``mesh_kind`` ("single": (data
+    16, model 16), "multi": (pod 2, data 16, model 16)) over a fake
+    process group (:func:`fake_mesh`); "none": no mesh."""
+    if mesh_kind == "none":
+        return contextlib.nullcontext()
+    if mesh_kind == "multi":
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, mode: str,
              out_dir: str, fsdp: bool = True, mp: bool = False,
-             moe_dispatch: str = "global", tag: str = "") -> dict:
-    cfg = ARCHS[arch]
+             moe_dispatch: str = "global", tag: str = "",
+             cfg=None) -> dict:
+    """One cell's record, written to ``out_dir``; ``cfg`` replaces
+    ``ARCHS[arch]`` (a cut of it; the record keeps ``arch``'s name)."""
+    cfg = cfg or ARCHS[arch]
     if moe_dispatch != "global" and cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=moe_dispatch))
@@ -648,54 +809,81 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mode: str,
     prev_devices = ctx.set_host_device_count(HOST_DEVICES)
     prev_ctx = ctx._CTX
     try:
-        mesh = None if mesh_kind == "none" else make_production_mesh(
-            multi_pod=(mesh_kind == "multi"), device="cpu")
-        chips = 1 if mesh is None else mesh.size
-        mb = MICROBATCHES.get(arch, 1) if shape.kind == "train" else 1
-        rec["chips"] = chips
-        rec["microbatches"] = mb
-        cost = mode in ("cost", "both") and mesh_kind != "multi"
-        if mode == "compile" or mode == "both" or cost:
-            # one trace serves both modes
-            trace = trace_step(cfg, shape, mb, mp=mp)
-            model = build_model(cfg, tp=TP, device="meta")
-        if mode in ("compile", "both"):
-            rec["lower_s"] = round(trace.seconds, 1)
-            t0 = time.time()
-            specs = out_specs = None
-            if mesh is not None:
-                specs, out_specs = _spec_trees(cfg, shape, mesh, model,
-                                               fsdp=fsdp, mp=mp)
-                check_specs(specs, trace.arguments, mesh)
-            rec["compile_s"] = round(time.time() - t0, 1)
-            rec["memory"] = _memory(trace, specs, out_specs, mesh)
-            rec["hlo_once"] = {
-                "flops": trace.once_flops, "bytes": trace.once_bytes,
-                "collectives": collective_bytes("") if mesh is None
-                else None}
-        if cost:
-            flops, byts = trace.flops, trace.bytes
-            rec["cost_s"] = round(trace.seconds, 1)
-            mf = model_flops(cfg, model, shape)
-            hw = HW if mesh is not None else roofline_hw(cfg)
-            rec["cost"] = {
-                "hlo_flops": flops, "hlo_bytes": byts,
-                "hlo_flops_per_chip": flops / chips,
-                "collective_bytes_per_chip": 0.0 if mesh is None else None,
-                "model_flops": mf,
-                "useful_ratio": mf / flops if flops else 0.0,
-            }
-            if mesh is not None:
-                rec["cost"]["collective_note"] = "the collective term: " \
-                    + NOT_SHARDED
-            rec["roofline"] = {**roofline_terms(flops, byts, 0.0, chips, hw),
-                               "hw": hw.name}
+        with production_mesh(mesh_kind) as mesh:
+            _cell(rec, cfg, shape, mesh, mode, fsdp, mp)
     finally:
         ctx.set_host_device_count(prev_devices)
         ctx._CTX = prev_ctx
 
     _save(rec, out_dir)
     return rec
+
+
+def _cell(rec, cfg, shape, mesh, mode, fsdp, mp) -> None:
+    """``run_cell``'s counts into ``rec``."""
+    mesh_kind = rec["mesh"]
+    chips = 1 if mesh is None else mesh.size
+    mb = MICROBATCHES.get(rec["arch"], 1) if shape.kind == "train" else 1
+    rec["chips"] = chips
+    rec["microbatches"] = mb
+    note = NOT_SHARDED
+    sharded = mesh is not None and shape.kind in ("train", "prefill")
+    if sharded and (shape.batch // mb) % data_size(mesh):
+        sharded, note = False, UNEVEN
+    cost = mode in ("cost", "both") and mesh_kind != "multi"
+    # one trace serves both modes
+    trace = trace_step(cfg, shape, mb, mp=mp,
+                       mesh=mesh if sharded else None)
+    model = build_model(cfg, tp=TP, device="meta")
+    if sharded:
+        coll = step_collectives(trace)
+        once = _mix(trace.fb_collectives, trace.opt_collectives)
+    else:
+        coll = once = collective_bytes("") if mesh is None else None
+    if mode in ("compile", "both"):
+        rec["lower_s"] = round(trace.seconds, 1)
+        t0 = time.time()
+        specs = out_specs = None
+        if mesh is not None:
+            specs, out_specs = _spec_trees(cfg, shape, mesh, model,
+                                           fsdp=fsdp, mp=mp)
+            check_specs(specs, _full(trace.arguments), mesh)
+        rec["compile_s"] = round(time.time() - t0, 1)
+        rec["memory"] = _memory(trace, specs, out_specs, mesh, note)
+        rec["hlo_once"] = {"flops": trace.once_flops,
+                           "bytes": trace.once_bytes, "collectives": once}
+    if cost:
+        # a sharded trace counts one device: the whole step is chips times
+        per = chips if sharded else 1
+        flops, byts = trace.flops * per, trace.bytes * per
+        rec["cost_s"] = round(trace.seconds, 1)
+        mf = model_flops(cfg, model, shape)
+        hw = HW if mesh is not None else roofline_hw(cfg)
+        rec["cost"] = {
+            "hlo_flops": flops, "hlo_bytes": byts,
+            "hlo_flops_per_chip": flops / chips,
+            "collective_bytes_per_chip": None if coll is None
+            else float(coll["total"]),
+            "model_flops": mf,
+            "useful_ratio": mf / flops if flops else 0.0,
+        }
+        if coll is None:
+            rec["cost"]["collective_note"] = "the collective term: " + note
+        elif mesh is not None:
+            rec["cost"]["collectives"] = coll
+        rec["roofline"] = {**roofline_terms(
+            flops, byts, 0.0 if coll is None else float(coll["total"]),
+            chips, hw), "hw": hw.name}
+
+
+def _full(tree):
+    """A tree whose DTensor leaves stand as their global shapes (meta
+    tensors), for :func:`check_specs`."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    if ctx.is_dtensor(tree):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
 
 
 def _save(rec: dict, out_dir: str) -> None:

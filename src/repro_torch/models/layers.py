@@ -14,7 +14,8 @@ rounded to v's dtype before PV (the Pallas kernel's twin,
 ``flash_attention.attention_plain``, keeps both in f32). Attention whose
 query and key lengths differ (Whisper's cross-attention) and the decode
 step's one-query attention over the cache stay plain torch
-(:func:`gqa_scores_out`), as they are jnp in the reference. Positions:
+(:func:`gqa_scores_out`; :func:`cross_attention`), as they are jnp in the
+reference. Positions:
 standard RoPE (``rope == "std"``), Qwen2-VL's M-RoPE (``"mrope"``,
 [3, B, S] positions) or none (``"abs"``: Whisper adds learned positions to
 its inputs).
@@ -26,7 +27,8 @@ q and the attention output on ("batch", -, "tp", -), the SwiGLU hidden on
 ("batch", -, "tp")); the projections are DTensor matmuls, and the rotary
 positions and the attention itself run on each rank's local shards
 (``local_map``): batch rows over the batch axes, heads over "model". So the
-flash kernels run under TP on the card as they do on one device.
+flash kernels run under TP on the card as they do on one device; so does
+the cross-attention.
 """
 from __future__ import annotations
 
@@ -150,8 +152,17 @@ def mlp_shapes(d, ff, layers) -> dict:
 
 
 def _proj(x, w):
-    """einsum("bsd,dhk->bshk") as one matmul: x [B,S,d], w [d,H,hd]."""
+    """einsum("bsd,dhk->bshk") as one matmul: x [B,S,d], w [d,H,hd]. On
+    DTensors whose heads do not split over "model", each rank projects its
+    own rows' whole heads (``local_map``: the weight whole, its gradient a
+    part of a sum over the batch axes), so no product splits a head."""
     d, H, hd = w.shape
+    if ctx.is_dtensor(x) and H % ctx.tp_size():
+        rows = ctx.logical_placements(3, "batch")
+        wp = ctx.logical_placements(3)
+        return ctx.local_map(_proj, (ctx.logical_placements(4, "batch"),),
+                             (rows, wp), (rows, ctx.partial_over(wp, "batch"))
+                             )(x, w)
     return torch.matmul(x, w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
 
 
@@ -244,14 +255,19 @@ def _attention_core(q, k, v, cfg, pos, causal):
     return self_attention(q, k, v, causal)
 
 
-def _attention_local(q, k, v, cfg, pos, causal):
-    """:func:`_attention_core` of DTensors q, k, v, pos on each rank's
-    local shards (``local_map``): rows over the batch axes, q heads over
-    "model" where their count divides by its size (else every rank takes
-    all). kv heads split with q's when theirs divide too, so a rank's
+def _cross_core(q, k, v, cfg, pos, causal):
+    """The cross-attention's core: plain, by definition, whatever the
+    lengths (the reference's ``_gqa_scores_out``)."""
+    return gqa_scores_out(q, k, v, causal)
+
+
+def _attention_local(q, k, v, cfg, pos, causal, core=_attention_core):
+    """``core`` (:func:`_attention_core`) of DTensors q, k, v, pos on each
+    rank's local shards (``local_map``): rows over the batch axes, q heads
+    over "model" where their count divides by its size (else every rank
+    takes all). kv heads split with q's when theirs divide too, so a rank's
     q heads meet their own kv group; otherwise each rank expands all kv
     heads and keeps its q heads' share."""
-    from torch.distributed.tensor.experimental import local_map
     dm = q.device_mesh
     tp = ctx.tp_size()
     hq, hkv = q.shape[2], k.shape[2]
@@ -269,12 +285,9 @@ def _attention_local(q, k, v, cfg, pos, causal):
             k, v = _expand_kv(k, v, hq)
             r, n = dm.get_local_rank("model"), q.shape[2]
             k, v = k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n]
-        return _attention_core(q, k, v, cfg, pos, causal)
+        return core(q, k, v, cfg, pos, causal)
 
-    fn = local_map(local, out_placements=(qp,),
-                   in_placements=(qp, kvp, kvp, posp), device_mesh=dm,
-                   redistribute_inputs=True)
-    return fn(q, k, v, pos)
+    return ctx.local_map(local, (qp,), (qp, kvp, kvp, posp))(q, k, v, pos)
 
 
 def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
@@ -297,6 +310,23 @@ def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
         o = _attention_core(q, k, v, cfg, None, causal)
     o = shard(o, "batch", None, "tp", None)
     return _out_proj(o, p["wo"].to(x.dtype))
+
+
+def cross_attention(p, x, cfg, k, v):
+    """Attention of x's queries (the layer's ``wq``, ``bq``, ``wo``) over
+    given keys and values k, v [B,Sk,Hkv,hd]: Whisper's cross-attention,
+    not causal, no rotation, plain torch (:func:`gqa_scores_out`) as it is
+    jnp in the reference. On DTensors it runs on local shards, rows and
+    heads, as the self-attention does (:func:`_attention_local`)."""
+    dt = x.dtype
+    q = _proj(x, p["wq"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    if ctx.is_dtensor(q):
+        o = _attention_local(q, k, v, cfg, None, False, core=_cross_core)
+    else:
+        o = gqa_scores_out(q, k, v)
+    return _out_proj(o, p["wo"].to(dt))
 
 
 def attention_decode(p, x, cfg, pos, cache_k, cache_v, cache_len):
@@ -347,17 +377,12 @@ def embed_lookup(embed, tokens):
     batch axes, reduced back onto its shards."""
     if not ctx.is_dtensor(embed):
         return embed[tokens]
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-    dm = embed.device_mesh
     whole = ctx.logical_placements(2)
     rows = ctx.logical_placements(tokens.ndim, "batch")
-    grad = tuple(Partial() if r != w else w for r, w in zip(rows, whole))
-    fn = local_map(lambda e, t: e[t], out_placements=(
-        ctx.logical_placements(tokens.ndim + 1, "batch"),),
-        in_placements=(whole, rows), in_grad_placements=(grad, rows),
-        device_mesh=dm, redistribute_inputs=True)
-    return fn(embed, tokens)
+    return ctx.local_map(
+        lambda e, t: e[t], (ctx.logical_placements(tokens.ndim + 1, "batch"),),
+        (whole, rows), (ctx.partial_over(whole, "batch"), rows))(
+            embed, tokens)
 
 
 def _xent_rows(logits, labels):
@@ -375,9 +400,7 @@ def softmax_xent(logits, labels):
     comes back replicated."""
     if not ctx.is_dtensor(logits):
         return _xent_rows(logits, labels).mean()
-    from torch.distributed.tensor.experimental import local_map
     rows = ctx.logical_placements(labels.ndim, "batch")
-    fn = local_map(_xent_rows, out_placements=(rows,), in_placements=(
-        ctx.logical_placements(logits.ndim, "batch"), rows),
-        device_mesh=logits.device_mesh, redistribute_inputs=True)
+    fn = ctx.local_map(_xent_rows, (rows,), (
+        ctx.logical_placements(logits.ndim, "batch"), rows))
     return shard(fn(logits, labels).mean())

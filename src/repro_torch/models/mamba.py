@@ -12,6 +12,12 @@ position with the one ``2^i`` before it. Both are exact up to the order of
 f32 products and sums, which differ (the tolerance is stated in the tests).
 Decode is the O(1) recurrent step. No Pallas kernel exists here; the chunk
 scan is XLA in the reference and torch ops in the port.
+
+Under a mesh d_inner splits over "model", as in the reference: ``u`` and
+``y`` are pinned to ("batch", -, "tp"), the depthwise conv and the chunk
+scan run per channel on each rank's local rows and channels
+(``local_map``), and ``x_proj`` and ``out_proj``, which contract over
+d_inner, leave partial sums that DTensor reduces.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import shard
 
 
 def mamba_shapes(d, mcfg, layers) -> dict:
@@ -92,17 +101,14 @@ def prefix_scan(a, b, dim: int = 1):
     return a, b
 
 
-def mamba_train(p, x, mcfg):
-    """Full-sequence forward. x [B,S,d] -> [B,S,d]."""
-    u, z = _ssm_inputs(p, x)
-    u, _ = _conv_silu(p, u, mcfg)
-    dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+def _scan(u, dt, Bc, Cc, A, D, mcfg):
+    """The chunk scan of every channel, plus the skip: y [B,S,di] f32."""
     B_, S, di = u.shape
     ch = min(mcfg.chunk, S)
     assert S % ch == 0, (S, ch)
     uf = u.float()
     h = torch.zeros((B_, di, mcfg.d_state), dtype=torch.float32,
-                    device=x.device)
+                    device=u.device)
     ys = []
     for c0 in range(0, S, ch):
         sl = slice(c0, c0 + ch)
@@ -112,9 +118,57 @@ def mamba_train(p, x, mcfg):
         hs = pA * h[:, None] + pB
         ys.append(torch.einsum("bcis,bcs->bci", hs, Cc[:, sl]))
         h = hs[:, -1]
-    y = torch.cat(ys, dim=1)
-    y = y + p["D"] * uf
+    return torch.cat(ys, dim=1) + D * uf
+
+
+def _local_conv_scan(p, u, mcfg):
+    """The conv and the scan of DTensors on local shards: rows over the
+    batch axes, channels over "model". The per-channel parameters come
+    whole over the batch axes, so their gradients are this rank's part of
+    a sum there; the state-space inputs ``Bc``/``Cc`` come whole over
+    "model", so theirs are this rank's channels' part of a sum there."""
+    chans = ctx.logical_placements(3, "batch", None, "tp")
+    rows = ctx.logical_placements(3, "batch", None, None)
+    w, wg = _over_channels(2, -1)
+    b, bg = _over_channels(1, -1)
+    u = ctx.local_map(lambda u, w, b: _conv_silu(
+        {"conv_w": w, "conv_b": b}, u, mcfg)[0],
+        (chans,), (chans, w, b), (chans, wg, bg))(
+            u, p["conv_w"], p["conv_b"])
+    dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+    a, ag = _over_channels(2, 0)
+    dvec, dg = _over_channels(1, 0)
+    bcg = ctx.partial_over(rows, "tp")
+    y = ctx.local_map(lambda *t: _scan(*t, mcfg), (chans,),
+                      (chans, chans, rows, rows, a, dvec),
+                      (chans, chans, bcg, bcg, ag, dg))(
+                          u, dt, Bc, Cc, A, p["D"])
+    return u, y
+
+
+def _over_channels(ndim, dim):
+    """(placements, gradient placements) of a per-channel parameter of
+    ``ndim`` dimensions whose dimension ``dim`` is d_inner: split over
+    "model", whole elsewhere; its gradient a part of a sum over the batch
+    axes."""
+    axes = [None] * ndim
+    axes[dim] = "tp"
+    pl = ctx.logical_placements(ndim, *axes)
+    return pl, ctx.partial_over(pl, "batch")
+
+
+def mamba_train(p, x, mcfg):
+    """Full-sequence forward. x [B,S,d] -> [B,S,d]."""
+    u, z = _ssm_inputs(p, x)
+    u = shard(u, "batch", None, "tp")
+    if ctx.is_dtensor(u):
+        u, y = _local_conv_scan(p, u, mcfg)
+    else:
+        u, _ = _conv_silu(p, u, mcfg)
+        dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+        y = _scan(u, dt, Bc, Cc, A, p["D"], mcfg)
     y = y.to(x.dtype) * F.silu(z)
+    y = shard(y, "batch", None, "tp")
     return torch.matmul(y, p["out_proj"].to(x.dtype))
 
 

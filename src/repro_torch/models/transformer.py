@@ -38,7 +38,14 @@ the token index (text only). Whisper is
 Under a mesh a training parameter tree and batch may be DTensors
 (:mod:`repro_torch.sharding.place`): the residual stream is pinned to
 ("batch", -, -) after the embedding and after every block (each hybrid
-layer), as in the reference, and the positions are placed with the rows.
+layer), as in the reference, and after every mixer (attention, Mamba;
+each xLSTM block), where XLA makes the partial sums whole before the
+next norm: DTensor would carry them into the norm and the next products;
+the positions are placed with the rows.
+A block's parameters are gathered over the batch axes inside it
+(:func:`repro_torch.sharding.ctx.gather_batch`, FSDP's all-gather), as
+is the table for the unembedding: DTensor, left to choose, would rather
+gather the activations and all-reduce the products.
 """
 from __future__ import annotations
 
@@ -195,8 +202,10 @@ class DecoderModel(ParamTree):
 
     def _block(self, x, pos, ln1, ln2, attn, mlp, moe):
         cfg = self.cfg
+        attn, mlp = ctx.gather_batch(attn), ctx.gather_batch(mlp)
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
-        x = x + L.attention_train(attn, h, cfg, pos)
+        x = shard(x + L.attention_train(attn, h, cfg, pos), "batch", None,
+                  None)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
         return shard(x + self._ffn(mlp, moe, h), "batch", None, None)
 
@@ -204,12 +213,16 @@ class DecoderModel(ParamTree):
         """One hybrid group: attention at j == 0, Mamba after; MoE at odd
         j, the MLP at even j."""
         cfg = self.cfg
+        attn, mambas, mlps = (ctx.gather_batch(attn),
+                              [ctx.gather_batch(m) for m in mambas],
+                              [ctx.gather_batch(m) for m in mlps])
         for j in range(cfg.attn_every):
             h = L.rmsnorm(x, ln1[j], cfg.norm_eps)
             if j == 0:
                 x = x + L.attention_train(attn, h, cfg, pos)
             else:
                 x = x + M.mamba_train(mambas[j - 1], h, cfg.mamba)
+            x = shard(x, "batch", None, None)
             h = L.rmsnorm(x, ln2[j], cfg.norm_eps)
             if j % 2 == 1:
                 x = x + self._ffn({}, moes[j // 2], h)
@@ -286,11 +299,12 @@ class DecoderModel(ParamTree):
         i_m = i_s = 0
         for l in range(cfg.num_layers):
             if l in cfg.slstm_layers:
-                x = X.slstm_train(slstm[i_s], x, cfg)
+                x = X.slstm_train(ctx.gather_batch(slstm[i_s]), x, cfg)
                 i_s += 1
             else:
-                x = X.mlstm_train(mlstm[i_m], x, cfg)
+                x = X.mlstm_train(ctx.gather_batch(mlstm[i_m]), x, cfg)
                 i_m += 1
+            x = shard(x, "batch", None, None)
         return x
 
     def apply(self, batch):
@@ -318,7 +332,7 @@ class DecoderModel(ParamTree):
 
     def _loss(self, params, batch, remat: bool):
         h = self._hidden(params, batch, remat)
-        logits = L.unembed(h, params["embed"])
+        logits = L.unembed(h, ctx.gather_batch(params["embed"]))
         labels = _as_tensor(batch["labels"], self.device)
         return L.softmax_xent(logits, labels)
 

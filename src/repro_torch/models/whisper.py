@@ -20,6 +20,14 @@ The module owns f32 master parameters in the reference's tree (``embed``,
 ``enc_pos``/``dec_pos`` [MAX_POS, d], ``final_norm``, ``enc_final_norm``,
 ``enc.{ln1,ln2,attn,mlp}``, ``dec.{ln1,ln2,ln3,attn,xattn,mlp}``), cast to
 the activation dtype at use, as :class:`DecoderModel` does.
+
+Under a mesh the residual streams are pinned to ("batch", -, -) after the
+positions are added and after every block, as in the reference (and after
+every attention, where XLA makes the partial sums whole), and the
+cross-attention runs on local (rows, heads over "model") shards, as the
+self-attention does (:func:`repro_torch.models.layers.cross_attention`);
+each block gathers its parameters over the batch axes
+(:func:`repro_torch.sharding.ctx.gather_batch`).
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (ParamTree, _as_tensor,
                                             unbind_layers)
-from repro_torch.sharding.ctx import head_plan
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import head_plan, shard
 
 MAX_POS = 40960     # learned positions: covers the 32k shapes
 
@@ -78,16 +87,19 @@ class EncDecModel(ParamTree):
 
     def _enc_block(self, x, ln1, ln2, attn, mlp):
         cfg = self.cfg
+        attn, mlp = ctx.gather_batch(attn), ctx.gather_batch(mlp)
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
-        x = x + L.attention_train(attn, h, cfg, pos=None, causal=False)
+        x = shard(x + L.attention_train(attn, h, cfg, pos=None,
+                                        causal=False), "batch", None, None)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        return x + L.mlp(mlp, h)
+        return shard(x + L.mlp(mlp, h), "batch", None, None)
 
     def _encode(self, params, enc_embeds, remat: bool):
         cfg = self.cfg
         dt = L.dtype_of(cfg)
         x = _as_tensor(enc_embeds, self.device).to(dt)
-        x = x + params["enc_pos"][:x.shape[1]].to(dt)
+        x = shard(x + params["enc_pos"][:x.shape[1]].to(dt), "batch", None,
+                  None)
         e, Le = params["enc"], cfg.encoder_layers
         ln1, ln2 = e["ln1"].unbind(0), e["ln2"].unbind(0)
         attn, mlp = unbind_layers(e["attn"], Le), unbind_layers(e["mlp"], Le)
@@ -110,7 +122,7 @@ class EncDecModel(ParamTree):
                             if k in ("wk", "wv", "bk", "bv")},
                            cfg.num_layers)
         ks, vs = [], []
-        for p in xa:
+        for p in map(ctx.gather_batch, xa):
             k = L._proj(enc_out, p["wk"].to(dt))
             v = L._proj(enc_out, p["wv"].to(dt))
             if cfg.qkv_bias:
@@ -124,20 +136,19 @@ class EncDecModel(ParamTree):
 
     def _cross(self, xattn, h, xk, xv):
         """Cross-attention of decoder states h over the cached K/V."""
-        q = L._proj(h, xattn["wq"].to(h.dtype))
-        if self.cfg.qkv_bias:
-            q = q + xattn["bq"].to(h.dtype)
-        o = L.gqa_scores_out(q, xk, xv)
-        return L._out_proj(o, xattn["wo"].to(h.dtype))
+        return L.cross_attention(xattn, h, self.cfg, xk, xv)
 
     def _dec_block(self, x, xk, xv, ln1, ln2, ln3, attn, xattn, mlp):
         cfg = self.cfg
+        attn, xattn, mlp = (ctx.gather_batch(attn), ctx.gather_batch(xattn),
+                            ctx.gather_batch(mlp))
         h = L.rmsnorm(x, ln1, cfg.norm_eps)
-        x = x + L.attention_train(attn, h, cfg, pos=None, causal=True)
+        x = shard(x + L.attention_train(attn, h, cfg, pos=None, causal=True),
+                  "batch", None, None)
         h = L.rmsnorm(x, ln2, cfg.norm_eps)
-        x = x + self._cross(xattn, h, xk, xv)
+        x = shard(x + self._cross(xattn, h, xk, xv), "batch", None, None)
         h = L.rmsnorm(x, ln3, cfg.norm_eps)
-        return x + L.mlp(mlp, h)
+        return shard(x + L.mlp(mlp, h), "batch", None, None)
 
     def _hidden(self, params, batch, remat: bool):
         """The decoder's final hidden states [B, S, d], teacher-forced on
@@ -147,8 +158,9 @@ class EncDecModel(ParamTree):
         enc_out = self._encode(params, batch["enc_embeds"], remat)
         xk, xv = self._cross_kv(params, enc_out)
         tok = _as_tensor(batch["dec_tokens"], self.device).long()
-        x = (params["embed"][tok].to(dt)
-             + params["dec_pos"][:tok.shape[1]].to(dt))
+        x = shard(L.embed_lookup(params["embed"], tok).to(dt)
+                  + params["dec_pos"][:tok.shape[1]].to(dt), "batch", None,
+                  None)
         dec, Ld = params["dec"], cfg.num_layers
         norms = [dec[k].unbind(0) for k in ("ln1", "ln2", "ln3")]
         blocks = [unbind_layers(dec[k], Ld) for k in ("attn", "xattn", "mlp")]
@@ -179,7 +191,7 @@ class EncDecModel(ParamTree):
 
     def _loss(self, params, batch, remat: bool):
         h = self._hidden(params, batch, remat)
-        logits = L.unembed(h, params["embed"])
+        logits = L.unembed(h, ctx.gather_batch(params["embed"]))
         labels = _as_tensor(batch["labels"], self.device)
         return L.softmax_xent(logits, labels)
 

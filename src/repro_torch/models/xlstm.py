@@ -9,13 +9,22 @@ the chunks before). sLSTM's recurrence is not parallel, so it runs step by
 step with block-diagonal (per-head) recurrent weights. Gates use the
 reference's sigmoid forms (its documented simplification of the paper's
 exponential gates). Both are torch ops, as they are XLA in the reference.
+
+Under a mesh the mLSTM's chunk recurrence runs on each rank's local rows
+and heads (heads over "model" where they divide) and its gated output is
+pinned to ("batch", -, "tp"), as in the reference; the sLSTM's recurrence
+and both initial states run on each rank's local rows (``local_map``),
+its recurrent weights whole, their gradients a part of a sum over the
+batch axes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import _proj, rmsnorm
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import shard
 
 CHUNK = 64
 
@@ -49,12 +58,6 @@ def slstm_shapes(cfg, layers) -> dict:
     }
 
 
-def _heads(x, w):
-    """einsum("bsd,dhk->bshk") as one matmul."""
-    d, H, hd = w.shape
-    return torch.matmul(x, w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
-
-
 def _out(y, wo):
     """einsum("bshk,hkd->bsd")."""
     H, hd, d = wo.shape
@@ -67,9 +70,9 @@ def _mlstm_proj(p, x, cfg):
     input and forget gates [B,S,H]."""
     dt = x.dtype
     xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = _heads(xn, p["wq"].to(dt))
-    k = _heads(xn, p["wk"].to(dt)) * cfg.head_dim ** -0.5
-    v = _heads(xn, p["wv"].to(dt))
+    q = _proj(xn, p["wq"].to(dt))
+    k = _proj(xn, p["wk"].to(dt)) * cfg.head_dim ** -0.5
+    v = _proj(xn, p["wv"].to(dt))
     x32 = xn.float()
     i = torch.sigmoid(torch.matmul(x32, p["wi"]))
     f = torch.sigmoid(torch.matmul(x32, p["wf"]) + p["bf"])
@@ -77,24 +80,24 @@ def _mlstm_proj(p, x, cfg):
 
 
 def _mlstm_out(p, x, xn, y):
-    """Output gate, projection and residual: y [B,S,H,hd] in x's dtype."""
+    """Output gate, projection and residual: y [B,S,H,hd] (or its heads
+    flattened) in x's dtype."""
     B, S = x.shape[:2]
     gate = F.silu(torch.matmul(xn, p["wgate"].to(x.dtype)))
-    y = y.reshape(B, S, -1) * gate
-    return x + _out(y.view(B, S, *p["wo"].shape[:2]), p["wo"].to(x.dtype))
+    y = shard(y.reshape(B, S, -1) * gate, "batch", None, "tp")
+    return x + torch.matmul(y, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
 
 
-def mlstm_train(p, x, cfg):
-    """Chunkwise-parallel mLSTM. x [B,S,d] -> [B,S,d]."""
-    B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    xn, q, k, v, i, f = _mlstm_proj(p, x, cfg)
+def _mlstm_chunks(q, k, v, i, f, dtype):
+    """The chunkwise recurrence from a zero state: q, k, v [B,S,H,hd], the
+    f32 gates i, f [B,S,H] -> y [B,S,H,hd] in ``dtype``."""
+    B, S, H, hd = q.shape
     ch = min(CHUNK, S)
     assert S % ch == 0
-    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
     mask = torch.tril(torch.ones((ch, ch), dtype=torch.bool,
-                                 device=x.device))
+                                 device=q.device))
     ys = []
     for c0 in range(0, S, ch):
         sl = slice(c0, c0 + ch)
@@ -108,7 +111,7 @@ def mlstm_train(p, x, cfg):
         # intra-chunk: decay(t, s) = exp(acum_t - acum_s) * i_s, s <= t
         w_ts = torch.exp(acum[:, :, None, :] - acum[:, None, :, :])
         w_ts = torch.where(mask[None, :, :, None], w_ts,
-                           torch.zeros((), device=x.device))
+                           torch.zeros((), device=q.device))
         w_ts = w_ts * ii[:, None, :, :]
         sc = torch.einsum("bthd,bshd->btsh", qq, kk) * w_ts
         y_intra = torch.einsum("btsh,bshd->bthd", sc, vv)
@@ -122,8 +125,23 @@ def mlstm_train(p, x, cfg):
         C = (carry[:, :, None, None] * C
              + torch.einsum("bsh,bshd,bshe->bhde", wN, kk, vv))
         n = carry[:, :, None] * n + torch.einsum("bsh,bshd->bhd", wN, kk)
-        ys.append(y.to(x.dtype))
-    return _mlstm_out(p, x, xn, torch.cat(ys, dim=1))
+        ys.append(y.to(dtype))
+    return torch.cat(ys, dim=1)
+
+
+def mlstm_train(p, x, cfg):
+    """Chunkwise-parallel mLSTM. x [B,S,d] -> [B,S,d]."""
+    xn, q, k, v, i, f = _mlstm_proj(p, x, cfg)
+    if ctx.is_dtensor(q):
+        # heads flattened on the rank: no DTensor view splits a head
+        heads = "tp" if q.shape[2] % ctx.tp_size() == 0 else None
+        qp = ctx.logical_placements(4, "batch", None, heads, None)
+        gp = ctx.logical_placements(3, "batch", None, heads)
+        y = ctx.local_map(lambda *t: _mlstm_chunks(*t, x.dtype).flatten(2),
+                          (gp,), (qp, qp, qp, gp, gp))(q, k, v, i, f)
+    else:
+        y = _mlstm_chunks(q, k, v, i, f, x.dtype)
+    return _mlstm_out(p, x, xn, y)
 
 
 def mlstm_init_state(cfg, batch, device=None):
@@ -179,24 +197,57 @@ def _slstm_step(p, wr, xg, state):
     return {"c": c, "h": h}, h
 
 
+def _gates(xn, wx):
+    """xn [B,S,d] @ wx [d,4,H,hd] -> [B,S,4,H,hd], f32."""
+    d, G, H, hd = wx.shape
+    return torch.matmul(xn, wx.reshape(d, G * H * hd)).view(
+        *xn.shape[:2], G, H, hd).float()
+
+
 def _slstm_proj(p, x, cfg):
-    """The normed input's gate projections [B,S,4,H,hd], f32."""
+    """The normed input's gate projections [B,S,4,H,hd], f32. On DTensors
+    each rank projects its own rows whole (``local_map``: the recurrence
+    takes whole rows; ``wx`` whole, its gradient a part of a sum over the
+    batch axes)."""
     xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-    d, G, H, hd = p["wx"].shape
-    wx = p["wx"].to(x.dtype).reshape(d, G * H * hd)
-    return torch.matmul(xn, wx).view(*x.shape[:2], G, H, hd).float()
+    wx = p["wx"].to(x.dtype)
+    if not ctx.is_dtensor(xn):
+        return _gates(xn, wx)
+    rows = ctx.logical_placements(3, "batch")
+    wp = ctx.logical_placements(4)
+    return ctx.local_map(_gates, (ctx.logical_placements(5, "batch"),),
+                         (rows, wp), (rows, ctx.partial_over(wp, "batch")))(
+                             xn, wx)
+
+
+def _slstm_scan(xg, wr, b):
+    """The recurrence over xg [B,S,4,H,hd] from zero states, one step a
+    position: h [B,S,H,hd] f32."""
+    B, _, _, H, hd = xg.shape
+    p, wr = {"b": b}, _recurrent(wr)
+    state = {"c": xg.new_zeros((B, H, hd)), "h": xg.new_zeros((B, H, hd))}
+    hs = []
+    for t in range(xg.shape[1]):
+        state, h = _slstm_step(p, wr, xg[:, t], state)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def slstm_train(p, x, cfg):
     xg = _slstm_proj(p, x, cfg)
-    wr = _recurrent(p["wr"])
-    state = slstm_init_state(cfg, x.shape[0], x.device)
-    hs = []
-    for t in range(x.shape[1]):
-        state, h = _slstm_step(p, wr, xg[:, t], state)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)                    # [B,S,H,hd]
-    return x + _out(y, p["wo"].to(x.dtype))
+    if ctx.is_dtensor(xg):
+        rows = ctx.logical_placements(5, "batch")
+        w, b = ctx.logical_placements(4), ctx.logical_placements(3)
+        hs = ctx.local_map(
+            lambda *t: _slstm_scan(*t).flatten(2),
+            (ctx.logical_placements(3, "batch"),),
+            (rows, w, b), (rows, ctx.partial_over(w, "batch"),
+                           ctx.partial_over(b, "batch")))(
+                               xg, p["wr"], p["b"])
+    else:
+        hs = _slstm_scan(xg, p["wr"], p["b"]).flatten(2)
+    return x + torch.matmul(hs.to(x.dtype),
+                            p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
 
 
 def slstm_decode(p, x, cfg, state):

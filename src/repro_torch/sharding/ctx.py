@@ -230,6 +230,57 @@ def distribute(x, *axes):
                              src_data_rank=None)
 
 
+def gather_batch(tree):
+    """A layer's parameters (a dict of tensors, nested or not) made whole
+    over the batch axes where they are DTensors split there (FSDP over
+    "data"), their "model" split kept: FSDP's all-gather at use, whose
+    backward reduce-scatters the gradients back onto the shards. Done
+    per layer inside the remat block, as XLA gathers a layer's weights in
+    the reference's scan. No mesh, or plain tensors: the tree itself."""
+    if _CTX is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_batch(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+    names = tree.device_mesh.mesh_dim_names
+    batch = _CTX["rules"]["batch"]
+    want = tuple(Replicate() if isinstance(p, Shard) and names[i] in batch
+                 else p for i, p in enumerate(tree.placements))
+    return tree if want == tuple(tree.placements) \
+        else tree.redistribute(tree.device_mesh, want)
+
+
+def partial_over(placements, *axes) -> tuple:
+    """``placements`` on the bound ``DeviceMesh`` with every mesh dimension
+    of logical ``axes`` made ``Partial()``: the gradient placements of an
+    input that a block reads whole over those dimensions and each rank
+    differentiates by its own part of the work."""
+    from torch.distributed.tensor import Partial
+    names = device_mesh().mesh_dim_names
+    dims = set()
+    for a in axes:
+        rule = _CTX["rules"][a]
+        dims.update(names.index(n) for n in (
+            rule if isinstance(rule, tuple) else (rule,)))
+    return tuple(Partial() if i in dims else pl
+                 for i, pl in enumerate(placements))
+
+
+def local_map(fn, out_placements, in_placements, in_grad_placements=None):
+    """``fn`` of plain tensors applied to DTensors on each rank's local
+    shards (``torch.distributed.tensor.experimental.local_map`` on the
+    bound ``DeviceMesh``): the inputs redistributed to
+    ``in_placements`` first, the outputs placed by ``out_placements``, and
+    each input's gradient read as ``in_grad_placements`` (default: its
+    input placements)."""
+    from torch.distributed.tensor.experimental import local_map as lm
+    return lm(fn, out_placements=out_placements, in_placements=in_placements,
+              in_grad_placements=in_grad_placements,
+              device_mesh=device_mesh(), redistribute_inputs=True)
+
+
 def shard(x, *axes):
     """Pin ``x`` to logical ``axes``, the counterpart of
     ``with_sharding_constraint``. No mesh configured: the identity. With a

@@ -38,10 +38,14 @@ def place(x, spec, dm, device=None):
     """A full tensor (or numpy array) ``x``, the same on every rank, as a
     DTensor placed by ``spec`` on ``dm``: this rank's shard, copied out of
     ``x`` (a shard that is all of ``x``, one replicated on every axis, is
-    ``x`` itself)."""
+    ``x`` itself), on ``device`` (default the mesh's device type; a meta
+    tensor stays on the meta device)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
+    if device is None:
+        device = "meta" if torch.is_tensor(x) and x.is_meta \
+            else dm.device_type
     t = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
-                        device=device or dm.device_type)
+                        device=device)
     dt = distribute_tensor(t, dm, placements(spec, dm), src_data_rank=None)
     local = dt.to_local()
     if local.numel() == t.numel():
@@ -67,6 +71,14 @@ def place_state(state, mesh, device=None) -> dict:
     dm = _device_mesh(mesh)
     return tree_map(lambda x, s: place(x, s, dm, device), state,
                     state_specs(state, mesh))
+
+
+def place_params(params, mesh, device=None) -> dict:
+    """A parameter tree placed on ``mesh`` by ``tree_param_specs`` (the
+    state's ``params``, :func:`state_specs`)."""
+    dm = _device_mesh(mesh)
+    specs = tree_param_specs(params, mesh.shape["model"], data_size(mesh))
+    return tree_map(lambda x, s: place(x, s, dm, device), params, specs)
 
 
 def place_batch(batch, cfg, shape=None, mesh=None, device=None) -> dict:
