@@ -125,8 +125,8 @@ reference package ``repro``. Phases, each fatal on failure:
    then the forward's logits against step-by-step decode logits at full
    width in f32, B=2, S=8, within 2e-2 (``[serve]``);
 16. training (``[train]``): (a) ``repro_torch.launch.train.train`` at full
-   width on SmolLM-360M with the train CLI's defaults (B=8, S=256, 100
-   steps) and the CarbonGate: finite losses, the first within 0.5 of ln V,
+   width on SmolLM-360M with the train CLI's defaults (B=8, S=256) for
+   ``TRAIN_STEPS`` steps (80, a cut of its 100) and the CarbonGate: finite losses, the first within 0.5 of ln V,
    64 forward and 32 of each backward flash launch a step, cold and warm
    step seconds, tokens/s, and one profiled warm step's device busy time
    and idle share; (b) the first step's loss and gradients through the
@@ -152,8 +152,15 @@ reference package ``repro``. Phases, each fatal on failure:
    S=2048 trace costs ~30 s); (b) ``launch.serve.serve`` (the MoE at the CLI's
    traffic, the others 4 requests of 8 new tokens; Whisper: ``prefill`` of
    1,500 frames and 16 greedy decode steps); (c) forward == decode in f32
-   within 2e-2 (MoE at capacity factor 8); (e) peak device memory; then
-   (d) the kernel at their new shapes (non-causal S=1500, H=32, hd=64;
+   within 2e-2 (MoE at capacity factor 8); (e) peak device memory; the
+   decode step under the parallel plan (:func:`mesh_decode`): the bf16
+   model's own parameters placed on a (data=1, model=1) mesh over
+   one-process NCCL and ``MESH_DECODE_STEPS`` greedy steps from a filled
+   cache placed by ``cache_specs`` (``MESH_DECODE_PROMPT`` decode steps of
+   seed tokens at B=``MESH_DECODE_B``; Whisper: its prefill, B=1), the
+   logits and every cache leaf bitwise equal to the unsharded steps after
+   each step (granite-moe under each of its three dispatches), the ms a
+   step of each printed; then (d) the kernel at their new shapes (non-causal S=1500, H=32, hd=64;
    causal S=1500, H=32, hd=64; causal S=2048, H=32, hd=128) against the
    plain version, with its time, bound and SDPA's time;
 18. the families' training at full width (``[train-families]``):
@@ -213,7 +220,8 @@ reference package ``repro``. Phases, each fatal on failure:
    gradients within 1e-4 / 1e-5, 64 forward and 32 of each backward f32
    flash launch a step; then ``MESH_STEPS`` bf16 steps over f32 masters at
    [train]'s TP of 16, their warm step beside [train]'s (the cost of
-   DTensor dispatch; no profiled step, a depth cut).
+   DTensor dispatch; no profiled step, a depth cut); then the decode
+   sub-step of (17) on the bf16 SmolLM-360M at TP 16.
 
 Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20, 21) is driven
 with the kernels' launch counts set to 0 just before it and read just
@@ -309,7 +317,8 @@ BWD_F32_TOL = 1e-4
 LSE_TOL = 1e-4
 # [train]: the train CLI's defaults at full width (launch/train.py)
 TRAIN_ARCH = "smollm-360m"
-TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 256
+# 80 steps: a cut of the CLI's 100, which pays for the decode sub-steps
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 80, 8, 256
 # the backward's timed shapes (B, S, H, hd, causal, dtype): FLASH_TIMED's
 # (causal), the training cell's (16 heads of 64 after head_plan, causal,
 # bf16), where the kernels run 3,200 times a [train] run, and Whisper's
@@ -397,6 +406,17 @@ MESH_FAMILY_REDUCED = {"jamba-v0.1-52b": {"head_dim": 64},
                        "qwen2-vl-7b": {"head_dim": 64,
                                        "mrope_sections": (8, 12, 12)}}
 MESH_FAMILY_REDUCED_CELL = (4, 32)
+# the decode step under the parallel plan ([families] and [mesh] decode
+# sub-steps): the model's own parameters placed on a (data=1, model=1) mesh
+# over one-process NCCL (its own tensors: nothing copied), its cache placed by
+# cache_specs from a cache the unsharded steps filled (MESH_DECODE_PROMPT
+# decode steps of seed tokens; Whisper: its prefill), then
+# MESH_DECODE_STEPS greedy steps each sharded and unsharded: the logits and
+# every cache leaf bitwise equal after every step (a (1, 1) mesh reduces
+# nothing, as [train-families] (d) shows for training); B rows
+MESH_DECODE_STEPS = 3
+MESH_DECODE_PROMPT = 4
+MESH_DECODE_B = 4
 # the step counts [train-families] (a) ran before (d) came and the cut to
 # TRAIN_FAMILY_CELLS' 6 (granite-moe and Whisper), for the saving it prints
 TRAIN_FAMILY_STEPS_BEFORE = {"granite-moe-1b-a400m": 10,
@@ -2884,7 +2904,114 @@ def routed_apart(a: list, b: list) -> int:
     return n
 
 
-def family_cell(dev, arch, plain_calls):
+def mesh_decode(dev, mesh, model, cache, tag) -> dict:
+    """The decode sub-step: from ``cache`` (filled unsharded; not changed)
+    ``MESH_DECODE_STEPS`` greedy decode steps of ``model`` unsharded and,
+    in turns, the same steps through ``decode_step(params=)`` with the
+    model's parameters placed on the (1, 1) ``mesh`` (``place_params``:
+    on one device, its own tensors) and a copy of the cache placed
+    by ``place_cache``: after every step the logits and every cache leaf
+    bitwise equal, and the same greedy tokens (the first step's 3, 4, ...
+    a row). Returns the ms a step of each (the median of the steps; every
+    step synchronised)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding import ctx, place
+
+    def copy(c):
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in c.items()}
+
+    B = next(v for v in cache.values() if torch.is_tensor(v)).shape[1]
+    tok = torch.arange(B, device=dev) + 3
+    plain_cache = copy(cache)
+    ctx.configure(mesh)
+    try:
+        params = place.place_params(model.param_tree(), mesh, device=dev)
+        placed = place.place_cache(copy(cache), model.cfg, B, mesh,
+                                   model.hkv % mesh.shape["model"] == 0,
+                                   device=dev)
+    finally:
+        ctx.reset()
+    ms = {"unsharded": [], "sharded": []}
+    t_plain = t_mesh = tok
+    for s in range(MESH_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, plain_cache = model.decode_step(plain_cache, t_plain)
+        torch.cuda.synchronize()
+        ms["unsharded"].append(1e3 * (time.perf_counter() - t0))
+        ctx.configure(mesh)
+        try:
+            t0 = time.perf_counter()
+            got, placed = model.decode_step(placed, t_mesh, params=params)
+            torch.cuda.synchronize()
+            ms["sharded"].append(1e3 * (time.perf_counter() - t0))
+        finally:
+            ctx.reset()
+        got = got.full_tensor()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{tag} decode step {s}: the sharded logits differ from the "
+              f"unsharded ones (max |d| "
+              f"{float((got - want).abs().max()):.4g})")
+        for k, v in plain_cache.items():
+            same = v == placed[k] if k == "len" else torch.equal(
+                v, placed[k].to_local())
+            check(same, f"{tag} decode step {s}: cache leaf {k} differs")
+        t_plain, t_mesh = want.argmax(-1), got.argmax(-1)
+        check(torch.equal(t_plain, t_mesh), f"{tag} decode step {s}: tokens")
+    del params, placed, plain_cache
+    out = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[mesh-decode] {tag}: {MESH_DECODE_STEPS} decode steps (B={B}, "
+        f"from len {cache['len']}) on a (1, 1) mesh bitwise equal to the "
+        f"unsharded steps (logits, every cache leaf, tokens); ms a step "
+        f"sharded {out['sharded']:.3f} vs unsharded {out['unsharded']:.3f} "
+        f"(steps {[round(x, 3) for x in ms['sharded']]} vs "
+        f"{[round(x, 3) for x in ms['unsharded']]}; DTensor dispatch, no "
+        f"gate); {nvidia_smi_line()}")
+    return out
+
+
+def prefilled(model, dev, B=MESH_DECODE_B):
+    """A decoder's cache after ``MESH_DECODE_PROMPT`` unsharded decode
+    steps of seed tokens (the batcher's prompt feed), room for
+    ``MESH_DECODE_STEPS`` more."""
+    import numpy as np
+    import torch
+
+    cache = model.init_cache(B, MESH_DECODE_PROMPT + MESH_DECODE_STEPS)
+    rng = np.random.default_rng(SEED)
+    for t in range(MESH_DECODE_PROMPT):
+        tok = torch.as_tensor(rng.integers(1, model.cfg.vocab, B),
+                              device=dev)
+        _, cache = model.decode_step(cache, tok)
+    return cache
+
+
+def family_mesh_decode(dev, mesh, model, cache, arch) -> dict:
+    """:func:`mesh_decode` of a [families] configuration; the MoE family
+    under each of its three dispatches (the model's config swapped for the
+    sub-step, then restored; Jamba's MoE layers keep its own)."""
+    import dataclasses
+
+    cfg = model.cfg
+    if cfg.family != "moe":
+        return {arch: mesh_decode(dev, mesh, model, cache, f"[families] "
+                                  f"{arch}")}
+    out = {}
+    try:
+        for d in MESH_FAMILY_DISPATCHES:
+            model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, dispatch=d))
+            out[f"{arch} {d}"] = mesh_decode(dev, mesh, model, cache,
+                                             f"[families] {arch} {d}")
+    finally:
+        model.cfg = cfg
+    return out
+
+
+def family_cell(dev, arch, plain_calls, mesh):
     """One configuration of ``[families]``: (a) the loss forward through
     the kernel, cold and warm, and its final hidden states against plain
     attention of the same parameters, by the rule of ``[model]`` (f32:
@@ -2893,8 +3020,11 @@ def family_cell(dev, arch, plain_calls):
     ``BF16_MODEL_SLACK``; the bf16 losses within ``BF16_MODEL_TOL``), with
     a profiled warm forward; (b) the serve entry point (Whisper: prefill,
     then greedy decode steps); (c) forward == decode in f32; (e) the peak
-    device memory. An MoE's comparison forwards take the routing of the
-    kernel's bf16 forward (:func:`routing`)."""
+    device memory; and the decode sub-step on the (1, 1) ``mesh``
+    (:func:`family_mesh_decode`, on the bf16 model: decoders from a cache of
+    ``MESH_DECODE_PROMPT`` steps, Whisper from its prefill). An MoE's
+    comparison forwards take the routing of the kernel's bf16 forward
+    (:func:`routing`)."""
     import dataclasses
     import math
 
@@ -2972,13 +3102,14 @@ def family_cell(dev, arch, plain_calls):
     fwd = device_breakdown(lambda: model.loss(prof_batch), 1, PROFILE_OUT)
     del prof_batch
 
-    # (b) serving
+    # (b) serving; the decode sub-step under the parallel plan
     if traffic is None:            # Whisper: prefill, then greedy decode
         cache = model.init_cache(1, WHISPER_DECODE_STEPS + 1, enc_len=S)
         cache, prefill_s = through_kernel(
             lambda: model.prefill(cache, batch["enc_embeds"]),
             "the prefill", cfg.encoder_layers)
         tok = torch.as_tensor(batch["dec_tokens"][:, 0], device=dev)
+        mesh_dec = family_mesh_decode(dev, mesh, model, cache, arch)
         plain_before = plain_calls[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2994,6 +3125,9 @@ def family_cell(dev, arch, plain_calls):
                    "ms_per_step": 1e3 * dec_s / WHISPER_DECODE_STEPS,
                    "tokens_per_s": WHISPER_DECODE_STEPS / dec_s}
         del cache
+    else:
+        mesh_dec = family_mesh_decode(dev, mesh, model,
+                                      prefilled(model, dev), arch)
     del model
     torch.cuda.empty_cache()
     if traffic is not None:
@@ -3107,25 +3241,39 @@ def family_cell(dev, arch, plain_calls):
             "plain_bf16_to_f32": plain_to_f32, "rel_loss": rel_loss,
             "routed_apart": apart, "forward": fwd, "serve": serving,
             "decode_diff": diff, "peak_gib": peak_gb, "loss_peak": loss_peak,
-            "seconds": secs}
+            "mesh_decode": mesh_dec, "seconds": secs}
 
 
 def phase_families(dev):
     """[families]: the MoE, VLM, hybrid, xLSTM and Whisper configurations at
     full width on the card (:func:`family_cell`, one at a time, each freed
-    before the next), then (d) the flash kernel at the shapes they give
-    it."""
+    before the next; each with its decode sub-step on a (1, 1) mesh over a
+    one-process NCCL group), then (d) the flash kernel at the shapes they
+    give it."""
+    import tempfile
+
+    import torch.distributed as dist
+
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as launch_mesh
 
     t_phase = time.perf_counter()
     fa.reset_launches()
     plain_calls = [0]
     cells = {}
-    with counting_plain_attention(plain_calls):
-        for arch in FAMILY_CELLS:
-            before = fa.LAUNCHES
-            cells[arch] = family_cell(dev, arch, plain_calls)
-            cells[arch]["launches"] = fa.LAUNCHES - before
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fam_mesh_")
+    launch_mesh.init_process_group(dev, store=os.path.join(tmp_dir.name,
+                                                           "store"))
+    try:
+        mesh = launch_mesh.init_mesh((1, 1), ("data", "model"), dev)
+        with counting_plain_attention(plain_calls):
+            for arch in FAMILY_CELLS:
+                before = fa.LAUNCHES
+                cells[arch] = family_cell(dev, arch, plain_calls, mesh)
+                cells[arch]["launches"] = fa.LAUNCHES - before
+    finally:
+        dist.destroy_process_group()
+        tmp_dir.cleanup()
     launches = fa.COUNTS["bfloat16"]["flash_fwd"]
     f32_launches = fa.COUNTS["float32"]["flash_fwd"]
     rows = {key: flash_row(dev, *shape, "bfloat16")
@@ -3392,8 +3540,8 @@ def phase_train(dev):
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     tmp = tmp_dir.name
 
-    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 100
-    # --carbon-gate, checkpoints every 50 steps
+    # (a) the CLI path: --arch smollm-360m --batch 8 --seq 256 --steps 80
+    # (a cut of 100) --carbon-gate, checkpoints every 50 steps
     fa.reset_launches()
     t0 = time.perf_counter()
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
@@ -3699,6 +3847,15 @@ def phase_mesh(dev, train_warm_s):
             f"{warm16 / train_warm_s:.3f}x, {warm16 - train_warm_s:+.4f} s a "
             f"step of DTensor dispatch; bf16 flash launches {bf16_launches}; "
             f"no profiled step (a depth cut)")
+
+        # the decode step under the plan: the bf16 model at TP 16
+        model = build_model(cfg, device=dev)
+        model.init(gen())
+        decode = mesh_decode(dev, mesh, model, prefilled(model, dev),
+                             f"[mesh] {cfg.name}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         ctx.reset()
         dist.destroy_process_group()
@@ -3707,7 +3864,7 @@ def phase_mesh(dev, train_warm_s):
     secs = time.perf_counter() - t_phase
     log(f"[mesh] phase {secs:.3f} s")
     return {"launches": bf16_launches, "f32_launches": f32_launches,
-            "warm_s": warm16, "seconds": secs}
+            "warm_s": warm16, "decode": decode, "seconds": secs}
 
 
 def train_family_cell(dev, arch):

@@ -36,11 +36,14 @@ that times the chips), and ``collective_bytes_per_chip`` is the sum of
 the operand bytes of the functional collectives the step issues
 (``StepCounter.collectives``, in ``roofline.analysis.collective_bytes``'s
 layout: bytes and counts by kind), which the roofline's collective term
-reads. Decode cells need the sequence-sharded cache of ``cache_specs``,
-which is not ported (ROADMAP Queue 1 item 2, the decode cells' collective
-term): they trace the unsharded step, their collective term and a device's
-temporaries stay null with a note, as does a train cell whose microbatch
-rows do not split evenly over the batch axes.
+reads. A decode cell runs the sharded decode step: the parameters placed
+as for prefill, the cache by ``cache_specs`` (``place_cache``: rows over
+the batch axes, or with B below their size, as ``long_500k``'s B=1, the
+sequence over "data" and the attention combined across it) and the tokens
+by ``P(ba)`` or ``P()``, as the reference's ``lower_decode``. A train cell
+whose microbatch rows do not split evenly over the batch axes traces the
+unsharded step: its collective term and a device's temporaries stay null
+with a note.
 
 Attention is counted as the plain model path computes it off the card
 (``layers.attention_plain_model``: dense scores per block of 512 queries,
@@ -83,7 +86,9 @@ from repro_torch.models import layers as L
 from repro_torch.roofline.analysis import (H100, H100_F32, HW,
                                            collective_bytes, roofline_terms)
 from repro_torch.sharding import ctx
-from repro_torch.sharding.place import place_batch, place_params, place_state
+from repro_torch.sharding.place import (place_batch, place_cache,
+                                       place_params, place_state,
+                                       place_tokens)
 from repro_torch.sharding.specs import (P, batch_specs, cache_specs,
                                         tree_param_specs)
 from repro_torch.train.optimizer import (adamw_init, adamw_update,
@@ -101,9 +106,6 @@ HOST_DEVICES = 512
 # the head plan's TP width: the production meshes' "model" axis, and the
 # card's models (build_model's default)
 TP = 16
-NOT_SHARDED = ("a decode cell needs the sequence-sharded cache of "
-               "cache_specs, not ported (ROADMAP Queue 1 item 2, the decode "
-               "cells' collective term): not modelled")
 UNEVEN = ("the microbatch's rows do not split evenly over the batch axes: "
           "traced unsharded, not modelled")
 # the functional collectives a sharded step issues, by the reference's kind
@@ -176,7 +178,8 @@ class StepCounter(TorchDispatchMode):
     * ``collectives``: a functional collective's operand bytes and count
       by kind (:data:`_COLLECTIVE_KINDS`), the layout of
       ``roofline.analysis.collective_bytes``; its bytes are not added to
-      ``bytes``.
+      ``bytes``. ``by_group``: the same bytes by process group name, then
+      kind (the group is a mesh axis's: :func:`trace_step` names them).
 
     An op on DTensors is left to DTensor (``NotImplemented``), whose local
     ops on the local shards and collectives then come here: under a mesh
@@ -199,6 +202,7 @@ class StepCounter(TorchDispatchMode):
         self._stores: dict = {}      # id(storage) -> (weakref, live bytes)
         self._cache: dict = {}
         self.collectives = collective_bytes("")
+        self.by_group: dict = {}
         self.argument_bytes = self._track(_tensors(arguments), live=False)
 
     def _free(self, ref) -> None:
@@ -227,7 +231,7 @@ class StepCounter(TorchDispatchMode):
         self.flops += flops
         self.bytes += nbytes
 
-    def _collective(self, func, args) -> None:
+    def _collective(self, func, args, kwargs) -> None:
         kind = _COLLECTIVE_KINDS.get(func.overloadpacket.__name__)
         if kind is None:
             return
@@ -235,6 +239,9 @@ class StepCounter(TorchDispatchMode):
         self.collectives[kind] += n
         self.collectives["total"] += n
         self.collectives["counts"][kind] += 1
+        group = (kwargs or {}).get("group_name", args[-1])
+        per = self.by_group.setdefault(str(group), {})
+        per[kind] = per.get(kind, 0) + n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(_is_dtensor_type(t) for t in types):
@@ -244,7 +251,7 @@ class StepCounter(TorchDispatchMode):
             # the global shapes to learn its output's: no work of the step
             return func(*args, **(kwargs or {}))
         if func.namespace in _COLLECTIVE_NAMESPACES:
-            self._collective(func, args)
+            self._collective(func, args, kwargs)
             out = func(*args, **(kwargs or {}))
             self._track(_tensors(out))
             return out
@@ -483,6 +490,9 @@ class Trace:
         default_factory=lambda: collective_bytes(""))
     opt_collectives: dict = dataclasses.field(
         default_factory=lambda: collective_bytes(""))
+    # as traced (one microbatch and the optimizer): bytes by mesh axis (its
+    # process group's), then kind
+    collectives_by_axis: dict = dataclasses.field(default_factory=dict)
 
     @property
     def flops(self) -> float:
@@ -541,17 +551,20 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
     ``attention``: ``"plain"`` (the model's path off the card) or
     ``"kernel"`` (:func:`kernel_attention`).
 
-    ``mesh`` (a mesh over a process group, :func:`fake_mesh`): a train or
-    prefill step runs sharded, as one rank of it. The mesh is configured,
-    the state (the parameters) placed by the reference's specs as
-    DTensors of meta local shards and the batch by ``batch_specs`` (the
+    ``mesh`` (a mesh over a process group, :func:`fake_mesh`): a train,
+    prefill or decode step runs sharded, as one rank of it. The mesh is
+    configured, the state (the parameters) placed by the reference's specs
+    as DTensors of meta local shards and the batch by ``batch_specs`` (the
     train step places each microbatch itself); a prefill runs the
-    forward on the placed parameters. The counts are then this rank's."""
+    forward on the placed parameters, a decode ``decode_step`` on them
+    with the cache placed by ``cache_specs`` (kv heads over "model" where
+    ``hkv % tp == 0``) and the tokens by ``P(ba)`` or ``P()``. The counts
+    are then this rank's."""
     step = step or shape.kind
     t0 = time.perf_counter()
     model = build_model(cfg, tp=TP, device="meta")
     train = step == "train"
-    sharded = mesh is not None and step in ("train", "prefill")
+    sharded = mesh is not None and step in ("train", "prefill", "decode")
     if sharded:
         ctx.configure(mesh)
     if train:
@@ -562,6 +575,14 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
     elif step == "decode":
         args = {"params": model.param_tree(),
                 **input_specs(cfg, shape, model=model)}
+        if sharded:
+            args["params"] = place_params(args["params"], mesh,
+                                          device="meta")
+            args["cache"] = place_cache(
+                args["cache"], cfg, shape.batch, mesh,
+                model.hkv % mesh.shape["model"] == 0, device="meta")
+            args["tokens"] = place_tokens(args["tokens"], mesh,
+                                          device="meta")
     else:
         params = model.param_tree()
         batch = input_specs(cfg, dataclasses.replace(shape, kind="prefill"))
@@ -587,7 +608,9 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
             out = {"state": {"params": new_p, "opt": new_opt},
                    "metrics": {"gnorm": gnorm, "lr": lr}}
         elif step == "decode":
-            out = model.decode_step(args["cache"], args["tokens"])
+            out = model.decode_step(args["cache"], args["tokens"],
+                                    params=args["params"] if sharded
+                                    else None)
         elif step == "loss":
             out = model.loss(args["batch"])
         else:
@@ -601,6 +624,9 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
     out_stores = {id(t.untyped_storage()): t.untyped_storage().nbytes()
                   for t in _tensors(out)}
     output_bytes = sum(n for k, n in out_stores.items() if k not in arg_ids)
+    axes = {} if not sharded else {
+        str(mesh.device_mesh.get_group(a).group_name): a
+        for a in mesh.axis_names}
     return Trace(fb_flops=float(fb[0]), fb_bytes=float(fb[1]),
                  opt_flops=float(total[0] - fb[0]),
                  opt_bytes=float(total[1] - fb[1]), mb=mb if train else 1,
@@ -610,7 +636,9 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
                  outputs=out, sharded=sharded,
                  fb_collectives=fb_coll or counter.collectives,
                  opt_collectives=_mix(counter.collectives, fb_coll, y=-1)
-                 if fb_coll else collective_bytes(""))
+                 if fb_coll else collective_bytes(""),
+                 collectives_by_axis={axes.get(g, g): kinds for g, kinds
+                                      in counter.by_group.items()})
 
 
 def _prefill(model, params, batch):
@@ -826,9 +854,10 @@ def _cell(rec, cfg, shape, mesh, mode, fsdp, mp) -> None:
     mb = MICROBATCHES.get(rec["arch"], 1) if shape.kind == "train" else 1
     rec["chips"] = chips
     rec["microbatches"] = mb
-    note = NOT_SHARDED
-    sharded = mesh is not None and shape.kind in ("train", "prefill")
-    if sharded and (shape.batch // mb) % data_size(mesh):
+    note = None
+    sharded = mesh is not None
+    if sharded and shape.kind != "decode" \
+            and (shape.batch // mb) % data_size(mesh):
         sharded, note = False, UNEVEN
     cost = mode in ("cost", "both") and mesh_kind != "multi"
     # one trace serves both modes
@@ -852,6 +881,9 @@ def _cell(rec, cfg, shape, mesh, mode, fsdp, mp) -> None:
         rec["memory"] = _memory(trace, specs, out_specs, mesh, note)
         rec["hlo_once"] = {"flops": trace.once_flops,
                            "bytes": trace.once_bytes, "collectives": once}
+        if sharded:
+            rec["hlo_once"]["collectives_by_axis"] = \
+                trace.collectives_by_axis
     if cost:
         # a sharded trace counts one device: the whole step is chips times
         per = chips if sharded else 1

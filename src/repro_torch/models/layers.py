@@ -28,7 +28,10 @@ q and the attention output on ("batch", -, "tp", -), the SwiGLU hidden on
 positions and the attention itself run on each rank's local shards
 (``local_map``): batch rows over the batch axes, heads over "model". So the
 flash kernels run under TP on the card as they do on one device; so does
-the cross-attention.
+the cross-attention. The decode step's attention reads a cache placed by
+``cache_specs`` where it lies (:func:`_decode_attend`): rows over the batch
+axes, or, with fewer rows than their size, the sequence over "data" and
+the partial softmaxes combined across it.
 """
 from __future__ import annotations
 
@@ -266,8 +269,8 @@ def _attention_local(q, k, v, cfg, pos, causal, core=_attention_core):
     rank's local shards (``local_map``): rows over the batch axes, q heads
     over "model" where their count divides by its size (else every rank
     takes all). kv heads split with q's when theirs divide too, so a rank's
-    q heads meet their own kv group; otherwise each rank expands all kv
-    heads and keeps its q heads' share."""
+    q heads meet their own kv group; otherwise each rank takes the kv heads
+    its q heads read (:func:`_group_heads`)."""
     dm = q.device_mesh
     tp = ctx.tp_size()
     hq, hkv = q.shape[2], k.shape[2]
@@ -282,9 +285,8 @@ def _attention_local(q, k, v, cfg, pos, causal, core=_attention_core):
 
     def local(q, k, v, pos):
         if heads is not None and not kv_split:
-            k, v = _expand_kv(k, v, hq)
             r, n = dm.get_local_rank("model"), q.shape[2]
-            k, v = k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n]
+            k, v = _group_heads(k, r, n, hq), _group_heads(v, r, n, hq)
         return core(q, k, v, cfg, pos, causal)
 
     return ctx.local_map(local, (qp,), (qp, kvp, kvp, posp))(q, k, v, pos)
@@ -312,45 +314,179 @@ def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
     return _out_proj(o, p["wo"].to(x.dtype))
 
 
+def _cross_q(p, x, cfg):
+    """The cross-attention's queries: x's ``wq`` (and ``bq``)."""
+    dt = x.dtype
+    q = _proj(x, p["wq"].to(dt))
+    return q + p["bq"].to(dt) if cfg.qkv_bias else q
+
+
 def cross_attention(p, x, cfg, k, v):
     """Attention of x's queries (the layer's ``wq``, ``bq``, ``wo``) over
     given keys and values k, v [B,Sk,Hkv,hd]: Whisper's cross-attention,
     not causal, no rotation, plain torch (:func:`gqa_scores_out`) as it is
     jnp in the reference. On DTensors it runs on local shards, rows and
     heads, as the self-attention does (:func:`_attention_local`)."""
-    dt = x.dtype
-    q = _proj(x, p["wq"].to(dt))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
+    q = _cross_q(p, x, cfg)
     if ctx.is_dtensor(q):
         o = _attention_local(q, k, v, cfg, None, False, core=_cross_core)
     else:
         o = gqa_scores_out(q, k, v)
-    return _out_proj(o, p["wo"].to(dt))
+    return _out_proj(o, p["wo"].to(x.dtype))
 
 
-def attention_decode(p, x, cfg, pos, cache_k, cache_v, cache_len):
-    """One-token decode. x [B,1,d]; cache_k/v [B,Smax,Hkv,hd]; pos [B].
+def attention_decode(p, x, cfg, cache_k, cache_v, cache_len):
+    """One-token decode. x [B,1,d]; cache_k/v [B,Smax,Hkv,hd]; every row
+    at position ``cache_len``.
 
     Writes the new k/v into the caches in place at ``cache_len`` (shared by
     all rows; past the end it lands on the last slot, as the reference's
     clamped ``dynamic_update_slice`` does) and returns (out, cache_k,
-    cache_v)."""
+    cache_v). On DTensors (a placed cache, :func:`repro_torch.sharding.
+    place.place_cache`) the write and the attention run on each rank's
+    local shards (:func:`_decode_attend`)."""
     q, k, v = _qkv(p, x, cfg)
-    if cfg.rope == "mrope":
-        pos3 = pos[None, :, None].expand(3, pos.shape[0], 1)
-        q, k = _rope(q, k, cfg, pos3)
-    else:
-        q, k = _rope(q, k, cfg, pos[:, None])
-    Smax = cache_k.shape[1]
-    at = min(max(int(cache_len), 0), Smax - 1)
-    cache_k[:, at] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, at] = v[:, 0].to(cache_v.dtype)
-    valid = torch.arange(Smax, device=x.device)[None, :] <= int(cache_len)
-    valid = valid.expand(x.shape[0], Smax)
-    o = gqa_scores_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                       kv_len_mask=valid)
+    o = _decode_attend(q, k, v, cache_k, cache_v, cfg, int(cache_len))
     return _out_proj(o, p["wo"].to(x.dtype)), cache_k, cache_v
+
+
+def cross_attention_decode(p, x, cfg, k, v):
+    """:func:`cross_attention` of a decode step over the cached keys and
+    values k, v [B,Se,Hkv,hd]. On DTensors the cache is read where it is
+    placed (:func:`_decode_attend`): with the frames split over "data"
+    (fewer rows than the batch axes' size) each rank attends over its own
+    frames and the parts are combined across "data"."""
+    o = _decode_attend(_cross_q(p, x, cfg), None, None, k, v, cfg, None)
+    return _out_proj(o, p["wo"].to(x.dtype))
+
+
+def cache_pin(hkv: int) -> tuple:
+    """The logical axes one layer's decode cache [B, Smax, Hkv, hd] is
+    pinned to, the counterpart of the reference's ``shard(cache_k,
+    "batch", None, "kv_tp", None)`` in ``attention_decode``: the rows over
+    "batch" and the sequence over "cache_seq" (one of the two splits,
+    :func:`repro_torch.sharding.ctx.decode_rules`), the kv heads over
+    "model" where ``cache_specs`` puts them (``hkv % tp == 0``), else
+    "kv_tp" (replicated by default, as there). The cache stays where it
+    lies: the pin never moves it (see :func:`_decode_attend`)."""
+    return ("batch", "cache_seq",
+            "tp" if hkv % ctx.tp_size() == 0 else "kv_tp", None)
+
+
+def _group_heads(kv, r: int, hq_l: int, hq: int):
+    """Of every kv head of kv [B, S, Hkv, hd], those the ``hq_l`` q heads
+    of model rank ``r`` read (q head h reads kv head ``h // (hq / Hkv)``,
+    as :func:`_expand_kv` repeats them): a slice where the rank's q heads
+    cover whole groups or lie in one, else the heads gathered one a q
+    head."""
+    g = hq // kv.shape[2]
+    if hq_l % g == 0 or g % hq_l == 0:
+        lo, hi = r * hq_l // g, ((r + 1) * hq_l - 1) // g + 1
+        return kv[:, :, lo:hi]
+    idx = (r * hq_l + torch.arange(hq_l, device=kv.device)) // g
+    return kv.index_select(2, idx)
+
+
+def _seq_combined(q, k, v, valid, group):
+    """Attention of q [B,1,Hq,hd] over this rank's part k, v [B,Sl,Hkv,hd]
+    of a sequence split over ``group`` (flash-decoding; kv heads expanded
+    as :func:`gqa_scores_out` does): the scores in q's dtype then f32,
+    masked to -1e30 outside ``valid`` [Sl] (None: all), the row max
+    all-reduced (max) over the group, exp(s - max) and its products with v
+    summed in f32 and all-reduced (sum), then divided: the softmax of the
+    whole row, normalised once at the end."""
+    import torch.distributed._functional_collectives as fc
+    hd = q.shape[-1]
+    k, v = _expand_kv(k, v, q.shape[2])
+    s = torch.einsum("bqhd,bshd->bhqs", q, k).float() * (hd ** -0.5)
+    if valid is not None:
+        s = torch.where(valid, s, torch.full((), NEG, device=s.device))
+    m = fc.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(s - m)
+    den = fc.all_reduce(e.sum(dim=-1, keepdim=True), "sum", group)
+    num = fc.all_reduce(torch.einsum("bhqs,bshd->bqhd", e, v.float()),
+                        "sum", group)
+    return (num / den.transpose(1, 2)).to(v.dtype)
+
+
+def _decode_body(q, k, v, ck, cv, cfg, cache_len, off=0, smax=None,
+                 pick=None, group=None):
+    """A decode step's attention on plain tensors: q [B,1,Hq,hd], the new
+    k, v [B,1,Hkv,hd] (None: cross-attention, nothing written) and the
+    positions ``off`` .. ``off + Sl - 1`` of a cache ck, cv [B,Sl,Hkv,hd]
+    of ``smax`` positions in all (None: Sl, the whole cache).
+
+    With ``cache_len`` given, the rotary positions (every row at
+    ``cache_len``) and the write first: the slot, clamped to the cache's
+    last, is written where it lies in this part. Then
+    :func:`gqa_scores_out` masked to ``<= cache_len``, or, the sequence
+    split over ``group``, :func:`_seq_combined`. ``pick`` takes the kv
+    heads q's heads read out of the cache's (:func:`_group_heads`)."""
+    b, sl = q.shape[0], ck.shape[1]
+    valid = None
+    if cache_len is not None:
+        pos = torch.full((b, 1), cache_len, device=q.device)
+        q, k = _rope(q, k, cfg, pos[None].expand(3, b, 1)
+                     if cfg.rope == "mrope" else pos)
+        at = min(max(cache_len, 0), (smax or sl) - 1) - off
+        if 0 <= at < sl:
+            ck[:, at] = k[:, 0].to(ck.dtype)
+            cv[:, at] = v[:, 0].to(cv.dtype)
+        valid = off + torch.arange(sl, device=q.device) <= cache_len
+    ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    if pick is not None:
+        ck, cv = pick(ck), pick(cv)
+    if group is not None:
+        return _seq_combined(q, ck, cv, valid, group)
+    mask = None if valid is None else valid[None].expand(b, sl)
+    return gqa_scores_out(q, ck, cv, kv_len_mask=mask)
+
+
+def _decode_attend(q, k, v, cache_k, cache_v, cfg, cache_len):
+    """:func:`_decode_body` over the whole cache on plain tensors; on
+    DTensors over each rank's local shards (``local_map``): q with its
+    rows over the batch axes and its heads over "model" where their count
+    divides its size, the new k, v likewise, and one layer's cache
+    [B,Smax,Hkv,hd] placed by :func:`cache_pin`, which a cache of any
+    other placement fails (a ``ValueError``: the write is in place, and a
+    moved cache would take it). The batch branch (the sequence whole on
+    every rank) attends over the local rows and heads; the sequence branch
+    (the positions split evenly over "data", as ``place_cache`` checks)
+    gives each rank its part's offset and combines across "data". A
+    rank's q heads read their own kv heads: split with them, or picked
+    out of all of them."""
+    if not ctx.is_dtensor(q):
+        return _decode_body(q, k, v, cache_k, cache_v, cfg, cache_len)
+    dm = q.device_mesh
+    hq, (_, smax, hkv, _) = q.shape[2], cache_k.shape
+    heads = "tp" if hq % ctx.tp_size() == 0 else None
+    pin = cache_pin(hkv)
+    _, seq, kv_split, _ = (a is not None for a in ctx.logical_spec(4, *pin))
+    cp = ctx.logical_placements(4, *pin)
+    for c in (cache_k, cache_v):
+        if tuple(c.placements) != cp:
+            raise ValueError(
+                f"a decode cache placed {tuple(c.placements)}, not as "
+                f"cache_specs places it ({cp}): place it with "
+                f"place.place_cache")
+    qp = ctx.logical_placements(4, "batch", None, heads, None)
+    kvp = ctx.logical_placements(4, "batch", None, pin[2], None)
+
+    def local(q, k, v, ck, cv):
+        r, hq_l = dm.get_local_rank("model"), q.shape[2]
+        return _decode_body(
+            q, k, v, ck, cv, cfg, cache_len,
+            off=dm.get_local_rank("data") * ck.shape[1] if seq else 0,
+            smax=smax,
+            pick=(lambda c: _group_heads(c, r, hq_l, hq))
+            if heads is not None and not kv_split else None,
+            group=dm.get_group("data") if seq else None)
+
+    if k is None:
+        return ctx.local_map(lambda q, ck, cv: local(q, None, None, ck, cv),
+                             (qp,), (qp, cp, cp))(q, cache_k, cache_v)
+    return ctx.local_map(local, (qp,), (qp, kvp, kvp, cp, cp))(
+        q, k, v, cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

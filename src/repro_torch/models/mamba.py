@@ -183,16 +183,47 @@ def mamba_init_state(p, mcfg, batch, dtype=torch.float32):
     }
 
 
-def mamba_decode(p, x, mcfg, state):
-    """One-token step. x [B,1,d] -> ([B,1,d], new state)."""
-    u, z = _ssm_inputs(p, x)
-    u, conv_state = _conv_silu(p, u, mcfg, conv_state=state["conv"])
-    dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+def _ssm_step(u, dt, Bc, Cc, A, D, h):
+    """One recurrent step of every channel: u, dt [B,1,di], Bc/Cc [B,1,ds],
+    A [di,ds], D [di], the state h [B,di,ds] f32 -> (y [B,1,di] f32, the
+    new state)."""
     dA = torch.exp(dt[:, 0, :, None] * A)                     # [B,di,ds]
     dBx = (dt[:, 0] * u[:, 0].float())[..., None] * Bc[:, 0, None, :]
-    h = dA * state["ssm"] + dBx
+    h = dA * h + dBx
     y = torch.einsum("bis,bs->bi", h, Cc[:, 0])[:, None, :]
-    y = y + p["D"] * u.float()
+    return y + D * u.float(), h
+
+
+def mamba_decode(p, x, mcfg, state):
+    """One-token step. x [B,1,d] -> ([B,1,d], new state). On DTensors (a
+    placed cache: ``conv`` [B, d_conv - 1, di] and ``ssm`` [B, di, ds]
+    with d_inner over "model", as ``cache_specs`` places them) the conv
+    and the recurrence run on each rank's local rows and channels
+    (``local_map``), as :func:`mamba_train`'s chunk scan does."""
+    u, z = _ssm_inputs(p, x)
+    if ctx.is_dtensor(u):
+        u = shard(u, "batch", None, "tp")
+        chans = ctx.logical_placements(3, "batch", None, "tp")
+        w, _ = _over_channels(2, -1)
+        b, _ = _over_channels(1, -1)
+        u, conv_state = ctx.local_map(
+            lambda u, w, b, c: _conv_silu({"conv_w": w, "conv_b": b}, u,
+                                          mcfg, conv_state=c),
+            (chans, chans), (chans, w, b, chans))(
+                u, p["conv_w"], p["conv_b"], state["conv"])
+        dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+        rows = ctx.logical_placements(3, "batch", None, None)
+        a, _ = _over_channels(2, 0)
+        dvec, _ = _over_channels(1, 0)
+        hp = ctx.logical_placements(3, "batch", "tp", None)
+        y, h = ctx.local_map(_ssm_step, (chans, hp),
+                             (chans, chans, rows, rows, a, dvec, hp))(
+                                 u, dt, Bc, Cc, A, p["D"], state["ssm"])
+    else:
+        u, conv_state = _conv_silu(p, u, mcfg, conv_state=state["conv"])
+        dt, Bc, Cc, A = _ssm_params(p, u, mcfg)
+        y, h = _ssm_step(u, dt, Bc, Cc, A, p["D"], state["ssm"])
     y = y.to(x.dtype) * F.silu(z)
+    y = shard(y, "batch", None, "tp")
     out = torch.matmul(y, p["out_proj"].to(x.dtype))
     return out, {"conv": conv_state.to(state["conv"].dtype), "ssm": h}

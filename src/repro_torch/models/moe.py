@@ -351,6 +351,12 @@ def _shardmap_mesh(p, x, moe_cfg):
     E, k = moe_cfg.num_experts, moe_cfg.top_k
     tp = ctx.tp_size()
     dm = ctx.device_mesh()
+    if (B * S) % ctx.batch_shards():
+        # the reference's ``assert nt % ds == 0``: its shard_map splits the
+        # tokens over the mesh's batch axes, whatever the step's rows
+        raise ValueError(f"{B * S} tokens do not split over the "
+                         f"{ctx.batch_shards()} ranks of the batch axes "
+                         f"(the shard-map dispatch)")
     if E % tp:
         raise ValueError(f"{E} experts do not split over the {tp} ranks of "
                          f"the model axis")

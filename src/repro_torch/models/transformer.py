@@ -24,7 +24,9 @@ Python loop over the stacked layer axis (the reference's ``scan``).
 Where the reference is functional (``apply(params, batch)``), the port's
 serving methods read the module's own parameters, which take no gradients
 and build no graph: ``apply(batch)``, ``loss(batch)``,
-``decode_step(cache, tokens)``. The cache is updated in place. Training
+``decode_step(cache, tokens)`` (or a placed tree of them,
+``decode_step(cache, tokens, params)``: the reference's decode step as its
+``lower_decode`` shards it). The cache is updated in place. Training
 passes a parameter tree of its own, ``loss(batch, params, remat=True)``
 (the reference's ``loss(params, batch, remat=True)``): the loss is then
 differentiable in those tensors, and with ``remat`` each layer (each group
@@ -377,90 +379,118 @@ class DecoderModel(ParamTree):
                 "len": 0}
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens):
+    def decode_step(self, cache, tokens, params=None):
         """One decode step for all batch rows. tokens [B] -> (logits f32
-        [B,V], cache); the cache is updated in place and returned."""
+        [B,V], cache); the cache is updated in place and returned.
+
+        ``params`` None: the module's own parameters. Otherwise a
+        parameter tree of the module's layout, under a mesh placed by
+        ``tree_param_specs`` (:func:`repro_torch.sharding.place.
+        place_params`) with the cache placed by ``cache_specs``
+        (``place.place_cache``): the reference's ``decode_step`` as its
+        ``lower_decode`` shards it. The step then runs under
+        :func:`repro_torch.sharding.ctx.decode_rules` (B rows below the
+        batch axes' size: the cache's sequence split over "data", the rows
+        whole), the tokens placed by ``place.place_tokens`` unless given
+        placed, each layer's parameters gathered over the batch axes
+        (FSDP), and the logits come back a DTensor with the vocabulary over
+        "model" where the table splits there."""
         cfg = self.cfg
+        params = self.param_tree() if params is None else params
         tokens = _as_tensor(tokens, self.device).long()
-        x = self.embed[tokens][:, None].to(L.dtype_of(cfg))     # [B,1,d]
-        pos = torch.full((x.shape[0],), cache["len"], device=self.device)
-        if cfg.family == "ssm":
-            x = self._decode_xlstm(cache, x)
-        elif cfg.family == "hybrid":
-            x = self._decode_hybrid(cache, x, pos)
-        else:
-            x = self._decode_stack(cache, x, pos)
-        h = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        logits = L.unembed(h, self.embed)[:, 0]
+        with ctx.decode_rules(tokens.shape[0]):
+            if ctx.is_dtensor(params["embed"]) and not ctx.is_dtensor(tokens):
+                tokens = ctx.distribute(tokens, "batch")
+            x = L.embed_lookup(params["embed"], tokens)[:, None].to(
+                L.dtype_of(cfg))                               # [B,1,d]
+            x = shard(x, "batch", None, None)
+            if cfg.family == "ssm":
+                x = self._decode_xlstm(params["blocks"], cache, x)
+            elif cfg.family == "hybrid":
+                x = self._decode_hybrid(params["groups"], cache, x)
+            else:
+                x = self._decode_stack(params, cache, x)
+            h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            logits = L.unembed(h, ctx.gather_batch(params["embed"]))[:, 0]
         cache["len"] += 1
         return logits.float(), cache
 
-    def _attn_decode(self, attn, x, ln, pos, cache, i):
+    def _attn_decode(self, attn, x, ln, cache, i):
         h = L.rmsnorm(x, ln, self.cfg.norm_eps)
-        a, _, _ = L.attention_decode(attn, h, self.cfg, pos, cache["k"][i],
+        a, _, _ = L.attention_decode(attn, h, self.cfg, cache["k"][i],
                                      cache["v"][i], cache["len"])
-        return x + a
+        return shard(x + a, "batch", None, None)
 
-    def _decode_stack(self, cache, x, pos):
+    def _decode_stack(self, params, cache, x):
         cfg = self.cfg
         Ln = cfg.num_layers
-        attn = unbind_layers(self.attn.param_tree(), Ln)
-        mlp = unbind_layers(self.mlp.param_tree() if cfg.d_ff else {}, Ln)
-        moe = unbind_layers(self.moe.param_tree() if cfg.moe else {}, Ln)
+        ln1, ln2 = params["ln1"].unbind(0), params["ln2"].unbind(0)
+        attn = unbind_layers(params["attn"], Ln)
+        mlp = unbind_layers(params.get("mlp", {}), Ln)
+        moe = unbind_layers(params.get("moe", {}), Ln)
         for l in range(Ln):
-            x = self._attn_decode(attn[l], x, self.ln1[l], pos, cache, l)
-            h = L.rmsnorm(x, self.ln2[l], cfg.norm_eps)
-            x = x + self._ffn(mlp[l], moe[l], h)
+            x = self._attn_decode(ctx.gather_batch(attn[l]), x, ln1[l],
+                                  cache, l)
+            h = L.rmsnorm(x, ln2[l], cfg.norm_eps)
+            x = shard(x + self._ffn(ctx.gather_batch(mlp[l]), moe[l], h),
+                      "batch", None, None)
         return x
 
-    def _decode_hybrid(self, cache, x, pos):
+    def _decode_hybrid(self, g, cache, x):
         cfg = self.cfg
-        g = self.groups
+        G, per = _groups(cfg), cfg.attn_every
+        n_moe = per // 2
+        attn = unbind_layers(g["attn"], G)
+        mamba = unbind_layers(g["mamba"], G * (per - 1))
+        mlp = unbind_layers(g["mlp"], G * (per - n_moe))
+        moe = unbind_layers(g["moe"], G * n_moe)
         i_mamba = i_mlp = i_moe = 0
-        for gi in range(_groups(cfg)):
-            for j in range(cfg.attn_every):
+        for gi in range(G):
+            ln1, ln2 = g["ln1"][gi], g["ln2"][gi]
+            for j in range(per):
                 if j == 0:
-                    attn = {k: v[gi] for k, v in g.attn.items()}
-                    x = self._attn_decode(attn, x, g.ln1[gi, j], pos, cache,
-                                          gi)
+                    x = self._attn_decode(ctx.gather_batch(attn[gi]), x,
+                                          ln1[j], cache, gi)
                 else:
-                    h = L.rmsnorm(x, g.ln1[gi, j], cfg.norm_eps)
-                    pl = {k: v[i_mamba] for k, v in g.mamba.items()}
+                    h = L.rmsnorm(x, ln1[j], cfg.norm_eps)
                     a, st = M.mamba_decode(
-                        pl, h, cfg.mamba, {"conv": cache["conv"][i_mamba],
-                                           "ssm": cache["ssm"][i_mamba]})
+                        ctx.gather_batch(mamba[i_mamba]), h, cfg.mamba,
+                        {"conv": cache["conv"][i_mamba],
+                         "ssm": cache["ssm"][i_mamba]})
                     cache["conv"][i_mamba] = st["conv"]
                     cache["ssm"][i_mamba] = st["ssm"]
-                    x = x + a
+                    x = shard(x + a, "batch", None, None)
                     i_mamba += 1
-                h = L.rmsnorm(x, g.ln2[gi, j], cfg.norm_eps)
+                h = L.rmsnorm(x, ln2[j], cfg.norm_eps)
                 if j % 2 == 1:
-                    pl = {k: v[i_moe] for k, v in g.moe.items()}
-                    x = x + self._ffn({}, pl, h)
+                    x = x + self._ffn({}, moe[i_moe], h)
                     i_moe += 1
                 else:
-                    pl = {k: v[i_mlp] for k, v in g.mlp.items()}
-                    x = x + L.mlp(pl, h)
+                    x = x + L.mlp(ctx.gather_batch(mlp[i_mlp]), h)
                     i_mlp += 1
+                x = shard(x, "batch", None, None)
         return x
 
-    def _decode_xlstm(self, cache, x):
+    def _decode_xlstm(self, blocks, cache, x):
         cfg = self.cfg
-        b = self.blocks
+        n_s = len(cfg.slstm_layers)
+        mlstm = unbind_layers(blocks["mlstm"], cfg.num_layers - n_s)
+        slstm = unbind_layers(blocks["slstm"], n_s)
         i_m = i_s = 0
         for l in range(cfg.num_layers):
             if l in cfg.slstm_layers:
-                pl = {k: v[i_s] for k, v in b.slstm.items()}
-                x, st = X.slstm_decode(pl, x, cfg, {"c": cache["c_s"][i_s],
-                                                    "h": cache["h_s"][i_s]})
+                x, st = X.slstm_decode(ctx.gather_batch(slstm[i_s]), x, cfg,
+                                       {"c": cache["c_s"][i_s],
+                                        "h": cache["h_s"][i_s]})
                 cache["c_s"][i_s] = st["c"]
                 cache["h_s"][i_s] = st["h"]
                 i_s += 1
             else:
-                pl = {k: v[i_m] for k, v in b.mlstm.items()}
-                x, st = X.mlstm_decode(pl, x, cfg, {"C": cache["C"][i_m],
-                                                    "n": cache["n"][i_m]})
+                x, st = X.mlstm_decode(ctx.gather_batch(mlstm[i_m]), x, cfg,
+                                       {"C": cache["C"][i_m],
+                                        "n": cache["n"][i_m]})
                 cache["C"][i_m] = st["C"]
                 cache["n"][i_m] = st["n"]
                 i_m += 1
+            x = shard(x, "batch", None, None)
         return x

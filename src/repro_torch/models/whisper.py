@@ -221,29 +221,44 @@ class EncDecModel(ParamTree):
         return cache
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens):
+    def decode_step(self, cache, tokens, params=None):
         """One decode step for all batch rows. tokens [B] -> (logits f32
-        [B,V], cache); the self-attention cache is updated in place."""
+        [B,V], cache); the self-attention cache is updated in place.
+        ``params``: as :meth:`DecoderModel.decode_step` (placed, with the
+        cache placed by ``cache_specs``: the cross-attention's ``xk``/``xv``
+        by the self-attention cache's spec, so with fewer rows than the
+        batch axes' size their frames split over "data" and the
+        cross-attention combines across it too)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg)
+        params = self.param_tree() if params is None else params
         tokens = _as_tensor(tokens, self.device).long()
         n = cache["len"]
-        x = (self.embed[tokens][:, None].to(dt)
-             + self.dec_pos[min(n, MAX_POS - 1)].to(dt))
-        pos = torch.full((x.shape[0],), n, device=self.device)
-        dec, Ld = self.dec, cfg.num_layers
-        attn = unbind_layers(dec.attn.param_tree(), Ld)
-        xattn = unbind_layers(dec.xattn.param_tree(), Ld)
-        mlp = unbind_layers(dec.mlp.param_tree(), Ld)
-        for l in range(Ld):
-            h = L.rmsnorm(x, dec.ln1[l], cfg.norm_eps)
-            a, _, _ = L.attention_decode(attn[l], h, cfg, pos, cache["k"][l],
-                                         cache["v"][l], n)
-            x = x + a
-            h = L.rmsnorm(x, dec.ln2[l], cfg.norm_eps)
-            x = x + self._cross(xattn[l], h, cache["xk"][l], cache["xv"][l])
-            h = L.rmsnorm(x, dec.ln3[l], cfg.norm_eps)
-            x = x + L.mlp(mlp[l], h)
+        with ctx.decode_rules(tokens.shape[0]):
+            if ctx.is_dtensor(params["embed"]) and not ctx.is_dtensor(tokens):
+                tokens = ctx.distribute(tokens, "batch")
+            x = shard(L.embed_lookup(params["embed"], tokens)[:, None].to(dt)
+                      + params["dec_pos"][min(n, MAX_POS - 1)].to(dt),
+                      "batch", None, None)
+            dec, Ld = params["dec"], cfg.num_layers
+            norms = [dec[k].unbind(0) for k in ("ln1", "ln2", "ln3")]
+            attn = unbind_layers(dec["attn"], Ld)
+            xattn = unbind_layers(dec["xattn"], Ld)
+            mlp = unbind_layers(dec["mlp"], Ld)
+            for l in range(Ld):
+                h = L.rmsnorm(x, norms[0][l], cfg.norm_eps)
+                a, _, _ = L.attention_decode(
+                    ctx.gather_batch(attn[l]), h, cfg, cache["k"][l],
+                    cache["v"][l], n)
+                x = shard(x + a, "batch", None, None)
+                h = L.rmsnorm(x, norms[1][l], cfg.norm_eps)
+                x = shard(x + L.cross_attention_decode(
+                    ctx.gather_batch(xattn[l]), h, cfg, cache["xk"][l],
+                    cache["xv"][l]), "batch", None, None)
+                h = L.rmsnorm(x, norms[2][l], cfg.norm_eps)
+                x = shard(x + L.mlp(ctx.gather_batch(mlp[l]), h), "batch",
+                          None, None)
+            x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            logits = L.unembed(x, ctx.gather_batch(params["embed"]))[:, 0]
         cache["len"] += 1
-        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return L.unembed(x, self.embed)[:, 0].float(), cache
+        return logits.float(), cache

@@ -150,17 +150,33 @@ def mlstm_init_state(cfg, batch, device=None):
             "n": torch.zeros((batch, H, hd), device=device)}
 
 
-def mlstm_decode(p, x, cfg, state):
-    """One-token mLSTM step. x [B,1,d] -> ([B,1,d], new state)."""
-    xn, q, k, v, i, f = _mlstm_proj(p, x, cfg)
+def _mlstm_step(q, k, v, i, f, C, n):
+    """One step of the matrix memory: q, k, v [B,1,H,hd], the f32 gates
+    i, f [B,1,H], the state C [B,H,hd,hd], n [B,H,hd] -> (y [B,H,hd] f32,
+    C, n)."""
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     i, f = i[:, 0], f[:, 0]                                  # [B,H]
-    C = (f[..., None, None] * state["C"]
+    C = (f[..., None, None] * C
          + i[..., None, None] * torch.einsum("bhd,bhe->bhde", k, v))
-    n = f[..., None] * state["n"] + i[..., None] * k
+    n = f[..., None] * n + i[..., None] * k
     y = torch.einsum("bhd,bhde->bhe", q, C)
     nn_ = torch.abs(torch.einsum("bhd,bhd->bh", q, n))
-    y = y / torch.clamp(nn_, min=1.0)[..., None]
+    return y / torch.clamp(nn_, min=1.0)[..., None], C, n
+
+
+def mlstm_decode(p, x, cfg, state):
+    """One-token mLSTM step. x [B,1,d] -> ([B,1,d], new state). On
+    DTensors the step runs on each rank's local rows (``local_map``), every
+    head whole, as ``cache_specs`` places the state (rows over the batch
+    axes, or whole with fewer rows than their size)."""
+    xn, q, k, v, i, f = _mlstm_proj(p, x, cfg)
+    if ctx.is_dtensor(q):
+        r3, r4 = (ctx.logical_placements(n, "batch") for n in (3, 4))
+        y, C, n = ctx.local_map(
+            _mlstm_step, (r3, r4, r3), (r4, r4, r4, r3, r3, r4, r3))(
+                q, k, v, i, f, state["C"], state["n"])
+    else:
+        y, C, n = _mlstm_step(q, k, v, i, f, state["C"], state["n"])
     return _mlstm_out(p, x, xn, y[:, None].to(x.dtype)), {"C": C, "n": n}
 
 
@@ -251,6 +267,23 @@ def slstm_train(p, x, cfg):
 
 
 def slstm_decode(p, x, cfg, state):
+    """One-token sLSTM step. x [B,1,d] -> ([B,1,d], new state). On
+    DTensors the recurrence runs on each rank's local rows
+    (``local_map``), its weights whole."""
     xg = _slstm_proj(p, x, cfg)[:, 0]
-    state, h = _slstm_step(p, _recurrent(p["wr"]), xg, state)
+    if ctx.is_dtensor(xg):
+        rows = ctx.logical_placements(3, "batch")
+
+        def step(xg, wr, b, c, h):
+            st, h = _slstm_step({"b": b}, _recurrent(wr), xg,
+                                {"c": c, "h": h})
+            return st["c"], h
+
+        c, h = ctx.local_map(step, (rows, rows), (
+            ctx.logical_placements(4, "batch"), ctx.logical_placements(4),
+            ctx.logical_placements(3), rows, rows))(
+                xg, p["wr"], p["b"], state["c"], state["h"])
+        state = {"c": c, "h": h}
+    else:
+        state, h = _slstm_step(p, _recurrent(p["wr"]), xg, state)
     return x + _out(h.to(x.dtype), p["wo"].to(x.dtype))[:, None], state

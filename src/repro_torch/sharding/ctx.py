@@ -28,6 +28,7 @@ checked, so single-device runs make no DTensor.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import sys
@@ -119,6 +120,7 @@ def configure(mesh: Mesh) -> None:
     _CTX = {
         "mesh": mesh,
         "device_mesh": mesh.device_mesh,
+        "batch_axes": batch,
         "rules": {
             "batch": batch,
             "data": "data",
@@ -245,7 +247,7 @@ def gather_batch(tree):
         return tree
     from torch.distributed.tensor import Replicate, Shard
     names = tree.device_mesh.mesh_dim_names
-    batch = _CTX["rules"]["batch"]
+    batch = _CTX["batch_axes"]
     want = tuple(Replicate() if isinstance(p, Shard) and names[i] in batch
                  else p for i, p in enumerate(tree.placements))
     return tree if want == tuple(tree.placements) \
@@ -263,7 +265,7 @@ def partial_over(placements, *axes) -> tuple:
     for a in axes:
         rule = _CTX["rules"][a]
         dims.update(names.index(n) for n in (
-            rule if isinstance(rule, tuple) else (rule,)))
+            rule if isinstance(rule, tuple) else (rule,)) if n is not None)
     return tuple(Partial() if i in dims else pl
                  for i, pl in enumerate(placements))
 
@@ -279,6 +281,41 @@ def local_map(fn, out_placements, in_placements, in_grad_placements=None):
     return lm(fn, out_placements=out_placements, in_placements=in_placements,
               in_grad_placements=in_grad_placements,
               device_mesh=device_mesh(), redistribute_inputs=True)
+
+
+def batch_shards() -> int:
+    """Devices over the mesh's batch axes (("pod", "data") or ("data",)),
+    whatever the "batch" rule maps to; 1 with no mesh."""
+    if _CTX is None:
+        return 1
+    return math.prod(_CTX["mesh"].shape[a] for a in _CTX["batch_axes"])
+
+
+@contextlib.contextmanager
+def decode_rules(batch: int):
+    """The logical axes of a decode step of ``batch`` rows, as
+    ``cache_specs`` places its cache, bound on top of :func:`configure`'s
+    (the reference's) while the step runs: with at least as many rows as
+    :func:`batch_shards`, the rows over the batch axes and the cache's
+    sequence ("cache_seq") whole; with fewer (long-context, B=1), the rows
+    whole on every device ("batch" replicated, as the reference's
+    ``lower_decode`` places the tokens by ``P()``) and "cache_seq" over
+    "data": each device holds a part of every row's positions, and the
+    attention over them is combined across "data" (flash-decoding). The
+    rules are restored on exit; no mesh, nothing to bind."""
+    if _CTX is None:
+        yield
+        return
+    rules = _CTX["rules"]
+    saved = dict(rules)
+    rules["cache_seq"] = None
+    if batch < batch_shards():
+        rules.update({"batch": None, "cache_seq": "data"})
+    try:
+        yield
+    finally:
+        rules.clear()
+        rules.update(saved)
 
 
 def shard(x, *axes):

@@ -4,7 +4,9 @@ The reference's sharded train step takes its state and batch placed by
 ``NamedSharding``\\ s: the parameters, the AdamW moments and the master by
 ``tree_param_specs(params, tp, data_size)``, the step counter replicated,
 the batch by ``batch_specs`` (``repro.launch.dryrun._state_struct_and_specs``
-and ``_batch_struct_and_specs``). Here the same specs become DTensor
+and ``_batch_struct_and_specs``); its sharded decode step takes the
+parameters by the same specs, the cache by ``cache_specs`` and the tokens
+by ``P(ba)`` or ``P()`` (``lower_decode``). Here the same specs become DTensor
 placements (:func:`repro_torch.sharding.specs.placements`) on the mesh's
 ``DeviceMesh``, one process a mesh position.
 
@@ -16,13 +18,15 @@ takes part; each gets the full tensors).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from repro_torch.launch.mesh import batch_axes, data_size
 from repro_torch.sharding import ctx
-from repro_torch.sharding.specs import (P, batch_specs, placements,
-                                        tree_param_specs)
+from repro_torch.sharding.specs import (P, batch_specs, cache_specs,
+                                        placements, tree_param_specs)
 from repro_torch.train.optimizer import tree_map
 
 
@@ -37,20 +41,23 @@ def _device_mesh(mesh):
 def place(x, spec, dm, device=None):
     """A full tensor (or numpy array) ``x``, the same on every rank, as a
     DTensor placed by ``spec`` on ``dm``: this rank's shard, copied out of
-    ``x`` (a shard that is all of ``x``, one replicated on every axis, is
-    ``x`` itself), on ``device`` (default the mesh's device type; a meta
-    tensor stays on the meta device)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    ``x``, on ``device`` (default the mesh's device type; a meta tensor
+    stays on the meta device). A shard that is all of ``x`` (every axis
+    it splits over is of size 1, or none) is ``x`` itself, not a copy: on
+    a mesh of one device a full-width model is placed in no more
+    memory."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
     if device is None:
         device = "meta" if torch.is_tensor(x) and x.is_meta \
             else dm.device_type
     t = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
                         device=device)
-    dt = distribute_tensor(t, dm, placements(spec, dm), src_data_rank=None)
-    local = dt.to_local()
-    if local.numel() == t.numel():
-        return dt
-    return DTensor.from_local(local.clone(), dm, dt.placements,
+    pl = placements(spec, dm)
+    if all(dm.size(i) == 1 for i, p in enumerate(pl) if isinstance(p, Shard)):
+        return DTensor.from_local(t.detach(), dm, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    dt = distribute_tensor(t, dm, pl, src_data_rank=None)
+    return DTensor.from_local(dt.to_local().clone(), dm, dt.placements,
                               shape=dt.shape, stride=dt.stride())
 
 
@@ -91,11 +98,53 @@ def place_batch(batch, cfg, shape=None, mesh=None, device=None) -> dict:
     return {k: place(v, specs[k], dm, device) for k, v in batch.items()}
 
 
+def place_cache(cache, cfg, batch, mesh=None, kv_shardable=False,
+                device=None) -> dict:
+    """A decode cache (``model.init_cache``'s dict, full tensors) placed by
+    ``cache_specs(batch_axes, cfg, batch, kv_shardable, data_size)``:
+    ``batch`` rows at least the mesh's batch axes' size split over them,
+    fewer (long-context) split the sequence over "data"; the kv heads over
+    "model" when ``kv_shardable`` (``hkv % tp == 0``, as ``lower_decode``
+    decides); the Mamba states' d_inner over "model". The shared length
+    ``"len"`` stays the replicated host int. ``mesh`` None: the configured
+    one. A leaf whose split dimension does not divide by its mesh axes'
+    size raises ``ValueError``, as the reference's ``jax.jit`` refuses
+    such ``in_shardings`` (DTensor would give the last rank a shorter
+    part, and the sequence branch reads every part as of one length)."""
+    mesh = mesh or ctx.current_mesh()
+    dm = _device_mesh(mesh)
+    specs = cache_specs(batch_axes(mesh), cfg, batch, kv_shardable,
+                        data_size(mesh))
+    for k, v in cache.items():
+        for i, entry in enumerate(() if k == "len" else specs[k]):
+            n = math.prod(mesh.shape[a] for a in (
+                entry if isinstance(entry, tuple) else (entry,)) if a)
+            if v.shape[i] % n:
+                raise ValueError(
+                    f"cache leaf {k!r} {tuple(v.shape)}: dimension {i} "
+                    f"({v.shape[i]}) does not divide by the {n} devices "
+                    f"of {entry!r} (cache_specs {specs[k]!r})")
+    return {k: v if k == "len" else place(v, specs[k], dm, device)
+            for k, v in cache.items()}
+
+
+def place_tokens(tokens, mesh=None, device=None):
+    """Decode tokens [B] placed as ``lower_decode`` places them: ``P(ba)``
+    (rows over the batch axes) when B is at least their size, else
+    ``P()`` (every device all rows)."""
+    mesh = mesh or ctx.current_mesh()
+    ba = batch_axes(mesh)
+    spec = P(ba) if len(tokens) >= data_size(mesh) else P()
+    return place(tokens, spec, _device_mesh(mesh), device)
+
+
 def gather_state(state, device="cpu"):
     """Every leaf as a full tensor on ``device`` (a copy): DTensors
     gathered (a collective: every rank calls it, in tree order), plain
-    tensors copied."""
+    tensors copied; a host int (a cache's ``"len"``) as it is."""
     def full(x):
+        if isinstance(x, int):
+            return x
         if ctx.is_dtensor(x):
             x = x.full_tensor()
         return torch.as_tensor(x).to(device, copy=True)

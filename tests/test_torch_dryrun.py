@@ -456,8 +456,17 @@ def test_sweep_writes_under_the_port_s_own_default(monkeypatch, capsys):
 def test_single_mesh_checks_specs_and_records_per_device_bytes(tmp_path):
     """A full-width cell on the 256-device production mesh: the spec trees
     shard evenly, the arguments per device are the whole ones divided as
-    the specs say, the collective term and temporaries are not
-    modelled."""
+    the specs say; the decode step runs sharded (the cache placed by
+    ``cache_specs``), so its collective term and a device's temporaries
+    are modelled. Its FLOPs (the device's times 256) against the closed
+    form of the step's matrix products M (the unsharded step's): the
+    sharded step adds the kv projections on every one of the 16 model
+    ranks (2 kv heads do not split over them) and drops the unsharded
+    step's copies of the kv heads repeated to Hq (k and v each repeated,
+    then laid out for the einsum: four copies of [B, S, Hq, hd] a layer;
+    each rank reads its one kv head as it lies); the rest, the
+    elementwise work, is the unsharded step's at least and at most
+    repeated on every model rank."""
     rec = D.run_cell("qwen2.5-3b", "decode_32k", "single", "both",
                      str(tmp_path))
     assert rec["chips"] == 256
@@ -465,10 +474,22 @@ def test_single_mesh_checks_specs_and_records_per_device_bytes(tmp_path):
     m = rec["memory"]
     whole = tr.argument_bytes
     assert whole / 256 < m["argument_size_in_bytes"] < whole / 8
-    assert m["temp_size_in_bytes"] is None and "temp_note" in m
-    assert rec["cost"]["collective_bytes_per_chip"] is None
+    assert m["temp_size_in_bytes"] > 0 and "temp_note" not in m
+    assert rec["cost"]["collective_bytes_per_chip"] > 0
     assert rec["roofline"]["hw"] == "tpu-v5e"
-    assert rec["cost"]["hlo_flops"] == tr.flops
+    cfg, sh, tp = ARCHS["qwen2.5-3b"], SHAPES["decode_32k"], 16
+    B, S, d, hd = sh.batch, sh.seq, cfg.d_model, cfg.head_dim
+    hq, hkv, Ln = cfg.num_heads, cfg.kv_heads, cfg.num_layers
+    kv = 2 * 2 * B * d * hkv * hd
+    M = Ln * (2 * 2 * B * d * hq * hd + kv + 3 * 2 * B * d * cfg.d_ff
+              + 2 * 2 * B * hq * S * hd) + 2 * B * d * cfg.vocab
+    copies = Ln * 4 * B * S * hq * hd
+    rest = tr.flops - M - copies
+    assert 0 < rest < 0.05 * M
+    got = rec["cost"]["hlo_flops"]
+    assert got == 256 * rec["cost"]["hlo_flops_per_chip"]
+    assert M + (tp - 1) * Ln * kv + rest <= got \
+        <= M + (tp - 1) * Ln * kv + tp * rest
     assert ctx._CTX is None and ctx.host_device_count() == 1
 
 

@@ -13,9 +13,14 @@
   production mesh (256 ranks), at full width cut to its least depth
   (:func:`cut`), gives a positive ``collective_bytes_per_chip`` with its
   kinds and counts, per-device FLOPs and temporaries, and a collective
-  term in the roofline; a decode cell keeps the null and a note that
-  names the ROADMAP item that ports the sequence-sharded cache.
+  term in the roofline; so do decode cells (the sharded decode step, its
+  cache placed by ``cache_specs``): ``decode_32k`` (rows over "data"),
+  whose all-gathers a device move less than its share of the cache (the
+  reference's pin against a whole-cache gather), and ``long_500k``'s B=1
+  (the sequence over "data"), whose attention all-reduces across "data".
 """
+import types
+
 import dataclasses
 
 import pytest
@@ -95,13 +100,44 @@ def test_train_cell_has_a_collective_term(arch, tmp_path):
     assert ctx._CTX is None
 
 
-def test_decode_cell_names_the_roadmap_item(tmp_path):
-    rec = D.run_cell("smollm-360m", "decode_32k", "single", "both",
-                     str(tmp_path), cfg=cut(ARCHS["smollm-360m"]))
-    assert rec["cost"]["collective_bytes_per_chip"] is None
-    note = rec["cost"]["collective_note"]
-    assert "ROADMAP Queue 1 item 2" in note and "cache_specs" in note
-    assert rec["memory"]["temp_size_in_bytes"] is None
+def _cache_bytes_per_device(cfg, shape) -> int:
+    """The decode cache's bytes on one device of the single production
+    mesh, as ``cache_specs`` places it."""
+    from repro_torch.models import build_model, input_specs
+    from repro_torch.sharding.specs import cache_specs
+
+    model = build_model(cfg, tp=16, device="meta")
+    cache = input_specs(cfg, shape, model=model)["cache"]
+    specs = cache_specs(("data",), cfg, shape.batch, model.hkv % 16 == 0,
+                        16)
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16})
+    return D.per_device_bytes(specs, cache, mesh)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm-360m", "decode_32k"), ("jamba-v0.1-52b", "long_500k"),
+    ("xlstm-125m", "long_500k")])
+def test_decode_cell_has_a_collective_term(arch, shape, tmp_path):
+    from repro_torch.configs import SHAPES
+
+    cfg = cut(ARCHS[arch])
+    rec = D.run_cell(arch, shape, "single", "both", str(tmp_path), cfg=cfg)
+    cost = rec["cost"]
+    coll = cost["collective_bytes_per_chip"]
+    assert coll is not None and coll > 0 and "collective_note" not in cost
+    assert cost["collectives"]["total"] == coll
+    assert rec["roofline"]["collective_s"] > 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    by_axis = rec["hlo_once"]["collectives_by_axis"]
+    if shape == "decode_32k":
+        # rows over "data": no collective over it but FSDP's weight gathers,
+        # and no gather of the cache
+        assert cost["collectives"]["all-gather"] < _cache_bytes_per_device(
+            cfg, SHAPES[shape])
+    elif cfg.family == "hybrid":
+        # B=1: the attention's partial softmax combined across "data"
+        assert by_axis["data"]["all-reduce"] > 0
+    assert ctx._CTX is None
 
 
 # --- a finding, not a gate: the port's collectives beside XLA's -----------
