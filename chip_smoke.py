@@ -108,7 +108,8 @@ reference package ``repro``. Phases, each fatal on failure:
    each backward bitwise equal to a second one, with the backward's times
    beside the plain backward's and SDPA's backward, also at Whisper's
    encoder (non-causal) and decoder (causal) shapes, B=1, S=1500, H=32,
-   hd=64 (``FLASH_BWD_TIMED``);
+   hd=64 (``FLASH_BWD_TIMED``); the f32 forward and backward are also
+   timed at hd=128, at Qwen2-VL-7B's f32 gate shape (B=1, S=2048, H=32);
 14. the full-width Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936,
    bf16 activations, f32 master parameters from a seed) on the card: the
    loss of a B=4, S=2048 synthetic batch through the kernel, 24 launches
@@ -221,7 +222,12 @@ reference package ``repro``. Phases, each fatal on failure:
    flash launch a step; then ``MESH_STEPS`` bf16 steps over f32 masters at
    [train]'s TP of 16, their warm step beside [train]'s (the cost of
    DTensor dispatch; no profiled step, a depth cut); then the decode
-   sub-step of (17) on the bf16 SmolLM-360M at TP 16.
+   sub-step of (17) on the bf16 SmolLM-360M at TP 16. Before them, the
+   local shards of a microbatch whose rows do not split evenly over the
+   batch axes: the bf16 and f32 flash forward and backward on an empty
+   shard ([0, S, H, hd]: no launch, the plain version's empty outputs and
+   gradients) and on a one-row shard (the kernels, against the plain
+   version) at SmolLM-360M's attention shape.
 
 Each path (4, 5, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 20, 21) is driven
 with the kernels' launch counts set to 0 just before it and read just
@@ -288,11 +294,13 @@ FLASH_BF16_TWINS = [c[:5] + ("bfloat16",) for c in FLASH_SWEEP
 # the forward kernel each input type launches (the name the profiler shows)
 FWD_KERNEL_NAMES = {"bfloat16": "flash_fwd_kernel_wgmma",
                     "float32": "flash_fwd_kernel_tf32"}
-# timed shapes (B, S, H, hd, dtype): the model's in bf16 and f32, and bf16
-# at hd=128
+# timed shapes (B, S, H, hd, dtype): the model's in bf16 and f32, bf16 at
+# hd=128, and f32 at hd=128 at Qwen2-VL-7B's shape in [families]' f32 gate
+# (the B=1, S=2048 forward, 28 heads padded to 32)
 FLASH_TIMED = {"bfloat16": (MODEL_B, MODEL_S, 16, 64, "bfloat16"),
                "float32": (MODEL_B, MODEL_S, 16, 64, "float32"),
-               "bfloat16_hd128": (MODEL_B, MODEL_S, 8, 128, "bfloat16")}
+               "bfloat16_hd128": (MODEL_B, MODEL_S, 8, 128, "bfloat16"),
+               "float32_hd128": (1, 2048, 32, 128, "float32")}
 # kernel vs plain forward of the whole model. In f32 the two attentions
 # differ only in the order of their f32 sums, which 24 layers keep near 1e-5:
 # elementwise allclose at F32_MODEL_TOL. In bf16 an attention output rounds
@@ -3699,6 +3707,74 @@ def phase_train(dev):
             "a_peak": a_peak, "seconds": secs_phase}
 
 
+def mesh_uneven_shards(dev) -> dict:
+    """[mesh] (uneven): the flash kernels on the local shards a rank holds
+    of a microbatch whose rows do not split evenly over the batch axes, at
+    SmolLM-360M's attention shape (S = TRAIN_S, its heads, hd 64), bf16
+    and f32: an empty shard [0, S, H, hd] (the forward and, through
+    FlashAttentionFn, the backward: no launch, the plain version's empty
+    outputs and gradients, of its shapes and dtypes) and a one-row shard
+    (one launch of the forward and of each backward stage, held to the
+    plain version at the flash sweep's tolerances). Returns the counts."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[TRAIN_ARCH]
+    S, H, hd = TRAIN_S, cfg.num_heads, cfg.head_dim
+    one = {"flash_fwd": 1, **dict.fromkeys(fa.BWD_KERNELS, 1)}
+    out, errs = {}, {}
+    for dt in ("bfloat16", "float32"):
+        for B in (0, 1):
+            label = f"[mesh] {dt} shard of {B} row{'s' * (B != 1)}"
+            q, k, v = (x.requires_grad_() for x in flash_inputs(
+                B, S, H, hd, dt, seed=B + 41, dev=dev))
+            g = torch.Generator(device=dev).manual_seed(B + 43)
+            do = torch.randn((B, S, H, hd), generator=g,
+                             device=dev).to(q.dtype)
+            fa.reset_launches()
+            o = fa.flash_attention(q, k, v)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+            torch.cuda.synchronize()
+            counts = dict(fa.COUNTS[dt])
+            want = one if B else dict.fromkeys(one, 0)
+            check(counts == want, f"{label}: launches {counts}, "
+                  f"expected {want}")
+            qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+            o_p = fa.flash_attention(qp, kp, vp, mode="plain")
+            plain = torch.autograd.grad(o_p, (qp, kp, vp), do)
+            for name, a, b in zip(("o", "dq", "dk", "dv"),
+                                  (o.detach(),) + grads,
+                                  (o_p.detach(),) + plain):
+                check(a.shape == b.shape == q.shape and a.dtype == q.dtype
+                      and bool(torch.isfinite(a).all()),
+                      f"{label}: {name} {a.dtype} {tuple(a.shape)}")
+                if B == 0:
+                    continue
+                if dt == "float32":
+                    tol = FLASH_TOL[dt] if name == "o" else BWD_F32_TOL
+                    err = close_err(a, b, tol)
+                else:
+                    tol, err = FLASH_TOL[dt], rel_err(a, b)
+                check(err <= tol, f"{label}: {name} != plain ({err} > "
+                      f"{tol})")
+                errs[f"{dt} {name}"] = float((a.float() - b.float()).abs()
+                                             .max())
+            out[f"{dt}_{B}"] = counts
+    fa.reset_launches()
+    secs = time.perf_counter() - t0
+    log(f"[mesh] uneven shards at S={S}, H={H}, hd={hd}: the empty shard "
+        f"launched {out['bfloat16_0']} (bf16) and {out['float32_0']} (f32) "
+        f"and returned the plain version's empty outputs and zero "
+        f"gradients; the one-row shard {out['bfloat16_1']} (bf16), "
+        f"{out['float32_1']} (f32), max |kernel - plain| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; {secs:.3f} s; {nvidia_smi_line()}")
+    return {"counts": out, "max_abs_err": errs, "seconds": secs}
+
+
 def phase_mesh(dev, train_warm_s):
     """[mesh]: the dense family's train step under the reference's
     parallel plan, through the train driver's ``mesh=`` (DTensor over a
@@ -3708,7 +3784,9 @@ def phase_mesh(dev, train_warm_s):
     unsharded step of the same model (TP 1, seed 0) per step, and the
     first step's gradients; then ``MESH_STEPS`` bf16 steps over f32
     masters at [train]'s TP of 16, their warm step against [train]'s (no
-    profiled step: a depth cut)."""
+    profiled step: a depth cut). First, the flash kernels on the empty and
+    one-row local shards of an uneven microbatch
+    (:func:`mesh_uneven_shards`)."""
     import dataclasses
     import gc
     import math
@@ -3750,6 +3828,7 @@ def phase_mesh(dev, train_warm_s):
                   f"[mesh] {what} step {s}: {a!r} vs {b!r} (rtol {rtol})")
         return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
+    uneven = mesh_uneven_shards(dev)
     launch_mesh.init_process_group(dev, store=os.path.join(tmp, "store"))
     try:
         mesh = launch_mesh.init_mesh((1, 1), ("data", "model"), dev)
@@ -3864,7 +3943,8 @@ def phase_mesh(dev, train_warm_s):
     secs = time.perf_counter() - t_phase
     log(f"[mesh] phase {secs:.3f} s")
     return {"launches": bf16_launches, "f32_launches": f32_launches,
-            "warm_s": warm16, "decode": decode, "seconds": secs}
+            "warm_s": warm16, "decode": decode, "uneven": uneven,
+            "seconds": secs}
 
 
 def train_family_cell(dev, arch):
@@ -4619,6 +4699,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
             "library_ms", "shape")},
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "float32_hd128": flash_rows["float32_hd128"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4668,6 +4749,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
             "library_ms", "library_busy_ms", "shape")},
         "library_call": bwd_library,
+        "float32_hd128": bwd_rows["float32_hd128"],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.3f} s in all")
     print(f"{smi}", flush=True)

@@ -48,6 +48,12 @@ only when the mode resolves to the kernel and a gradient is needed, so
 serving keeps the forward without the LSE store. On the CPU autograd runs
 through :func:`attention_plain`; :func:`attention_bwd_plain` is the
 backward's explicit formula, the kernels' yardstick on the card.
+
+An empty input (B == 0: a rank that holds no rows of a microbatch split
+unevenly over the batch axes; or S == 0) launches nothing and counts
+nothing: the forward returns empty outputs of its shapes and dtypes and
+the backward empty gradients, as the plain versions do (a zero grid
+dimension or a tensor map of zero extent would be refused).
 """
 from __future__ import annotations
 
@@ -246,6 +252,12 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool = False):
     B, S, H, hd = q.shape
     dev = q.device
     _check_inputs(q, (("k", k), ("v", v)), "flash_attention")
+    if B == 0 or S == 0:
+        # an empty local shard (a rank that holds no rows of a microbatch
+        # split unevenly): no grid, no tensor map, no launch
+        out = q.new_empty((B, S, H, hd))
+        lse = q.new_empty((B, H, S), dtype=torch.float32)
+        return (out, lse) if want_lse else out
     # the kernels read through strides; a tensor whose rows are not
     # 16-byte aligned and contiguous is copied into the plain layout first
     q, k, v = (x if _rows_aligned(x)
@@ -286,6 +298,9 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, causal: bool):
         raise ValueError(f"flash attention backward: lse is {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}, expected a "
                          f"contiguous float32 {(B, H, S)} on {dev}")
+    if B == 0 or S == 0:
+        # an empty local shard: empty (all-zero) gradients, no launch
+        return tuple(q.new_empty((B, S, H, hd)) for _ in range(3))
     q, k, v, o, do = (x if _rows_aligned(x)
                       else x.clone(memory_format=torch.contiguous_format)
                       for x in (q, k, v, o, do))

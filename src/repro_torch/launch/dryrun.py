@@ -41,9 +41,12 @@ as for prefill, the cache by ``cache_specs`` (``place_cache``: rows over
 the batch axes, or with B below their size, as ``long_500k``'s B=1, the
 sequence over "data" and the attention combined across it) and the tokens
 by ``P(ba)`` or ``P()``, as the reference's ``lower_decode``. A train cell
-whose microbatch rows do not split evenly over the batch axes traces the
-unsharded step: its collective term and a device's temporaries stay null
-with a note.
+whose microbatch's rows do not split evenly over the batch axes
+(arctic-480b's 16 rows over ``multi``'s 32 batch devices) traces the
+sharded step too, each microbatch placed as DTensor's uneven parts
+(``place_batch``): the traced rank is rank 0, which holds rows (ceil of
+them), so its memory and counts are those of a device that works, as
+XLA's padded per-device program counts the padded split.
 
 Attention is counted as the plain model path computes it off the card
 (``layers.attention_plain_model``: dense scores per block of 512 queries,
@@ -106,8 +109,6 @@ HOST_DEVICES = 512
 # the head plan's TP width: the production meshes' "model" axis, and the
 # card's models (build_model's default)
 TP = 16
-UNEVEN = ("the microbatch's rows do not split evenly over the batch axes: "
-          "traced unsharded, not modelled")
 # the functional collectives a sharded step issues, by the reference's kind
 _COLLECTIVE_KINDS = {
     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
@@ -471,9 +472,9 @@ def kernel_attention(counter: StepCounter):
 class Trace:
     """One traced step: the counts of one microbatch's forward and backward
     (``fb``; the whole step when it does not train) and of the optimizer
-    (``opt``), the microbatches ``mb``, and the memory of the trace;
-    ``sharded``: one rank's counts of the sharded step, whose collectives
-    are ``fb_collectives`` and ``opt_collectives``."""
+    (``opt``), the microbatches ``mb``, and the memory of the trace; of a
+    sharded step, one rank's counts, whose collectives are
+    ``fb_collectives`` and ``opt_collectives``."""
     fb_flops: float
     fb_bytes: float
     opt_flops: float
@@ -485,7 +486,6 @@ class Trace:
     seconds: float
     arguments: dict
     outputs: object
-    sharded: bool = False
     fb_collectives: dict = dataclasses.field(
         default_factory=lambda: collective_bytes(""))
     opt_collectives: dict = dataclasses.field(
@@ -555,7 +555,9 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
     prefill or decode step runs sharded, as one rank of it. The mesh is
     configured, the state (the parameters) placed by the reference's specs
     as DTensors of meta local shards and the batch by ``batch_specs`` (the
-    train step places each microbatch itself); a prefill runs the
+    train step cuts each microbatch from the whole batch and places it
+    itself: its arguments count the placed batch, the reference's); a
+    prefill runs the
     forward on the placed parameters, a decode ``decode_step`` on them
     with the cache placed by ``cache_specs`` (kv heads over "model" where
     ``hkv % tp == 0``) and the tokens by ``P(ba)`` or ``P()``. The counts
@@ -569,9 +571,14 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
         ctx.configure(mesh)
     if train:
         state = _meta_state(model, mp)
+        batch = input_specs(cfg, shape)
+        args = {"state": state, "batch": batch}
         if sharded:
-            state = place_state(state, mesh, device="meta")
-        args = {"state": state, "batch": input_specs(cfg, shape)}
+            # the step places each microbatch itself; the arguments count
+            # the batch as the reference's in_shardings place it
+            args = {"state": place_state(state, mesh, device="meta"),
+                    "batch": place_batch(batch, cfg, shape, mesh,
+                                         device="meta")}
     elif step == "decode":
         args = {"params": model.param_tree(),
                 **input_specs(cfg, shape, model=model)}
@@ -598,7 +605,7 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
         if train:
             state = args["state"]
             _, grads = loss_and_grads(model, state["params"],
-                                      _microbatch(args["batch"], mb))
+                                      _microbatch(batch, mb))
             fb = (counter.flops, counter.bytes)
             fb_coll = copy.deepcopy(counter.collectives)
             lr = lr_schedule(state["opt"]["step"] + 1)
@@ -633,7 +640,7 @@ def trace_step(cfg, shape, mb: int = 1, *, step: str | None = None,
                  argument_bytes=counter.argument_bytes,
                  output_bytes=output_bytes, temp_bytes=temp,
                  seconds=time.perf_counter() - t0, arguments=args,
-                 outputs=out, sharded=sharded,
+                 outputs=out,
                  fb_collectives=fb_coll or counter.collectives,
                  opt_collectives=_mix(counter.collectives, fb_coll, y=-1)
                  if fb_coll else collective_bytes(""),
@@ -678,11 +685,10 @@ def roofline_hw(cfg):
 # the production meshes' spec trees
 # ---------------------------------------------------------------------------
 
-def _spec_trees(cfg, shape, mesh, model, *, fsdp: bool = True,
-                mp: bool = False) -> tuple:
-    """(argument specs, output specs) of the step over ``mesh``, as the
-    reference's ``lower_*`` shard them; ``configure``s the mesh first, as
-    there."""
+def _arg_specs(cfg, shape, mesh, model, *, fsdp: bool = True,
+               mp: bool = False) -> dict:
+    """The step's argument specs over ``mesh``, as the reference's
+    ``lower_*`` shard them; ``configure``s the mesh first, as there."""
     tp, dsize = mesh.shape["model"], data_size(mesh)
     ctx.configure(mesh)
     params = model.param_tree()
@@ -691,22 +697,16 @@ def _spec_trees(cfg, shape, mesh, model, *, fsdp: bool = True,
         o_specs = {"m": p_specs, "v": p_specs, "step": P()}
         if mp:
             o_specs["master"] = p_specs
-        s_specs = {"params": p_specs, "opt": o_specs}
-        specs = {"state": s_specs,
-                 "batch": batch_specs(batch_axes(mesh), cfg, shape)}
-        outs = {"state": s_specs, "metrics": {"gnorm": P(), "lr": P()}}
-        return specs, outs
+        return {"state": {"params": p_specs, "opt": o_specs},
+                "batch": batch_specs(batch_axes(mesh), cfg, shape)}
     if shape.kind == "prefill":
-        return ({"params": p_specs,
-                 "batch": batch_specs(batch_axes(mesh), cfg, shape)}, None)
-    kv_shardable = model.hkv % tp == 0
-    c_specs = cache_specs(batch_axes(mesh), cfg, shape.batch, kv_shardable,
-                          dsize)
+        return {"params": p_specs,
+                "batch": batch_specs(batch_axes(mesh), cfg, shape)}
     ba = batch_axes(mesh) if shape.batch >= dsize else None
-    v_ax = "model" if cfg.vocab % tp == 0 else None
-    return ({"params": p_specs, "cache": c_specs,
-             "tokens": P(ba) if ba else P()},
-            (P(ba, v_ax) if ba else P(None, v_ax), c_specs))
+    return {"params": p_specs,
+            "cache": cache_specs(batch_axes(mesh), cfg, shape.batch,
+                                 model.hkv % tp == 0, dsize),
+            "tokens": P(ba) if ba else P()}
 
 
 def _pairs_of(specs, tree, path=""):
@@ -733,8 +733,10 @@ def _shards(spec, mesh) -> list[int]:
 
 def check_specs(specs, tree, mesh) -> int:
     """Every dimension a spec shards divides evenly over its mesh axes
-    (raises ``ValueError`` naming the leaf otherwise); returns the leaves
-    checked."""
+    (raises ``ValueError`` naming the leaf otherwise), as the reference's
+    ``jax.jit`` refuses ``in_shardings`` that do not (an uneven split
+    inside the step, a microbatch's rows, is padded there and traced
+    here); returns the leaves checked."""
     n = 0
     for path, spec, leaf in _pairs_of(specs, tree):
         if not isinstance(leaf, torch.Tensor):
@@ -753,11 +755,16 @@ def check_specs(specs, tree, mesh) -> int:
 
 
 def per_device_bytes(specs, tree, mesh) -> int:
-    """Bytes of a tree's tensors on one device: each leaf's over the
-    devices its spec shards it over (a tree with no specs: whole)."""
+    """Bytes of a tree's tensors on the device that holds the most: each
+    leaf's largest shard, every dimension its spec shards over k devices
+    cut to ceil(n / k) (XLA's padded split, ``torch.chunk``'s first part);
+    a tree with no specs: whole."""
     if specs is None:
         return sum(_nbytes(t) for t in _tensors(tree))
-    return sum(_nbytes(leaf) // math.prod(_shards(spec, mesh))
+    return sum(leaf.element_size() * math.prod(
+                   -(-n // k) for n, k in zip(
+                       leaf.shape, _shards(spec, mesh)
+                       + [1] * (leaf.dim() - len(spec))))
                for _, spec, leaf in _pairs_of(specs, tree)
                if isinstance(leaf, torch.Tensor))
 
@@ -765,21 +772,6 @@ def per_device_bytes(specs, tree, mesh) -> int:
 # ---------------------------------------------------------------------------
 # cell driver
 # ---------------------------------------------------------------------------
-
-def _memory(trace: Trace, specs, out_specs, mesh, note: str) -> dict:
-    if mesh is None or trace.sharded:
-        return {"argument_size_in_bytes": trace.argument_bytes,
-                "output_size_in_bytes": trace.output_bytes,
-                "temp_size_in_bytes": trace.temp_bytes}
-    outs = trace.outputs
-    if isinstance(outs, dict) and "metrics" in outs:
-        outs = {"state": outs["state"], "metrics": outs["metrics"]}
-    return {"argument_size_in_bytes": per_device_bytes(
-                specs, trace.arguments, mesh),
-            "output_size_in_bytes": per_device_bytes(out_specs, outs, mesh),
-            "temp_size_in_bytes": None,
-            "temp_note": "a device's temporaries: " + note}
-
 
 @contextlib.contextmanager
 def fake_mesh(shape, axis_names):
@@ -854,31 +846,26 @@ def _cell(rec, cfg, shape, mesh, mode, fsdp, mp) -> None:
     mb = MICROBATCHES.get(rec["arch"], 1) if shape.kind == "train" else 1
     rec["chips"] = chips
     rec["microbatches"] = mb
-    note = None
     sharded = mesh is not None
-    if sharded and shape.kind != "decode" \
-            and (shape.batch // mb) % data_size(mesh):
-        sharded, note = False, UNEVEN
     cost = mode in ("cost", "both") and mesh_kind != "multi"
     # one trace serves both modes
-    trace = trace_step(cfg, shape, mb, mp=mp,
-                       mesh=mesh if sharded else None)
+    trace = trace_step(cfg, shape, mb, mp=mp, mesh=mesh)
     model = build_model(cfg, tp=TP, device="meta")
     if sharded:
         coll = step_collectives(trace)
         once = _mix(trace.fb_collectives, trace.opt_collectives)
     else:
-        coll = once = collective_bytes("") if mesh is None else None
+        coll = once = collective_bytes("")
     if mode in ("compile", "both"):
         rec["lower_s"] = round(trace.seconds, 1)
         t0 = time.time()
-        specs = out_specs = None
-        if mesh is not None:
-            specs, out_specs = _spec_trees(cfg, shape, mesh, model,
-                                           fsdp=fsdp, mp=mp)
-            check_specs(specs, _full(trace.arguments), mesh)
+        if sharded:
+            check_specs(_arg_specs(cfg, shape, mesh, model, fsdp=fsdp,
+                                   mp=mp), _full(trace.arguments), mesh)
         rec["compile_s"] = round(time.time() - t0, 1)
-        rec["memory"] = _memory(trace, specs, out_specs, mesh, note)
+        rec["memory"] = {"argument_size_in_bytes": trace.argument_bytes,
+                         "output_size_in_bytes": trace.output_bytes,
+                         "temp_size_in_bytes": trace.temp_bytes}
         rec["hlo_once"] = {"flops": trace.once_flops,
                            "bytes": trace.once_bytes, "collectives": once}
         if sharded:
@@ -890,22 +877,18 @@ def _cell(rec, cfg, shape, mesh, mode, fsdp, mp) -> None:
         flops, byts = trace.flops * per, trace.bytes * per
         rec["cost_s"] = round(trace.seconds, 1)
         mf = model_flops(cfg, model, shape)
-        hw = HW if mesh is not None else roofline_hw(cfg)
+        hw = HW if sharded else roofline_hw(cfg)
         rec["cost"] = {
             "hlo_flops": flops, "hlo_bytes": byts,
             "hlo_flops_per_chip": flops / chips,
-            "collective_bytes_per_chip": None if coll is None
-            else float(coll["total"]),
+            "collective_bytes_per_chip": float(coll["total"]),
             "model_flops": mf,
             "useful_ratio": mf / flops if flops else 0.0,
         }
-        if coll is None:
-            rec["cost"]["collective_note"] = "the collective term: " + note
-        elif mesh is not None:
+        if sharded:
             rec["cost"]["collectives"] = coll
         rec["roofline"] = {**roofline_terms(
-            flops, byts, 0.0 if coll is None else float(coll["total"]),
-            chips, hw), "hw": hw.name}
+            flops, byts, float(coll["total"]), chips, hw), "hw": hw.name}
 
 
 def _full(tree):

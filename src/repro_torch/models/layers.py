@@ -166,14 +166,14 @@ def _proj(x, w):
         return ctx.local_map(_proj, (ctx.logical_placements(4, "batch"),),
                              (rows, wp), (rows, ctx.partial_over(wp, "batch"))
                              )(x, w)
-    return torch.matmul(x, w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
+    return ctx.matmul(x, w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
 
 
 def _out_proj(o, wo):
     """einsum("bshk,hkd->bsd"): o [B,S,H,hd], wo [H,hd,d]."""
     H, hd, d = wo.shape
-    return torch.matmul(o.reshape(*o.shape[:-2], H * hd),
-                        wo.reshape(H * hd, d))
+    return ctx.matmul(o.reshape(*o.shape[:-2], H * hd),
+                      wo.reshape(H * hd, d))
 
 
 def _qkv(p, x, cfg):
@@ -299,18 +299,22 @@ def attention_train(p, x, cfg, pos, causal=True, kv_override=None):
     (cross-attention); where their length differs from the queries' the
     attention is :func:`gqa_scores_out`, as the kernel takes q, k, v of one
     shape. On DTensors the rotation and the attention run on local shards
-    (:func:`_attention_local`)."""
+    (:func:`_attention_local`). q and the output are pinned with their
+    heads over "tp", as the reference pins them, where the head count
+    divides by its size; else whole (XLA pads the heads there, and DTensor
+    cannot fold an uneven head split into the output projection)."""
     q, k, v = _qkv(p, x, cfg)
     if kv_override is not None:
         k, v = kv_override
+    heads = "tp" if q.shape[2] % ctx.tp_size() == 0 else None
     if ctx.is_dtensor(q):
-        q = shard(q, "batch", None, "tp", None)
+        q = shard(q, "batch", None, heads, None)
         o = _attention_local(q, k, v, cfg, pos, causal)
     else:
         q, k = _rope(q, k, cfg, pos)
-        q = shard(q, "batch", None, "tp", None)
+        q = shard(q, "batch", None, heads, None)
         o = _attention_core(q, k, v, cfg, None, causal)
-    o = shard(o, "batch", None, "tp", None)
+    o = shard(o, "batch", None, heads, None)
     return _out_proj(o, p["wo"].to(x.dtype))
 
 
@@ -495,15 +499,15 @@ def _decode_attend(q, k, v, cache_k, cache_v, cfg, cache_len):
 
 def mlp(p, x):
     dt = x.dtype
-    h = torch.nn.functional.silu(torch.matmul(x, p["w1"].to(dt)))
-    h = h * torch.matmul(x, p["w3"].to(dt))
+    h = torch.nn.functional.silu(ctx.matmul(x, p["w1"].to(dt)))
+    h = h * ctx.matmul(x, p["w3"].to(dt))
     h = shard(h, "batch", None, "tp")
-    return torch.matmul(h, p["w2"].to(dt))
+    return ctx.matmul(h, p["w2"].to(dt))
 
 
 def unembed(x, embed):
     """Tied unembedding: x [..., d] @ embed [V, d]^T in x's dtype."""
-    return torch.matmul(x, embed.to(x.dtype).t())
+    return ctx.matmul(x, embed.to(x.dtype).t())
 
 
 def embed_lookup(embed, tokens):

@@ -51,7 +51,7 @@ def mamba_shapes(d, mcfg, layers) -> dict:
 
 def _ssm_inputs(p, x):
     """x [B,S,d] -> (u, z), each [B,S,di]."""
-    xz = torch.matmul(x, p["in_proj"].to(x.dtype))
+    xz = ctx.matmul(x, p["in_proj"].to(x.dtype))
     return torch.chunk(xz, 2, dim=-1)
 
 
@@ -78,9 +78,9 @@ def _ssm_params(p, u, mcfg):
     """dt [B,S,di] f32, Bc/Cc [B,S,ds] f32, A [di,ds] f32."""
     dtr = p["dt_proj"].shape[-2]
     ds = mcfg.d_state
-    dbc = torch.matmul(u, p["x_proj"].to(u.dtype)).float()
+    dbc = ctx.matmul(u, p["x_proj"].to(u.dtype)).float()
     dt_raw, Bc, Cc = torch.split(dbc, [dtr, ds, ds], dim=-1)
-    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"].float())
+    dt = F.softplus(ctx.matmul(dt_raw, p["dt_proj"].float())
                     + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     return dt, Bc, Cc, A
@@ -169,7 +169,7 @@ def mamba_train(p, x, mcfg):
         y = _scan(u, dt, Bc, Cc, A, p["D"], mcfg)
     y = y.to(x.dtype) * F.silu(z)
     y = shard(y, "batch", None, "tp")
-    return torch.matmul(y, p["out_proj"].to(x.dtype))
+    return ctx.matmul(y, p["out_proj"].to(x.dtype))
 
 
 def mamba_init_state(p, mcfg, batch, dtype=torch.float32):
@@ -225,5 +225,5 @@ def mamba_decode(p, x, mcfg, state):
         y, h = _ssm_step(u, dt, Bc, Cc, A, p["D"], state["ssm"])
     y = y.to(x.dtype) * F.silu(z)
     y = shard(y, "batch", None, "tp")
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    out = ctx.matmul(y, p["out_proj"].to(x.dtype))
     return out, {"conv": conv_state.to(state["conv"].dtype), "ssm": h}

@@ -49,6 +49,11 @@ scatter and combine run on plain local tensors:
   by the model axis's size first, as ``shard_map``'s transpose does for an
   output replicated over it).
 
+The reference's ``sharded`` and ``shardmap`` split the flattened tokens
+evenly over the devices, whatever the rows: on a microbatch whose rows do
+not split evenly over the batch axes, both take the tokens as one row of
+``B S / nb`` a rank first (:func:`_token_rows`).
+
 With no mesh, ``moe_ffn_sharded`` has one data shard and
 ``moe_ffn_shardmap`` runs its local body with ``tp = 1``: both are the
 global form's ops on the same shapes, so the same bits. Jamba's MoE layers
@@ -197,7 +202,8 @@ def moe_ffn_sharded(p, x, moe_cfg):
         ds //= 2
     cap_l = capacity(moe_cfg, nt // ds)
     if ctx.is_dtensor(x):
-        return _sharded_mesh(p, x, moe_cfg, ds, cap_l)
+        return _token_rows(
+            lambda xt: _sharded_mesh(p, xt, moe_cfg, ds, cap_l), x)
     ws = _weights(p, x.dtype)
     outs = []
     for xt in x.reshape(ds, nt // ds, d).unbind(0):
@@ -212,7 +218,7 @@ def moe_ffn_shardmap(p, x, moe_cfg):
     all-gathers their outputs over "model". With no mesh, the reference's
     ``_moe_shardmap_local`` (``tp = 1``): every expert is local."""
     if ctx.is_dtensor(x):
-        return _shardmap_mesh(p, x, moe_cfg)
+        return _token_rows(lambda xt: _shardmap_mesh(p, xt, moe_cfg), x)
     return moe_ffn_global(p, x, moe_cfg)
 
 
@@ -253,12 +259,17 @@ def _global_mesh(p, x, moe_cfg, cap):
 
 def _expert_block(buf, ws, axes):
     """The experts on each rank's shard of ``buf`` (placed by logical
-    ``axes``, its expert axis over "model", its rows split over the batch
-    axes): the weights split over their experts and whole over the batch
-    axes, so their gradients are this rank's part of a sum there."""
+    ``axes``, its expert axis over "model", its rows split over some of
+    the batch axes): the weights split over their experts and whole
+    elsewhere, so their gradients are this rank's part of a sum over the
+    mesh dimensions that split the buffer's rows, and whole over those
+    that hold it whole (``global``'s "pod": its capacity rows split over
+    "data" alone)."""
+    from torch.distributed.tensor import Partial, Shard
     wp = ctx.logical_placements(3, "expert")
-    wg = ctx.partial_over(wp, "batch")
     bp = ctx.logical_placements(buf.ndim, *axes)
+    wg = tuple(Partial() if isinstance(b, Shard) and not isinstance(w, Shard)
+               else w for b, w in zip(bp, wp))
 
     def experts(b, w1, w3, w2):
         if b.ndim == 3:
@@ -314,6 +325,29 @@ def _sharded_mesh(p, x, moe_cfg, ds, cap_l):
     out = ctx.local_map(combine, (rows,), (bufs,) + (pairs,) * 4)(
         y_buf, se, st, slot, sg)
     return shard(out, "batch", None, None)
+
+
+def _token_rows(fn, x):
+    """``fn`` of x [B,S,d], whose rows split over the batch axes. Where
+    they split unevenly (fewer rows than the axes' ``nb`` ranks, or a
+    count that does not divide), ``fn`` takes the same tokens as ``nb``
+    rows of ``B S / nb``, one a rank, and its output goes back to x's rows:
+    the reference's ``shard_map`` and its ``[ds, ntl, d]`` pin split the
+    flattened tokens evenly over the devices, not the padded rows, and a
+    shard's routing and capacity follow its tokens. The tokens move by a
+    gather over the batch axes and a slice (the output, and the
+    gradients, likewise)."""
+    if not ctx.uneven(x):
+        return fn(x)
+    B, S, d = x.shape
+    nb = ctx.batch_shards()
+    if (B * S) % nb:
+        raise ValueError(f"{B * S} tokens do not split over the {nb} ranks "
+                         f"of the batch axes")
+    whole = (None, None, None)
+    xt = shard(shard(x, *whole).reshape(nb, B * S // nb, d),
+               "batch", None, None)
+    return shard(shard(fn(xt), *whole).reshape(B, S, d), "batch", None, None)
 
 
 def _all_gather(x, group):

@@ -61,8 +61,8 @@ def slstm_shapes(cfg, layers) -> dict:
 def _out(y, wo):
     """einsum("bshk,hkd->bsd")."""
     H, hd, d = wo.shape
-    return torch.matmul(y.reshape(*y.shape[:-2], H * hd),
-                        wo.reshape(H * hd, d))
+    return ctx.matmul(y.reshape(*y.shape[:-2], H * hd),
+                      wo.reshape(H * hd, d))
 
 
 def _mlstm_proj(p, x, cfg):
@@ -74,8 +74,8 @@ def _mlstm_proj(p, x, cfg):
     k = _proj(xn, p["wk"].to(dt)) * cfg.head_dim ** -0.5
     v = _proj(xn, p["wv"].to(dt))
     x32 = xn.float()
-    i = torch.sigmoid(torch.matmul(x32, p["wi"]))
-    f = torch.sigmoid(torch.matmul(x32, p["wf"]) + p["bf"])
+    i = torch.sigmoid(ctx.matmul(x32, p["wi"]))
+    f = torch.sigmoid(ctx.matmul(x32, p["wf"]) + p["bf"])
     return xn, q, k, v, i, f
 
 
@@ -83,9 +83,9 @@ def _mlstm_out(p, x, xn, y):
     """Output gate, projection and residual: y [B,S,H,hd] (or its heads
     flattened) in x's dtype."""
     B, S = x.shape[:2]
-    gate = F.silu(torch.matmul(xn, p["wgate"].to(x.dtype)))
+    gate = F.silu(ctx.matmul(xn, p["wgate"].to(x.dtype)))
     y = shard(y.reshape(B, S, -1) * gate, "batch", None, "tp")
-    return x + torch.matmul(y, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+    return x + ctx.matmul(y, p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
 
 
 def _mlstm_chunks(q, k, v, i, f, dtype):
@@ -262,8 +262,8 @@ def slstm_train(p, x, cfg):
                                xg, p["wr"], p["b"])
     else:
         hs = _slstm_scan(xg, p["wr"], p["b"]).flatten(2)
-    return x + torch.matmul(hs.to(x.dtype),
-                            p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+    return x + ctx.matmul(hs.to(x.dtype),
+                          p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
 
 
 def slstm_decode(p, x, cfg, state):

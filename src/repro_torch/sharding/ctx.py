@@ -25,6 +25,12 @@ counterpart of ``with_sharding_constraint``: a DTensor is redistributed to
 the placements its logical axes resolve to. A plain tensor, or any tensor
 with no mesh configured, passes through unchanged once the axes are
 checked, so single-device runs make no DTensor.
+
+A dimension that does not split evenly (a microbatch's rows fewer than
+the batch axes' ranks, or a count that does not divide: XLA pads it) is
+DTensor's uneven split, ``torch.chunk``'s parts. :func:`local_map` keeps
+such rows' global count on a block's outputs, and :func:`matmul` runs a
+product on them where DTensor's own cannot fold the rows.
 """
 from __future__ import annotations
 
@@ -270,17 +276,166 @@ def partial_over(placements, *axes) -> tuple:
                  for i, pl in enumerate(placements))
 
 
+def _split_dims(placements) -> dict:
+    """Tensor dimension -> the mesh dimensions that split it (in mesh
+    order, the order DTensor splits them in)."""
+    from torch.distributed.tensor import Shard
+    out: dict = {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            out.setdefault(p.dim, []).append(i)
+    return {d: tuple(m) for d, m in out.items()}
+
+
+def _global_size(dm, mdims, local: int, seen) -> int:
+    """The global size of an output dimension of ``local`` elements on
+    this rank, split over mesh dimensions ``mdims``: that of an input
+    dimension split over the same mesh dimensions with the same local size
+    (``seen``: (mesh dims, global, local) of the inputs), else the even
+    split's. An unevenly split input over those mesh dimensions that no
+    output dimension matches raises: the output's split would be
+    ambiguous."""
+    ranks = math.prod(dm.size(i) for i in mdims)
+    uneven = False
+    for m, g, n in seen:
+        if m == mdims:
+            if n == local:
+                return g
+            uneven |= g % ranks != 0
+    if uneven:
+        raise ValueError(
+            f"a local_map output of {local} elements split over mesh "
+            f"dimensions {mdims} follows no input split there, and an "
+            f"input splits unevenly over them")
+    return local * ranks
+
+
+def _from_local(out, dm, placements, seen):
+    """``out`` (this rank's part) as a DTensor placed by ``placements``,
+    its global shape by :func:`_global_size`; where that is the even
+    split's, DTensor's own shape and stride."""
+    from torch.distributed.tensor import DTensor
+    placements = tuple(placements)
+    shape, even = list(out.shape), list(out.shape)
+    for d, mdims in _split_dims(placements).items():
+        shape[d] = _global_size(dm, mdims, out.shape[d], seen)
+        even[d] *= math.prod(dm.size(i) for i in mdims)
+    if shape == even:
+        return DTensor.from_local(out, dm, placements, run_check=False)
+    # the global stride: the local tensor's dimension order, contiguous
+    order = sorted(range(out.ndim), key=lambda i: out.stride(i),
+                   reverse=True)
+    stride, step = [0] * out.ndim, 1
+    for i in reversed(order):
+        stride[i] = step
+        step *= max(shape[i], 1)
+    return DTensor.from_local(out, dm, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
 def local_map(fn, out_placements, in_placements, in_grad_placements=None):
     """``fn`` of plain tensors applied to DTensors on each rank's local
-    shards (``torch.distributed.tensor.experimental.local_map`` on the
-    bound ``DeviceMesh``): the inputs redistributed to
-    ``in_placements`` first, the outputs placed by ``out_placements``, and
-    each input's gradient read as ``in_grad_placements`` (default: its
-    input placements)."""
-    from torch.distributed.tensor.experimental import local_map as lm
-    return lm(fn, out_placements=out_placements, in_placements=in_placements,
-              in_grad_placements=in_grad_placements,
-              device_mesh=device_mesh(), redistribute_inputs=True)
+    shards, on the bound ``DeviceMesh`` (as
+    ``torch.distributed.tensor.experimental.local_map``): each DTensor
+    input redistributed to its ``in_placements`` entry first and its
+    gradient read as its ``in_grad_placements`` entry (default: its input
+    placements); each output (``fn`` returns a tensor or a tuple of them)
+    placed by its ``out_placements`` entry. Non-tensor inputs pass as they
+    are.
+
+    An output dimension split over the mesh takes the global size of an
+    input dimension split over the same mesh dimensions with the same
+    local size: rows split unevenly over the batch axes (a microbatch of
+    fewer rows than their size, or a count that does not divide, each rank
+    holding ``torch.chunk``'s part) keep their global count, where torch's
+    ``local_map`` assumes an even split. Any other output dimension is an
+    even split."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.utils import _pytree as pytree
+    dm = device_mesh()
+
+    def run(*args):
+        local, seen = [], []
+        for i, a in enumerate(args):
+            if not is_dtensor(a):
+                local.append(a)
+                continue
+            want = tuple(in_placements[i])
+            if tuple(a.placements) != want:
+                a = a.redistribute(a.device_mesh, want)
+            grad = want if in_grad_placements is None \
+                else tuple(in_grad_placements[i])
+            t = a.to_local(grad_placements=grad)
+            if isinstance(t, AsyncCollectiveTensor):
+                t = t.wait()
+            local.append(t)
+            seen += [(m, a.shape[d], t.shape[d])
+                     for d, m in _split_dims(want).items()]
+        flat, tree = pytree.tree_flatten(fn(*local))
+        if len(flat) != len(out_placements):
+            raise ValueError(f"local_map: {len(flat)} outputs, "
+                             f"{len(out_placements)} out_placements")
+        return pytree.tree_unflatten(
+            [_from_local(o, dm, pl, seen)
+             for o, pl in zip(flat, out_placements)], tree)
+
+    return run
+
+
+def uneven(x) -> bool:
+    """Whether ``x`` is a DTensor that splits some dimension unevenly over
+    the mesh (its size no multiple of the split's ranks: some ranks hold a
+    shorter part, or none)."""
+    return is_dtensor(x) and any(
+        x.shape[d] % math.prod(x.device_mesh.size(i) for i in m)
+        for d, m in _split_dims(x.placements).items())
+
+
+def matmul(x, w):
+    """``x @ w`` for x [..., k] and a 2-D w [k, n]: ``torch.matmul``, but
+    for a DTensor x that splits its rows unevenly (:func:`uneven`), which
+    DTensor's matmul refuses (it folds the leading dimensions into one,
+    which it cannot do to an uneven split). There each rank multiplies its
+    own part (:func:`local_map`), mesh dimension by mesh dimension:
+
+    * x's rows split (a leading dimension): w whole there (gathered if
+      not), the output's rows split with x's, w's gradient a partial sum;
+    * x whole: w's columns split (``Shard(1)``) give the output's columns
+      split and x's gradient a partial sum; w's rows split (``Shard(0)``)
+      are met by x's last dimension split likewise (a slice);
+    * x's last dimension split: w's rows split with it (sliced if not),
+      the output a partial sum;
+
+    and a partial x is reduced first."""
+    if not uneven(x):
+        return torch.matmul(x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = x.ndim - 1
+    px, pw = list(x.placements), list(w.placements)
+    po, gx, gw = [], [], []
+    for i in range(len(px)):
+        if isinstance(px[i], Partial):
+            px[i] = Replicate()
+        if isinstance(px[i], Shard) and px[i].dim % x.ndim != last:
+            pw[i] = Replicate()
+            po.append(Shard(px[i].dim % x.ndim))
+            gx.append(px[i])
+            gw.append(Partial())
+            continue
+        if isinstance(px[i], Shard) or (isinstance(pw[i], Shard)
+                                        and pw[i].dim % 2 == 0):
+            px[i], pw[i] = Shard(last), Shard(0)
+            po.append(Partial())
+        elif isinstance(pw[i], Shard):
+            po.append(Shard(last))
+        else:
+            pw[i] = Replicate()
+            po.append(Replicate())
+        gx.append(Partial() if po[-1] == Shard(last) else px[i])
+        gw.append(pw[i])
+    return local_map(torch.matmul, (tuple(po),), (tuple(px), tuple(pw)),
+                     (tuple(gx), tuple(gw)))(x, w)
 
 
 def batch_shards() -> int:

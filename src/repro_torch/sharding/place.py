@@ -91,7 +91,16 @@ def place_params(params, mesh, device=None) -> dict:
 def place_batch(batch, cfg, shape=None, mesh=None, device=None) -> dict:
     """A full batch placed by ``batch_specs``: its batch axis split over
     the mesh's batch axes (``("pod", "data")`` or ``("data",)``), the rest
-    replicated. ``mesh`` None: the configured one."""
+    replicated. ``mesh`` None: the configured one.
+
+    Rows that do not split evenly over the batch axes' ``n`` ranks (a
+    microbatch of fewer rows than ``n``, or a count that does not divide)
+    are placed as DTensor's uneven parts, ``torch.chunk``'s: ceil(B / n)
+    rows on each of the first ranks (in the batch axes' order, "pod"
+    before "data"), the rest on the next, none on the last; the "model"
+    ranks of a batch position hold the same rows. These are the rows XLA
+    gives each device when it pads the reference's pin of that dimension;
+    the model's blocks run on them (``ctx.local_map``, ``ctx.matmul``)."""
     mesh = mesh or ctx.current_mesh()
     dm = _device_mesh(mesh)
     specs = batch_specs(batch_axes(mesh), cfg, shape)

@@ -10,8 +10,10 @@ CPU tensors) is moved to the model's device by the step itself.
 Under a mesh (:func:`repro_torch.sharding.ctx.configure`) the state is
 placed by :func:`repro_torch.sharding.place.place_state` and the step is the
 reference's sharded step: each (micro)batch is split from the global batch
-and then placed by ``batch_specs``, the gradients come back in their
-parameters' placements, and the metrics are replicated 0-d DTensors.
+and then placed by ``batch_specs`` (rows that do not split evenly over the
+batch axes as DTensor's uneven parts, where the reference's ``jit`` pads
+them), the gradients come back in their parameters' placements, and the
+metrics are replicated 0-d DTensors.
 """
 from __future__ import annotations
 

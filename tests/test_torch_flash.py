@@ -357,6 +357,48 @@ def test_backward_dispatch_on_the_cpu():
         tf.flash_attention_bwd(q, k, v, o, lse, do, mode="kernel")
 
 
+@pytest.mark.parametrize("shape", [(0, 32, 2, 64), (2, 0, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_empty_shard_launches_nothing(shape, dtype, monkeypatch):
+    """An empty local shard (B == 0: a rank that holds no rows of a
+    microbatch split unevenly; or S == 0): the kernel paths (the forward,
+    its LSE, the backward and FlashAttentionFn, called as the wrappers
+    call them on CUDA tensors) return the plain version's empty outputs,
+    of its shapes and dtypes, and empty (all-zero) gradients, without a
+    launch: the launcher is never reached and no count moves. The public
+    wrapper on such CPU tensors (the plain version) gives the same."""
+    def no_launch():
+        raise AssertionError("an empty shard reached the launcher")
+
+    monkeypatch.setattr(tf, "_launcher", no_launch)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.zeros(shape, dtype=dt).requires_grad_()
+               for _ in range(3))
+    tf.reset_launches()
+    o_p, lse_p = tf.attention_plain(q, k, v, return_lse=True)
+    o, lse = tf._flash_kernel(q, k, v, True, want_lse=True)
+    assert (o.shape, o.dtype, lse.shape, lse.dtype) \
+        == (o_p.shape, o_p.dtype, lse_p.shape, lse_p.dtype)
+    assert tf._flash_kernel(q, k, v, True).shape == o_p.shape
+    do = torch.zeros_like(o_p)
+    want = tf.attention_bwd_plain(q, k, v, o_p, lse_p, do)
+    got = tf._flash_bwd_kernel(q, k, v, o, lse, do, True)
+    fn = tf.FlashAttentionFn.apply(q, k, v, True)
+    through = torch.autograd.grad(fn.sum(), (q, k, v))
+    out = tf.flash_attention(q, k, v)
+    assert (out.shape, out.dtype) == (o_p.shape, o_p.dtype)
+    # the plain version's S == 0 output takes no part in the graph (its
+    # query loop never runs); its B == 0 one does
+    public = torch.autograd.grad(out.sum(), (q, k, v)) if shape[0] == 0 \
+        else want
+    for grads in (got, through, public):
+        for g, w in zip(grads, want):
+            assert (g.shape, g.dtype) == (w.shape, w.dtype) == (q.shape, dt)
+            assert not g.any()
+    assert tf.LAUNCHES == 0
+    assert tf.BWD_LAUNCHES == dict.fromkeys(tf.BWD_KERNELS, 0)
+
+
 @pytest.mark.parametrize("chunk_rows", [7, 45])
 def test_plain_backward_chunks_change_nothing(chunk_rows, monkeypatch):
     """The plain backward's query chunks sum dk and dv chunk by chunk; the

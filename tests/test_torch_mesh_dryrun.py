@@ -18,6 +18,10 @@
   whose all-gathers a device move less than its share of the cache (the
   reference's pin against a whole-cache gather), and ``long_500k``'s B=1
   (the sequence over "data"), whose attention all-reduces across "data".
+* arctic-480b's ``train_4k`` under ``multi`` (512 ranks), whose
+  microbatch's 16 rows do not split evenly over the 32 devices of the
+  batch axes: the sharded trace under each MoE dispatch, its arguments
+  counted by their largest shard.
 """
 import types
 
@@ -138,6 +142,72 @@ def test_decode_cell_has_a_collective_term(arch, shape, tmp_path):
         # B=1: the attention's partial softmax combined across "data"
         assert by_axis["data"]["all-reduce"] > 0
     assert ctx._CTX is None
+
+
+def _train_arg_bytes(cfg, shape) -> int:
+    """A train step's arguments (the f32 state and the global batch) on
+    the device of the multi production mesh that holds the most, as the
+    reference's specs place them (:func:`D.per_device_bytes`)."""
+    from repro_torch.models import build_model, input_specs
+    from repro_torch.sharding.specs import P, batch_specs, tree_param_specs
+    from repro_torch.train.optimizer import adamw_init
+
+    params = build_model(cfg, tp=16, device="meta").param_tree()
+    p_specs = tree_param_specs(params, 16, 32)
+    specs = {"state": {"params": p_specs,
+                       "opt": {"m": p_specs, "v": p_specs, "step": P()}},
+             "batch": batch_specs(("pod", "data"), cfg, shape)}
+    args = {"state": {"params": params, "opt": adamw_init(params)},
+            "batch": input_specs(cfg, shape)}
+    mesh = types.SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16})
+    return D.per_device_bytes(specs, args, mesh)
+
+
+@pytest.mark.parametrize("dispatch", ["global", "sharded", "shardmap"])
+def test_arctic_multi_traces_its_uneven_microbatch_sharded(dispatch,
+                                                           tmp_path):
+    """arctic-480b's train_4k under ``multi``: 16 microbatches of 16 rows
+    over the 32 devices of ("pod", "data"), which the step places as
+    uneven parts (rank 0, the traced rank, holds one row). The record
+    comes from the sharded trace under every MoE dispatch: no note, a
+    device's temporaries, collectives by kind and by mesh axis (FSDP's
+    over "data", the rows' partial sums over "pod"), and the arguments
+    counted by the largest shard."""
+    from repro_torch.configs import SHAPES
+
+    cfg = cut(ARCHS["arctic-480b"])
+    rec = D.run_cell("arctic-480b", "train_4k", "multi", "compile",
+                     str(tmp_path), moe_dispatch=dispatch, cfg=cfg)
+    assert rec["chips"] == 512 and rec["microbatches"] == 16
+    assert "cost" not in rec             # as the reference, under multi
+    mem = rec["memory"]
+    assert set(mem) == {"argument_size_in_bytes", "output_size_in_bytes",
+                        "temp_size_in_bytes"}
+    assert mem["temp_size_in_bytes"] > 0
+    moe = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch=dispatch))
+    assert mem["argument_size_in_bytes"] == _train_arg_bytes(
+        moe, SHAPES["train_4k"])
+    coll = rec["hlo_once"]["collectives"]
+    assert coll["total"] > 0 and sum(coll["counts"].values()) > 0
+    by_axis = rec["hlo_once"]["collectives_by_axis"]
+    assert set(by_axis) == {"pod", "data", "model"}
+    assert by_axis["data"]["all-gather"] > 0
+    assert by_axis["pod"]["all-reduce"] > 0
+    assert ctx._CTX is None
+
+
+def test_per_device_bytes_counts_the_largest_shard():
+    """A split that does not divide counts its first, largest part:
+    ceil(n / k) of each split dimension (XLA's padded split,
+    ``torch.chunk``'s first part)."""
+    from repro_torch.sharding.specs import P
+
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4})
+    tree = {"w": torch.empty((5, 6), device="meta"),
+            "b": torch.empty((6,), device="meta", dtype=torch.bfloat16)}
+    specs = {"w": P("data", "model"), "b": P("model")}
+    assert D.per_device_bytes(specs, tree, mesh) == 3 * 2 * 4 + 2 * 2
 
 
 # --- a finding, not a gate: the port's collectives beside XLA's -----------
