@@ -2,7 +2,7 @@
 """Time the scheduler kernels, or the train step, of two checkouts on one
 NVIDIA GPU, in turns.
 
-    python3 chip_ab.py [--train] [--rounds N] PARENT_ROOT
+    python3 chip_ab.py [--train | --plan] [--rounds N] PARENT_ROOT
 
 The change is the checkout this script lies in. For each run, a process
 of its own imports that checkout's ``chip_smoke.py`` and builds its
@@ -17,7 +17,10 @@ in the copy of its cost to the host. With ``--train`` it runs instead the
 train entry point as ``chip_smoke.py``'s ``[train]`` (a) calls it (its
 arch, steps, batch and sequence, the CarbonGate, checkpoints), with no
 mesh, and reads its step seconds: the cold first step and the median,
-least and most of the warm ones. The runs go parent, change, change,
+least and most of the warm ones. With ``--plan`` it runs instead
+``chip_smoke.py``'s ``[plan]`` (the 4 x 4 x 17 matrix planned cold on the
+card, with its checks) and reads the cold plan's seconds and its phase
+split (``PlanResult.phase_seconds``). The runs go parent, change, change,
 parent, ``N`` times over (default 1), so both are measured in one call on
 one card. Prints one ``AB {...}`` JSON line per run, then the card's name
 and power limit and one JSON summary line: each metric's readings per
@@ -90,6 +93,28 @@ print("AB " + json.dumps({"cold_s": secs[0],
                           "warm_max_s": max(secs[1:])}), flush=True)
 """
 
+PLAN_CHILD = r"""
+import json, sys
+root = sys.argv[1]
+sys.path.insert(0, root)
+import chip_smoke as cs
+sys.path.insert(0, cs.SRC)
+import torch
+from repro_torch import obs
+
+obs.configure(tracing=False, torch_hooks_on=True)      # as chip_smoke's main
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.build_kernels()
+plat, insts, grid = cs.build_matrix()
+cold, _, cold_s = cs.phase_plan(plat, insts, grid)
+print("AB " + json.dumps({"cold_s": cold_s, **cold.phase_seconds}),
+      flush=True)
+"""
+
+PLAN_METRICS = {f"plan_{k}": operator.itemgetter(k) for k in
+                ("cold_s", "rows", "greedy", "climb", "polish")}
+
 TRAIN_METRICS = {f"train_{k}": operator.itemgetter(k) for k in
                  ("cold_s", "warm_s", "warm_min_s", "warm_max_s")}
 
@@ -120,11 +145,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(usage=__doc__)
     ap.add_argument("parent")
-    ap.add_argument("--train", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true")
+    mode.add_argument("--plan", action="store_true")
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
-    child, metrics = (TRAIN_CHILD, TRAIN_METRICS) if args.train \
-        else (CHILD, METRICS)
+    child, metrics = ((TRAIN_CHILD, TRAIN_METRICS) if args.train
+                      else (PLAN_CHILD, PLAN_METRICS) if args.plan
+                      else (CHILD, METRICS))
     parent = os.path.abspath(args.parent)
     change = os.path.dirname(os.path.abspath(__file__))
     order = (("parent", parent), ("change", change), ("change", change),

@@ -14,7 +14,18 @@ reference package ``repro``. Phases, each fatal on failure:
    shapes the main paths give it: the gain sweep bitwise (the climb's
    shape, edge cases, and every mu compiled into the kernel plus one it
    takes at run time, at a ragged Np and at rows at and over its staging
-   budget); the deficit timeline bitwise on integer inputs (the
+   budget); the planner's two device loops bitwise
+   (:func:`phase_scan_kernels`): the greedy placement scan at the plan's
+   largest bucket (R=32 rows, Np=4352, Tp=1024), on a crafted instance
+   (ties, no feasible unit, a task past the padded horizon, padded tasks)
+   and on random inputs in the blocked form's layout with the state in
+   shared and in device memory; the climb's commit scan over three climb
+   rounds at that bucket (dense and padded adjacency), with moved starts
+   (inverted windows), a dead row and a commit width below the rows'
+   positive proposals, and on random padded-CSR inputs with the state in
+   shared and in device memory (this check runs after (4), so that the
+   plan's cold times hold no warm-up of these two kernels); the deficit timeline bitwise on integer
+   inputs (the
    reference's sweep shapes, the plan's shape, a 30,000-task shape, a T of
    several tiles, edge and out-of-range windows), NaN where the plain
    version is NaN on non-finite works, and within a stated reorder bound
@@ -27,8 +38,10 @@ reference package ``repro``. Phases, each fatal on failure:
 4. the heuristic plan: ``Planner(platform, engine="torch").plan(...)`` on
    the paper's section 6.1 matrix (72-processor small cluster, the four
    nf-core families at 2000 workflow tasks, HEFT-mapped, deadline 2x ASAP,
-   the S1-S4 ensemble, all 17 variants), cold (the warm re-plan is cut);
-   every schedule is validated, every -LS cost is <= its greedy cost, and
+   the S1-S4 ensemble, all 17 variants), cold (the warm re-plan is cut),
+   through the greedy_scan, commit_scan and gain_scan kernels (each
+   launched at least once); every schedule is validated, every -LS cost
+   is <= its greedy cost, and
    the non-LS columns equal the port's numpy engine bitwise; the span
    split from the port's tracer and ``obs.torch_hooks.snapshot()``;
 5. the cost oracle: every schedule of that plan costed through
@@ -47,9 +60,10 @@ reference package ``repro``. Phases, each fatal on failure:
    devices, ``grid_mesh()`` spanning them, ``Planner(devices=k+1)``
    raising a ``ValueError`` that names ``devices``; (b) the matrix's greedy
    rows (4 x 4 x 8 combos) padded to one common bucket, through
-   ``greedy_fanout_grid_torch`` unsplit and split over ``SHARDED_SHARDS``
-   row shards all placed on ``cuda:0``: bitwise equal, and equal to (4)'s
-   greedy starts, with both times; (c) a ``Planner(devices=
+   ``greedy_fanout_grid_torch`` unsplit (one greedy_scan launch) and split
+   over ``SHARDED_SHARDS`` row shards all placed on ``cuda:0`` (a launch a
+   shard): bitwise equal, and equal to (4)'s greedy starts, with both
+   times; (c) a ``Planner(devices=
    torch.cuda.device_count())`` plan of the first ``SHARDED_PLAN``
    instances (a cut of four) against all four profiles and 17 variants,
    costs and starts bitwise equal to (4)'s;
@@ -784,7 +798,8 @@ def build_kernels():
 
     from repro_torch.kernels import _build
 
-    names = ("gain_scan", "carbon_cost", "flash_attention")
+    names = ("gain_scan", "greedy_scan", "commit_scan", "carbon_cost",
+             "flash_attention")
 
     def build(name):
         t0 = time.perf_counter()
@@ -872,7 +887,488 @@ def phase_kernels(dev):
     return rows
 
 
-DEFICIT_SWEEP = [(n, t) for n in (1, 7, 63, 300, 1000)
+# --- the planner's two device loops: greedy_scan and commit_scan ----------
+
+SCAN_KERNELS = ("greedy_scan", "commit_scan")
+SCAN_MU, SCAN_K = 10, 32         # the climb's mu and commit width
+SCAN_ROUNDS = 3                  # climb rounds compared at the bucket
+
+
+def scan_launches() -> dict:
+    """The two loop kernels' launch counts."""
+    from repro_torch.kernels import commit_scan, greedy_scan
+
+    return {"greedy_scan": greedy_scan.LAUNCHES,
+            "commit_scan": commit_scan.LAUNCHES}
+
+
+def reset_scan_launches() -> None:
+    from repro_torch.kernels import commit_scan, greedy_scan
+
+    greedy_scan.LAUNCHES = commit_scan.LAUNCHES = 0
+
+
+def check_scan_launches(launches: dict, where: str) -> None:
+    for name in SCAN_KERNELS:
+        check(launches[name] > 0, f"{where} did not launch the {name} "
+              f"kernel: {launches}")
+
+
+def greedy_bound_ms(I, R, Np, Tp) -> tuple[float, str]:
+    """Least time for one dense greedy scan of R rows over I instances:
+    bytes moved (each instance's lp read once: row v and column v over
+    every v make up lp once, and the contiguous transpose ``lp_t`` the
+    port reads columns from is its layout choice, not data the function
+    needs; the rows' rem, mask, est and lst read and written once, starts
+    written once, orders, durations and works read once) over the memory
+    rate, against R Np (Tp + 2 Np) int32 operations (an argmax candidate a
+    unit, a relaxation of est and of lst a task, each placement step) over
+    the f32 CUDA-core rate."""
+    nbytes = (4 * I * Np * Np + 2 * (4 * R * Tp + R * (Tp + 1))
+              + 2 * 2 * 4 * R * Np + 4 * R * Np + 4 * R * Np
+              + 2 * 4 * I * Np + 4 * R)
+    ops = R * Np * (Tp + 2 * Np)
+    hbm, f32, _ = h100_rates()
+    t_bytes, t_ops = nbytes / hbm, ops / f32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def commit_bound_ms(best_gain, live, order, Np, Tp, width,
+                    adj_bytes) -> tuple[float, str]:
+    """Least time for one round's commit scan on this round's data. A row
+    visits its positive proposals, at most K, live rows only; each reads
+    its gain and shift and the adjacency of its task (``adj_bytes`` a
+    distinct task), and does two operations an adjacency entry (``width``
+    a proposal) and a window unit (at most 2 (dur + mu); mu counted). The
+    rows' rem and start are read and written once; orders, live flags,
+    durations and works read once. Bytes over the memory rate against the
+    operations over the f32 CUDA-core rate."""
+    R, K = order.shape
+    npos = ((best_gain > 0) & live[:, None]).sum(dim=1).clamp(max=K)
+    visited = int(npos.sum())
+    tasks = {int(v) for r in range(R) for v in order[r, :int(npos[r])]}
+    nbytes = (2 * 4 * R * Tp + 2 * 4 * R * Np + 4 * R * K + 8 * visited
+              + adj_bytes * len(tasks) + R + 2 * 4 * Np)
+    ops = visited * 2 * (width + 2 * SCAN_MU)
+    hbm, f32, _ = h100_rates()
+    t_bytes, t_ops = nbytes / hbm, ops / f32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_diff(pairs) -> float:
+    """The largest |a - b| over pairs of integer or bool tensors (0.0 when
+    every pair is empty)."""
+    return max((float((a.long() - b.long()).abs().max())
+                for a, b in pairs if a.numel()), default=0.0)
+
+
+def own_bucket_row(plat, inst, profs, dev):
+    """``inst``'s own greedy bucket row against ``profs``, every combo the
+    17 variants need, as the plan builds it; with its prepared graph."""
+    from repro_torch.api import Planner
+    from repro_torch.core.greedy_torch import pad_dims
+    from repro_torch.core.portfolio import (PORTFOLIO_VARIANTS,
+                                            _needed_combos, bucket_row,
+                                            overlay_profile)
+
+    T = profs[0].T
+    g = Planner(plat, engine="torch", device=dev).prepared(inst, T)
+    _, Tp = pad_dims(inst.num_tasks, T)
+    need = _needed_combos(PORTFOLIO_VARIANTS)
+    return bucket_row(g, [overlay_profile(g, p) for p in profs], need, Tp,
+                      dev), g
+
+
+def greedy_edge_row(dev):
+    """A small instance's bucket row crafted with the scan's edges: a flat
+    budget (every feasible unit ties), a profile whose first placements
+    find no feasible unit (s = est), a task whose window is the padded
+    horizon's last unit (it ends past it), and padded tasks. Returns the
+    row, that task and its duration."""
+    import numpy as np
+
+    from repro_torch.cluster import make_cluster
+    from repro_torch.core import (build_instance, deadline_from_asap,
+                                  generate_profile, heft_mapping)
+    from repro_torch.core.estlst import compute_est, compute_lst
+    from repro_torch.core.greedy_torch import (pad_budget, pad_dims,
+                                               pad_masks, pad_orders,
+                                               padded_shared)
+    from repro_torch.core.scores import task_order
+    from repro_torch.core.subdivide import candidate_mask
+    from repro_torch.workflows import make_workflow
+
+    plat = make_cluster(1, seed=2)
+    wf = make_workflow("methylseq", 3, seed=2)
+    inst = build_instance(wf, heft_mapping(wf, plat), plat)
+    T = deadline_from_asap(inst, 1.5)
+    profs = [generate_profile(s, T, plat, J=12, seed=2)
+             for s in ("S1", "S4")]
+    est, lst = compute_est(inst), compute_lst(inst, T)
+    combos = [(s, w, r) for s in ("slack", "press") for w in (False, True)
+              for r in (False, True)]
+    orders = np.stack([task_order(inst, est, lst, s, w, plat)
+                       for (s, w, _) in combos])
+    masks = np.stack([np.stack([candidate_mask(inst, p, refined=r)
+                                for (_, _, r) in combos]) for p in profs])
+    budgets = np.stack([p.unit_budget(inst.idle_total) for p in profs])
+    budgets[0] = 7                                 # ties
+    masks[1, :4] = False                           # no feasible unit
+    sinks = np.flatnonzero(np.diff(inst.succ_ptr) == 0)
+    v0 = int(sinks[np.argmax(inst.dur[sinks])])
+    orders = np.stack([np.concatenate([o[o != v0], [v0]]) for o in orders])
+    Np, Tp = pad_dims(inst.num_tasks, T)
+    est, lst = est.copy(), lst.copy()
+    est[v0] = lst[v0] = Tp - 1                     # ends past Tp
+    dur, work, lp, est_t, lst_t, tail = padded_shared(inst, est, lst,
+                                                      device=dev)
+    return (dur, work, lp, pad_budget(budgets, Tp), pad_masks(masks, Tp),
+            est_t, lst_t, pad_orders(orders, tail)), v0, int(inst.dur[v0])
+
+
+GREEDY_STATE = ("rem", "mask", "est", "lst", "start")
+
+
+def same_greedy(rows, dev, what):
+    """The dense greedy scan of bucket ``rows`` through the kernel and the
+    plain version, a shard each, bitwise equal: the kernel's shard and the
+    largest difference."""
+    import torch
+
+    from repro_torch.core.greedy_torch import _DenseShard
+
+    shards = []
+    for mode in ("kernel", "plain"):
+        s = _DenseShard(rows, dev)
+        s.run(mode=mode)
+        shards.append(s)
+    torch.cuda.synchronize()
+    for a in GREEDY_STATE:
+        check(torch.equal(getattr(shards[0], a), getattr(shards[1], a)),
+              f"greedy_scan kernel != plain {what}: {a}")
+    return shards[0], max_diff((getattr(shards[0], a), getattr(shards[1], a))
+                               for a in GREEDY_STATE)
+
+
+def synthetic_greedy(R, Np, Tp, steps, seed, dev):
+    """Random int32 scan inputs in the blocked form's layout (``steps`` lp
+    rows and columns a row), windows partly inverted and tasks partly
+    past the horizon: ``(state, rest)`` for ``greedy_scan``."""
+    import torch
+
+    from repro_torch.core.greedy_torch import NEG_PATH
+
+    g = torch.Generator().manual_seed(seed)
+    ri = torch.randint
+    i32 = torch.int32
+    est = ri(0, Tp, (R, Np), generator=g, dtype=i32)
+    rows = ri(-5, 60, (R, steps, Np), generator=g, dtype=i32)
+    cols = ri(-5, 60, (R, steps, Np), generator=g, dtype=i32)
+    rows[rows < 0] = NEG_PATH
+    cols[cols < 0] = NEG_PATH
+    state = (ri(-50, 200, (R, Tp), generator=g, dtype=i32),
+             ri(0, 4, (R, Tp + 1), generator=g) == 0, est,
+             est + ri(-3, 40, (R, Np), generator=g, dtype=i32),
+             torch.zeros(R, Np, dtype=i32))
+    rest = (torch.stack([torch.randperm(Np, generator=g)
+                         for _ in range(R)]).to(i32),
+            ri(0, 30, (1, Np), generator=g, dtype=i32),
+            ri(0, 90, (1, Np), generator=g, dtype=i32),
+            torch.zeros(R, dtype=i32), rows, cols,
+            torch.arange(R, dtype=i32))
+    return [x.to(dev) for x in state], [x.to(dev) for x in rest]
+
+
+def same_scans(state, rest, t0, what):
+    """``greedy_scan`` on the blocked layout's inputs (``synthetic_greedy``)
+    from step ``t0``, through the kernel and the plain version from the
+    same state, bitwise equal: the largest difference."""
+    import torch
+
+    from repro_torch.kernels import greedy_scan
+
+    outs = []
+    for mode in ("kernel", "plain"):
+        s = [x.clone() for x in state]
+        greedy_scan.greedy_scan(*s, *rest[:6], lp_of=rest[6], t0=t0,
+                                mode=mode)
+        outs.append(s)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          f"greedy_scan kernel != plain, {what}")
+    return max_diff(zip(*outs))
+
+
+def commit_round(rem, start, dur, work, adj, t_real, k=SCAN_K):
+    """A climb round's inputs to the commit scan, as ``climb`` builds them:
+    ``(order[:, :k], best_delta, best_gain)``."""
+    import torch
+
+    from repro_torch.kernels.gain_scan import gain_sweep
+
+    lo, succ_hi = adj.bounds(start, dur, t_real)
+    hi = succ_hi - dur
+    g = gain_sweep(rem.float(), start, dur, work.float(),
+                   (lo - start).float(), (hi - start).float(), mu=SCAN_MU)
+    best_gain, best_idx = g.max(dim=2)
+    order = torch.argsort(-best_gain, dim=1, stable=True)
+    return order[:, :k], best_idx.to(torch.int32) - SCAN_MU, best_gain
+
+
+def same_commits(state, rnd, live, dur, work, t_real, adj, what):
+    """The commit scan's kernel and plain version from the same ``state``
+    (rem, start), bitwise equal: the kernel's (rem, start, any) and the
+    largest difference."""
+    import torch
+
+    from repro_torch.kernels import commit_scan
+
+    runs = []
+    for mode in ("kernel", "plain"):
+        rem, start = (x.clone() for x in state)
+        any_c = commit_scan.commit_scan(rem, start, *rnd, live, dur, work,
+                                        t_real, adj, mode=mode)
+        runs.append((rem, start, any_c))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        check(torch.equal(a, b), f"commit_scan kernel != plain: {what}")
+    return (*runs[0], max_diff(zip(*runs)))
+
+
+def climb_rows(inst, T, budgets, starts, R, Tp, Np, dev):
+    """The climb's padded (rem, start) int32 of ``starts`` [R, N]."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.carbon import work_timeline
+
+    rem = np.zeros((R, Tp), np.int32)
+    rem[:, :T] = budgets - np.stack([work_timeline(inst, T, s)
+                                     for s in starts])
+    st = np.zeros((R, Np), np.int32)
+    st[:, :inst.num_tasks] = starts
+    return torch.from_numpy(rem).to(dev), torch.from_numpy(st).to(dev)
+
+
+def moved_starts(inst, T, starts, rows=4, moves=200, seed=5):
+    """``starts`` with ``moves`` tasks of each of the first ``rows`` rows
+    shifted by up to 6 units (inside [0, T - dur]): their neighbours'
+    windows invert."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    moved = starts.copy()
+    for r in range(rows):
+        pick = rng.choice(inst.num_tasks, moves, replace=False)
+        moved[r, pick] = np.clip(
+            moved[r, pick] + rng.integers(-6, 7, moves), 0,
+            T - inst.dur[pick])
+    return moved
+
+
+def synthetic_commit(R, Np, Tp, D, dev):
+    """Random padded-CSR adjacency and proposals, row 1 dead:
+    ``(state, rnd, live, dur, work, t_real, adj)`` for ``same_commits``."""
+    import torch
+
+    from repro_torch.kernels.commit_scan import PaddedAdjacency
+
+    g = torch.Generator().manual_seed(Np + Tp)
+    ri = torch.randint
+    i32 = torch.int32
+    state = (ri(-60, 60, (R, Tp), generator=g, dtype=i32),
+             ri(0, Tp - 40, (R, Np), generator=g, dtype=i32))
+    dur = ri(0, 30, (Np,), generator=g, dtype=i32)
+    work = ri(0, 50, (Np,), generator=g, dtype=i32)
+    tables = (ri(0, Np, (Np, D), generator=g, dtype=i32),
+              ri(0, 12, (Np, D), generator=g) == 0,
+              ri(0, Np, (Np, D), generator=g, dtype=i32),
+              ri(0, 12, (Np, D), generator=g) == 0)
+    delta = ri(-10, 11, (R, Np), generator=g, dtype=i32)
+    gain = ri(-5, 40, (R, Np), generator=g).float()
+    order = torch.argsort(-gain, dim=1, stable=True)[:, :64]
+    live = torch.ones(R, dtype=torch.bool)
+    live[1] = False
+    return ([x.to(dev) for x in state],
+            [x.to(dev) for x in (order, delta, gain)], live.to(dev),
+            dur.to(dev), work.to(dev), Tp - 10,
+            PaddedAdjacency(*(x.to(dev) for x in tables)))
+
+
+def phase_scan_kernels(dev, plat, insts, grid):
+    """[kernels] greedy_scan and commit_scan against their plain versions
+    on the card, bitwise: at the plan's largest bucket (atacseq, Np=4352,
+    Tp=1024, R = 4 profiles x 8 combos = 32 rows; the commit scan over
+    ``SCAN_ROUNDS`` climb rounds from the greedy's starts, dense and
+    padded adjacency) and on the edge cases; each kernel's profiler time,
+    CUDA-event time, plain time and bound. Runs after [plan], so that the
+    plan's cold times hold no warm-up of these kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.greedy_torch import _DenseShard
+    from repro_torch.core.local_search_torch import _device_adjacency
+    from repro_torch.kernels import commit_scan, greedy_scan
+
+    t_phase = time.perf_counter()
+    i = KINDS.index("atacseq")
+    inst, profs = insts[i], grid[i]
+    T = profs[0].T
+    row, g = own_bucket_row(plat, inst, profs, dev)
+    shard = _DenseShard([row], dev)
+    I, P, V, Np = shard.shape
+    R, Tp = shard.rem.shape
+    check((R, Np, Tp) == (32, 4352, 1024), f"the bucket is R={R} Np={Np} "
+          f"Tp={Tp}, not R=32 Np=4352 Tp=1024")
+    init = [getattr(shard, a).clone() for a in GREEDY_STATE]
+
+    def run(mode):
+        for a, x in zip(GREEDY_STATE, init):
+            getattr(shard, a).copy_(x)
+        shard.run(mode=mode)
+
+    before = greedy_scan.LAUNCHES
+    run("kernel")
+    torch.cuda.synchronize()
+    got = [getattr(shard, a).clone() for a in GREEDY_STATE]
+    check(greedy_scan.LAUNCHES == before + 1, "the bucket's scan was not "
+          "one launch")
+    plain_ms = cuda_ms(functools.partial(run, "plain"), reps=1, warm=0)
+    for a, x in zip(GREEDY_STATE, got):
+        check(torch.equal(getattr(shard, a), x),
+              f"greedy_scan kernel != plain at the bucket: {a}")
+    greedy_err = max_diff((getattr(shard, a), x)
+                          for a, x in zip(GREEDY_STATE, got))
+    kernel = functools.partial(run, "kernel")
+    event_ms = cuda_ms(kernel, reps=10, warm=1)
+    device_ms = profiled_ms(kernel, 10, "greedy_scan_kernel", PROFILE_OUT)
+    bound, by = greedy_bound_ms(I, R, Np, Tp)
+    ms, ms_from = ((device_ms, "profiler") if device_ms is not None
+                   else (event_ms, "events"))
+    log(f"[kernels] greedy_scan R={R} Np={Np} Tp={Tp}: bitwise equal "
+        f"(start, rem, mask, est, lst); kernel {ms:.4f} ms ({ms_from}; "
+        f"eager events {event_ms:.4f}, state reset included), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+        f"{100 * bound / ms:.2f}% of bound; {Np} serial steps a row, {R} "
+        f"CTAs on 132 SMs")
+
+    # edge cases: the crafted small instance (dense form), then random
+    # inputs in the blocked form's layout with the row's state in shared
+    # memory, est/lst in device memory, and all of it in device memory
+    edge, v0, d0 = greedy_edge_row(dev)
+    kern, err = same_greedy([edge, edge], dev, "on the edge case")
+    greedy_err = max(greedy_err, err)
+    check(bool((kern.starts()[..., v0] + d0 > kern.rem.shape[1]).all()),
+          "the edge case's task does not end past Tp")
+    for R2, N2, T2 in ((3, 256, 1024), (2, 30720, 1024), (2, 512, 60000)):
+        state, rest = synthetic_greedy(R2, N2, T2, 24, N2 + T2, dev)
+        for t0 in (0, N2 - 24):
+            greedy_err = max(greedy_err, same_scans(
+                state, rest, t0, f"blocked layout R={R2} Np={N2} Tp={T2} "
+                                 f"t0={t0}"))
+    greedy_row = {"max_abs_err": greedy_err, "ms": ms, "ms_from": ms_from,
+                  "profiler_ms": device_ms, "event_ms": event_ms,
+                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                  "serial_steps": Np, "ctas": R,
+                  "shape": f"R={R} Np={Np} Tp={Tp} (dense, {I} instance)"}
+    log("[kernels] greedy_scan edge cases (flat budget, no feasible unit, a "
+        "task past Tp, padded tasks; the blocked layout with the state in "
+        "shared memory, est/lst in device memory, all in device memory): "
+        f"bitwise equal; max |kernel - plain| over every case {greedy_err}")
+
+    # the commit scan: SCAN_ROUNDS climb rounds from the bucket's greedy
+    # starts, timed on the first round's inputs (dense adjacency)
+    N = inst.num_tasks
+    starts = got[4][:, :N].cpu().numpy().astype(np.int64)
+    budgets = np.repeat(np.asarray(row[3])[:, :T], V, axis=0) \
+        .astype(np.int64)
+    state0 = climb_rows(inst, T, budgets, starts, R, Tp, Np, dev)
+    dur, work = shard.dur[0], shard.work[0]
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    adj = _device_adjacency(inst, g.ls_graph, Np, False, dev)
+    rnd = commit_round(*state0, dur, work, adj, T)
+    rem1, st1 = (x.clone() for x in state0)
+
+    def commits(mode):
+        rem1.copy_(state0[0])
+        st1.copy_(state0[1])
+        commit_scan.commit_scan(rem1, st1, *rnd, live, dur, work, T, adj,
+                                mode=mode)
+
+    before = commit_scan.LAUNCHES
+    plain_c = cuda_ms(functools.partial(commits, "plain"), reps=3, warm=1)
+    kernel = functools.partial(commits, "kernel")
+    event_c = cuda_ms(kernel, reps=50)
+    dev_c = profiled_ms(kernel, 50, "commit_scan_kernel", PROFILE_OUT)
+    check(commit_scan.LAUNCHES > before, "commit_scan did not launch")
+    bound_c, by_c = commit_bound_ms(rnd[2], live, rnd[0], Np, Tp, Np,
+                                    2 * Np)
+    ms_c, from_c = ((dev_c, "profiler") if dev_c is not None
+                    else (event_c, "events"))
+    npos = (rnd[2] > 0).sum(dim=1).clamp(max=SCAN_K)
+    commit_err = 0.0
+    for padded in (False, True):
+        adj = _device_adjacency(inst, g.ls_graph, Np, padded, dev)
+        state, n_commit = state0, 0
+        for k in range(SCAN_ROUNDS):
+            rnd = commit_round(*state, dur, work, adj, T)
+            rem_n, st_n, any_c, err = same_commits(
+                state, rnd, live, dur, work, T, adj,
+                f"round {k}, padded={padded}")
+            commit_err = max(commit_err, err)
+            n_commit += int(any_c.sum())
+            state = (rem_n, st_n)
+        check(n_commit > 0, "the bucket's climb rounds committed nothing")
+    log(f"[kernels] commit_scan R={R} Np={Np} Tp={Tp} K={SCAN_K}, "
+        f"{SCAN_ROUNDS} climb rounds, dense and padded adjacency: bitwise "
+        f"equal (rem, start, any); kernel {ms_c:.4f} ms ({from_c}; eager "
+        f"events {event_c:.4f}, state reset included), plain "
+        f"{plain_c:.3f} ms, bound {bound_c:.6f} ms ({by_c}); "
+        f"{int(npos.sum())} proposals visited, at most {int(npos.max())} "
+        f"serial commits a row")
+
+    # edge cases at the bucket: rows moved off their greedy places
+    # (inverted windows), a dead row, a commit width below the rows'
+    # positive proposals; then random padded-CSR inputs with the state in
+    # shared and in device memory
+    state = climb_rows(inst, T, budgets, moved_starts(inst, T, starts), R,
+                       Tp, Np, dev)
+    half = live.clone()
+    half[5] = False
+    for padded in (False, True):
+        adj = _device_adjacency(inst, g.ls_graph, Np, padded, dev)
+        lo, succ_hi = adj.bounds(state[1], dur, T)
+        check(bool((lo > succ_hi - dur).any()), "no inverted window")
+        for k in (3, SCAN_K):
+            rnd = commit_round(*state, dur, work, adj, T, k=k)
+            _, _, any_c, err = same_commits(state, rnd, half, dur, work, T,
+                                            adj, f"edge, padded={padded}, "
+                                                 f"K={k}")
+            commit_err = max(commit_err, err)
+            check(not bool(any_c[5]), "a dead row committed")
+    for R2, N2, T2, D2 in ((4, 60000, 512, 8), (6, 300, 2048, 16)):
+        *_, err = same_commits(*synthetic_commit(R2, N2, T2, D2, dev),
+                               f"random padded-CSR R={R2} Np={N2} Tp={T2} "
+                               f"D={D2}")
+        commit_err = max(commit_err, err)
+    commit_row = {"max_abs_err": commit_err, "ms": ms_c, "ms_from": from_c,
+                  "profiler_ms": dev_c, "event_ms": event_c,
+                  "plain_ms": plain_c, "bound_ms": bound_c,
+                  "bound_by": by_c, "visited": int(npos.sum()),
+                  "serial_steps": int(npos.max()), "ctas": R,
+                  "shape": f"R={R} Np={Np} Tp={Tp} K={SCAN_K} (dense "
+                           f"adjacency, the first climb round)"}
+    log(f"[kernels] commit_scan edge cases (inverted windows, a dead row, "
+        f"K=3 below the rows' positives, dense and padded adjacency; random "
+        f"padded-CSR inputs with the state in shared and in device "
+        f"memory): bitwise equal; max |kernel - plain| over every case "
+        f"{commit_err}; the phase {time.perf_counter() - t_phase:.3f} s")
+    return {"greedy_scan": greedy_row, "commit_scan": commit_row}
+
+
+DEFICIT_SWEEP =[(n, t) for n in (1, 7, 63, 300, 1000)
                  for t in (16, 700, 2048)]   # tests/test_kernels.py's sweep
 DEFICIT_PLAN = (4304, 776)       # the plan's largest instance and horizon
 DEFICIT_LARGE = (30000, 4096)    # the paper's largest workflows
@@ -1071,8 +1567,9 @@ def work_capacity(inst):
                              asap_schedule(inst)).mean())
 
 
-def build_matrix():
-    """The paper's section 6.1 matrix at 2000 workflow tasks."""
+def build_matrix(kinds=KINDS):
+    """The paper's section 6.1 matrix at 2000 workflow tasks (its
+    ``kinds`` rows)."""
     from repro_torch.cluster import make_cluster
     from repro_torch.core import (build_instance, deadline_from_asap,
                                   generate_profile, heft_mapping)
@@ -1080,7 +1577,7 @@ def build_matrix():
 
     plat = make_cluster(NODES_PER_TYPE, seed=SEED)
     insts, grid = [], []
-    for kind in KINDS:
+    for kind in kinds:
         wf = wfgen_scale(kind, WF_TASKS, seed=SEED)
         inst = build_instance(wf, heft_mapping(wf, plat), plat)
         peak = work_capacity(inst)
@@ -1124,12 +1621,15 @@ def phase_plan(plat, insts, grid):
     tracer = obs.Tracer()
     prev = obs.set_tracer(tracer)
     gain_scan.LAUNCHES = 0
+    reset_scan_launches()
     try:
         cold, cold_s = timed_plan(planner, request)
     finally:
         obs.set_tracer(prev)
     launches = gain_scan.LAUNCHES
     check(launches > 0, "the plan did not launch the gain_scan kernel")
+    scans = scan_launches()
+    check_scan_launches(scans, "the plan")
     split = span_split(tracer.finished(), (
         "plan", "prepare_graph", "bucket_launch", "ls_climb",
         "ls_device_climb", "ls_polish"))
@@ -1139,7 +1639,8 @@ def phase_plan(plat, insts, grid):
     check((I, P, V) == (len(insts), len(SCENARIOS), 17),
           f"cost tensor shape {cold.costs.shape}")
     log(f"[plan] I x P x V = {I} x {P} x {V}, engine={cold.engine}; cold "
-        f"{cold_s:.3f} s; gain_scan launches {launches}")
+        f"{cold_s:.3f} s; launches gain_scan {launches}, greedy_scan "
+        f"{scans['greedy_scan']}, commit_scan {scans['commit_scan']}")
     phases = ", ".join(f"{k} {v:.3f}" for k, v in
                        cold.phase_seconds.items())
     log(f"[plan] cold split (s): {phases}")
@@ -1186,7 +1687,7 @@ def phase_plan(plat, insts, grid):
             f"{cold.costs[i, :, asap].tolist()}, saving "
             f"{np.round(saving, 4).tolist()}); nominal best {nominal}; "
             f"robust {rv} (worst {rworst})")
-    return cold, launches, cold_s
+    return cold, {"gain_scan": launches, **scans}, cold_s
 
 
 def cpu_replan(i, threads):
@@ -1350,11 +1851,16 @@ def phase_sharded(plat, insts, grid, card, dev):
     rows_s = time.perf_counter() - t0
     split = ctx.make_mesh((SHARDED_SHARDS,), ("data",),
                           [dev] * SHARDED_SHARDS)
+    reset_scan_launches()
     whole, whole_s = timed(lambda: greedy_fanout_grid_torch(rows,
                                                             device=dev))
+    whole_n = scan_launches()["greedy_scan"]
     parts, parts_s = timed(lambda: greedy_fanout_grid_torch(rows,
                                                             mesh=split))
+    parts_n = scan_launches()["greedy_scan"] - whole_n
     check(torch.equal(whole, parts), "split greedy starts != unsplit")
+    check((whole_n, parts_n) == (1, SHARDED_SHARDS), f"greedy_scan "
+          f"launches unsplit {whole_n}, split {parts_n}: not one a shard")
     whole = whole.cpu().numpy()
     n_cmp = 0
     for i, inst in enumerate(insts):
@@ -1372,17 +1878,21 @@ def phase_sharded(plat, insts, grid, card, dev):
     I, P, V, Np = whole.shape
     log(f"[sharded] (b) {I} x {P} x {V} greedy rows in one ({Np}, "
         f"{rows[0][3].shape[1]}) bucket (rows built in {rows_s:.3f} s): "
-        f"unsplit {whole_s:.3f} s, {SHARDED_SHARDS} shards on {dev} "
-        f"{parts_s:.3f} s; bitwise equal, and {n_cmp} greedy schedules "
-        f"equal [plan]'s")
+        f"unsplit {whole_s:.3f} s ({whole_n} greedy_scan launch), "
+        f"{SHARDED_SHARDS} shards on {dev} {parts_s:.3f} s ({parts_n} "
+        f"launches); bitwise equal, and {n_cmp} greedy schedules equal "
+        f"[plan]'s")
 
     planner = Planner(plat, engine="torch", devices=k)
     request = PlanRequest(instances=insts[:SHARDED_PLAN],
                           profiles=grid[:SHARDED_PLAN])
     gain_scan.LAUNCHES = 0
+    reset_scan_launches()
     res, plan_s = timed_plan(planner, request)
     launches = gain_scan.LAUNCHES
     check(launches > 0, "the devices= plan did not launch gain_scan")
+    scans = scan_launches()
+    check_scan_launches(scans, "[sharded] (c)")
     check(np.array_equal(res.costs, card.costs[:SHARDED_PLAN]),
           "devices= plan costs != [plan]'s")
     for i in range(SHARDED_PLAN):
@@ -1395,11 +1905,13 @@ def phase_sharded(plat, insts, grid, card, dev):
     secs = time.perf_counter() - t_phase
     log(f"[sharded] (c) Planner(devices={k}) plan of {SHARDED_PLAN} x "
         f"{len(grid[0])} x {len(res.variants)}: {plan_s:.3f} s, costs and "
-        f"starts equal [plan]'s bitwise; gain_scan launches {launches}; "
-        f"greedy {res.phase_seconds.get('greedy', 0.0):.3f} s")
+        f"starts equal [plan]'s bitwise; launches gain_scan {launches}, "
+        f"{scans}; greedy {res.phase_seconds.get('greedy', 0.0):.3f} s")
     log(f"[sharded] phase {secs:.3f} s")
-    return {"gain_scan": launches, "unsplit_s": whole_s, "split_s": parts_s,
-            "plan_s": plan_s, "seconds": secs}
+    return {"gain_scan": launches, "greedy_scan": scans["greedy_scan"]
+            + whole_n + parts_n, "commit_scan": scans["commit_scan"],
+            "unsplit_s": whole_s, "split_s": parts_s, "plan_s": plan_s,
+            "seconds": secs}
 
 
 def check_costs_through_kernel(res, insts, grid,
@@ -1524,6 +2036,7 @@ def phase_exact():
     planner = Planner(plat, engine="torch")
     opts = {"time_limit": 60}
     gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    reset_scan_launches()
     t0 = time.perf_counter()
     ex = planner.plan(PlanRequest(instances=insts, profiles=grid,
                                   solver="exact", solver_options=opts))
@@ -1554,9 +2067,10 @@ def phase_exact():
                         (ilp, [chain], [[chain_prof]])):
         n_costed += check_costs_through_kernel(res, ins, g, "exact")[0]
     launches = {"gain_scan": gain_scan.LAUNCHES,
-                "carbon_cost": carbon_cost.LAUNCHES}
+                "carbon_cost": carbon_cost.LAUNCHES, **scan_launches()}
     check(launches["gain_scan"] > 0, "the exact phase's heuristic plan did "
           "not launch the gain_scan kernel")
+    check_scan_launches(launches, "the exact phase's heuristic plan")
     check(launches["carbon_cost"] == n_costed, f"carbon_cost launches "
           f"{launches['carbon_cost']} != {n_costed} exact schedules")
     proven = int((lower == ex.costs[:, :, 0]).sum())
@@ -1596,6 +2110,7 @@ def phase_session(plat, inst):
                 f"window_profile slice {k} != the forecast's unit budget")
     planner = Planner(plat, engine="torch")
     gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    reset_scan_launches()
     results, n_costed = [], 0
     t0 = time.perf_counter()
     with planner.session(inst, windows, n_windows=n) as sess:
@@ -1615,7 +2130,7 @@ def phase_session(plat, inst):
                 f"{t_wait:.3f} s; robust {res.robust(0)}")
     secs = time.perf_counter() - t0
     launches = {"gain_scan": gain_scan.LAUNCHES,
-                "carbon_cost": carbon_cost.LAUNCHES}
+                "carbon_cost": carbon_cost.LAUNCHES, **scan_launches()}
     check(launches["carbon_cost"] == n_costed, f"carbon_cost launches "
           f"{launches['carbon_cost']} != {n_costed} session schedules")
 
@@ -1624,6 +2139,7 @@ def phase_session(plat, inst):
     # on their own, and the session's must equal them
     eager = Planner(plat, engine="torch")
     gain_scan.LAUNCHES = 0
+    reset_scan_launches()
     eager_s = []
     for k, res in enumerate(results):
         ref, t_eager = timed_plan(eager, PlanRequest(
@@ -1636,17 +2152,20 @@ def phase_session(plat, inst):
                 check(np.array_equal(res.results[0][p][name].start,
                                      ref.results[0][p][name].start),
                       f"session window {k} starts != eager: {name}, {p}")
-    eager_launches = gain_scan.LAUNCHES
-    check(eager_launches > 0, "the eager plans did not launch the "
-          "gain_scan kernel")
-    check(launches["gain_scan"] == eager_launches, f"the session launched "
-          f"the gain_scan kernel {launches['gain_scan']} times, eager plans "
-          f"of the same windows {eager_launches} times")
+    eager_launches = {"gain_scan": gain_scan.LAUNCHES, **scan_launches()}
+    check(eager_launches["gain_scan"] > 0, "the eager plans did not launch "
+          "the gain_scan kernel")
+    check_scan_launches(eager_launches, "the eager plans")
+    for name, count in eager_launches.items():
+        check(launches[name] == count, f"the session launched the {name} "
+              f"kernel {launches[name]} times, eager plans of the same "
+              f"windows {count} times")
     log(f"[session] eager N_c={inst.num_tasks}, {n} windows of {W} units x "
         f"{len(SCENARIOS)} forecasts: session {secs:.3f} s in all; eager "
         f"plans {', '.join(f'{t:.3f}' for t in eager_s)} s, bitwise equal; "
         f"{n_costed} schedules cost the same through the kernel; launches "
-        f"{launches} (gain_scan == the eager plans')")
+        f"{launches} (gain_scan, greedy_scan and commit_scan == the eager "
+        f"plans')")
     return launches
 
 
@@ -1804,6 +2323,7 @@ def phase_mapping(plat, n=MAPPING_TASKS):
         tracer = round_profiler(0)
         prev = obs.set_tracer(tracer)
         gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+        reset_scan_launches()
         try:
             res, secs = timed_plan(planner, request)
         finally:
@@ -1817,6 +2337,8 @@ def phase_mapping(plat, n=MAPPING_TASKS):
     gain_launches = gain_scan.LAUNCHES
     check(gain_launches > 0, "the mapping search did not launch the "
           "gain_scan kernel")
+    scans = scan_launches()
+    check_scan_launches(scans, "the mapping search")
     info = res.mapping_info[0]
     spans = tracer.finished()
     split = span_split(spans, ("mapping_search", "mapping_round",
@@ -1887,9 +2409,10 @@ def phase_mapping(plat, n=MAPPING_TASKS):
         f"fixed re-plan of the winner equal bitwise, heft's score == the "
         f"heft seed's; {n_costed} winner schedules cost the same through "
         f"the kernel; launches gain_scan {gain_launches}, carbon_cost "
-        f"{cost_launches}; the phase {time.perf_counter() - t_phase:.3f} s "
-        f"in all")
+        f"{cost_launches}, {scans}; the phase "
+        f"{time.perf_counter() - t_phase:.3f} s in all")
     return {"gain_scan": gain_launches, "carbon_cost": cost_launches,
+            **scans,
             "seconds": secs, "rounds": info.rounds,
             "candidates": info.candidates, "buckets": len(buckets),
             "seed_round_ms": round_ms, "seed_round_busy_ms": busy_ms,
@@ -2252,20 +2775,21 @@ def phase_service(plat, insts, grid, cold, cold_s):
 
     t_phase = time.perf_counter()
     gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    reset_scan_launches()
     replay = service_replay(plat, insts, grid, cold, cold_s)
     eager = KINDS.index("eager")
     cancels = service_cancel(plat, insts[eager], grid[eager])
     service_drills()
     service_gate()
     launches = {"gain_scan": gain_scan.LAUNCHES,
-                "carbon_cost": carbon_cost.LAUNCHES}
+                "carbon_cost": carbon_cost.LAUNCHES, **scan_launches()}
     check(launches["gain_scan"] > 0, "[service] the service did not launch "
           "the gain_scan kernel")
+    check_scan_launches(launches, "[service] the service")
     check(launches["carbon_cost"] > 0, "[service] the deficit kernel did "
           "not cost the service's schedules")
     secs = time.perf_counter() - t_phase
-    log(f"[service] launches gain_scan {launches['gain_scan']}, carbon_cost "
-        f"{launches['carbon_cost']}; the phase {secs:.3f} s in all")
+    log(f"[service] launches {launches}; the phase {secs:.3f} s in all")
     return {**launches, "seconds": secs, "replay": replay,
             "cancel": cancels}
 
@@ -4370,7 +4894,7 @@ def example_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     return {"gain_scan": gain_scan.LAUNCHES,
-            "carbon_cost": carbon_cost.LAUNCHES,
+            "carbon_cost": carbon_cost.LAUNCHES, **scan_launches(),
             **{f"{name}_{dt}": n for dt, c in fa.COUNTS.items()
                for name, n in c.items()}}
 
@@ -4381,6 +4905,7 @@ def reset_example_launches() -> None:
     from repro_torch.kernels import flash_attention as fa
 
     gain_scan.LAUNCHES = carbon_cost.LAUNCHES = 0
+    reset_scan_launches()
     fa.reset_launches()
 
 
@@ -4451,8 +4976,10 @@ def phase_examples() -> dict:
     check(f["joint"] == FLEET_JOINT, f"[examples] (b) joint {f['joint']}")
     check(f["windows"] == FLEET_WINDOWS,
           f"[examples] (b) windows {f['windows']}")
-    check(runs["fleet_scheduler"]["launches"].get("gain_scan", 0) > 0,
-          "[examples] (b) the fleet never launched the gain kernel")
+    check(all(runs["fleet_scheduler"]["launches"].get(k, 0) > 0
+              for k in ("gain_scan",) + SCAN_KERNELS),
+          f"[examples] (b) the fleet did not launch every scheduler loop "
+          f"kernel: {runs['fleet_scheduler']['launches']}")
 
     # (c) serve at its defaults
     s = drive("serve_batched", serve_batched, ["--trace-out", EXAMPLES_TRACE])
@@ -4537,7 +5064,9 @@ def main() -> int:
     cpu_run = wait_cpu(cpu_job)
     gain_rows = phase_kernels(dev)
     deficit_rows = phase_deficit(dev)
-    card, launches, cold_s = phase_plan(plat, insts, grid)
+    card, plan_launches, cold_s = phase_plan(plat, insts, grid)
+    scan_rows = phase_scan_kernels(dev, plat, insts, grid)
+    launches = plan_launches["gain_scan"]
     cost_launches, oracle_ms = phase_cost_oracle(insts, grid, card, dev)
     phase_cpu(cpu_run, grid, card, eager)
     phase_blocked(plat, insts, grid, card, eager)
@@ -4591,7 +5120,7 @@ def main() -> int:
                "mesh_families": train_families_run["mesh"]["launches"]}
     # the examples' launches of the other kernels, where they ran
     ran = {k: examples(k) for k in ("gain_scan", "carbon_cost",
-                                    "flash_fwd_bfloat16")}
+                                    "flash_fwd_bfloat16") + SCAN_KERNELS}
     ran_bwd = sum(examples(f"{k}_bfloat16") for k in bwd_kernels)
     by_examples = {k: {"examples": n} if n else {} for k, n in ran.items()}
     check(all(n > 0 for n in f32_fwd.values()),
@@ -4608,6 +5137,20 @@ def main() -> int:
                    "torch.nn.functional.scaled_dot_product_attention")
 
     main_mu = gain_rows[0]
+    # the XLA loops the two scan kernels replace (no Pallas kernel: the
+    # reference compiles them into its device programs)
+    scan_replaces = {
+        "greedy_scan": "src/repro/core/greedy_jax.py:266 (_placement_step "
+                       "under lax.scan, :320 and :423)",
+        "commit_scan": "src/repro/core/local_search_jax.py:192 (commit_step "
+                       "under lax.scan, :232, in lax.while_loop, :239)"}
+    paths = {name: {"plan": plan_launches[name],
+                    "exact": exact_launches[name],
+                    "session": session_launches[name],
+                    "mapping": mapping_run[name],
+                    "service": service_run[name],
+                    "sharded": sharded_run[name],
+                    **by_examples[name]} for name in SCAN_KERNELS}
     plan_row, large_row = deficit_rows
     kernels = {"kernels": [{
         "name": "gain_scan",
@@ -4634,7 +5177,20 @@ def main() -> int:
         "bitwise_vs_plain": True,
         "shape": "R=32 Np=4352 Tp=1024 mu=10",
         "mu42": gain_rows[1],
-    }, {
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": sum(paths[name].values()),
+        "launches_by_path": paths[name],
+        **{k: scan_rows[name][k] for k in (
+            "max_abs_err", "ms", "ms_from", "profiler_ms", "event_ms",
+            "plain_ms", "bound_ms", "bound_by", "serial_steps", "ctas",
+            "shape")},
+        "library_ms": None,
+        "bitwise_vs_plain": True,
+    } for name, replaces in scan_replaces.items()), {
         "name": "carbon_cost",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/carbon_cost.cu",

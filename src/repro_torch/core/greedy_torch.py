@@ -12,11 +12,13 @@ vectorized ops per placement::
     lst = min(lst, s - lp[:, v])      # ancestors of v move left
 
 Where the reference scans the placement order with ``lax.scan`` under
-three ``vmap`` levels (variants, profiles, instances), the port runs one
-Python iteration per placement step over a row axis written out: every
-(instance, profile, variant) row of a shape bucket advances together, with
-``lp`` and its transpose resident on the device so the step's ``lp`` row
-and column are two row gathers.
+three ``vmap`` levels (variants, profiles, instances), the port writes the
+row axis out and runs the whole scan of every (instance, profile, variant)
+row of a shape bucket in one call of
+:func:`repro_torch.kernels.greedy_scan.greedy_scan`: one launch of the
+CUDA kernel on the card (one CTA a row, the steps inside the block), one
+batched torch step per placement step on the CPU, with ``lp`` and its
+transpose resident on the device.
 
 All inputs are padded to the reference's shape buckets (:func:`pad_dims` —
 N to multiples of 128, T to multiples of 256); padding is output-invariant
@@ -41,6 +43,7 @@ from repro_torch.core.estlst import compute_est, compute_lst
 from repro_torch.core.scores import task_order
 from repro_torch.core.subdivide import candidate_mask
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.greedy_scan import greedy_scan
 
 NEG_PATH = -(1 << 30)                  # "no path" marker in lp (int32-safe)
 
@@ -51,8 +54,6 @@ T_BUCKET = 256                         # time-axis shape bucket
 # at N=4000); bigger instances stream through the blocked form (BlockedLP)
 # or use engine="numpy" (no matrix at all).
 LP_MAX_BYTES = 128 * 2**20
-
-_BIG = np.iinfo(np.int32).max // 4     # "infeasible" budget marker
 
 # (Npad, Tp) shape buckets the fan-out has run in this process: the
 # counterpart of the reference's compiled jit signatures (a new bucket is
@@ -293,59 +294,15 @@ def padded_shared(inst: Instance, est0, lst0, lp=None, device=None,
             np.arange(N, Np, dtype=np.int32))
 
 
-class _Rows:
-    """The greedy state of R rows advancing together, one placement step
-    at a time: budget ``rem`` int32 [R, Tp], candidate ``mask`` bool
-    [R, Tp+1], ``est``/``lst``/``start`` int32 [R, Np]. The port of
-    ``greedy_jax._placement_step`` with the batch axis written out; one
-    step body serves the dense and the blocked form, so the two cannot
-    drift."""
-
-    def __init__(self, rem, mask, est, lst):
-        R, Tp = rem.shape
-        dev = rem.device
-        self.rem, self.mask, self.est, self.lst = rem, mask, est, lst
-        self.start = torch.zeros_like(est)
-        self.tgrid = torch.arange(Tp, dtype=torch.int32, device=dev)
-        self.ar = torch.arange(R, device=dev)
-        self.neg = torch.tensor(-_BIG, dtype=torch.int32, device=dev)
-
-    def step(self, v, row, col, dur_v, work_v):
-        """Place task ``v[r]`` of every row r (v int64 [R]); ``row``/
-        ``col`` int32 [R, Np] are its lp row and column, ``dur_v``/
-        ``work_v`` int32 [R] its duration and work power."""
-        rem, mask, ar, tgrid = self.rem, self.mask, self.ar, self.tgrid
-        Tp = rem.shape[1]
-        est_v = self.est[ar, v]
-        lst_v = self.lst[ar, v]
-        feas = mask[:, :-1] & (tgrid >= est_v[:, None]) \
-            & (tgrid <= lst_v[:, None])
-        val = torch.where(feas, rem, self.neg)
-        # argmax takes the FIRST max, as jnp.argmax does: earliest tie
-        s = torch.where(feas.any(dim=1),
-                        val.argmax(dim=1).to(torch.int32), est_v)
-        e = s + dur_v
-        run = (tgrid >= s[:, None]) & (tgrid < e[:, None])
-        rem.sub_(torch.where(run, work_v[:, None], 0).to(rem.dtype))
-        # mask.at[s].set(True), dropping an out-of-range s as jnp does
-        si = s.clamp(0, Tp).to(torch.int64)
-        mask[ar, si] = mask[ar, si] | (s <= Tp)
-        # numpy endpoint rule: e splits an interval only when e <= T (the
-        # PADDED horizon, as in the reference); an overrunning task must
-        # not spuriously mark T a candidate point
-        ei = e.clamp(max=Tp).to(torch.int64)
-        mask[ar, ei] = mask[ar, ei] | (e <= Tp)
-        torch.maximum(self.est, s[:, None] + row, out=self.est)
-        torch.minimum(self.lst, s[:, None] - col, out=self.lst)
-        self.start[ar, v] = s
-
-
 class _DenseShard:
     """The dense-lp rows of some instances of one bucket on one device.
 
     ``rows``: per-instance tuples ``(dur, work, lp, budgets [P, Tp],
-    masks [P, V, Tp+1], est, lst, orders [V, Np])``; :meth:`step` places
-    the ``t``-th task of every row's order.
+    masks [P, V, Tp+1], est, lst, orders [V, Np])``; :meth:`run` places
+    every row's whole order in one :func:`greedy_scan` call (one kernel
+    launch on a CUDA device). The state: budget ``rem`` int32 [R, Tp],
+    candidate ``mask`` bool [R, Tp+1], ``est``/``lst``/``start`` int32
+    [R, Np], R = I x P x V rows.
     """
 
     def __init__(self, rows, dev):
@@ -353,37 +310,38 @@ class _DenseShard:
         P, Tp = rows[0][3].shape
         V, Np = rows[0][7].shape
         self.shape = (I, P, V, Np)
+        i32 = torch.int32
 
-        def stack(a, dtype=None):
+        def stack(a, dtype=i32):
             return torch.stack([torch.as_tensor(r[a], dtype=dtype).to(dev)
                                 for r in rows])
 
-        dur, work = stack(0), stack(1)                      # [I, Np]
+        self.dur, self.work = stack(0), stack(1)            # [I, Np]
         self.lp = stack(2)                                  # [I, Np, Np]
         self.lp_t = self.lp.transpose(1, 2).contiguous()    # columns as rows
         R = I * P * V
-        budgets = stack(3, torch.int32)                     # [I, P, Tp]
-        rem = budgets[:, :, None, :].expand(I, P, V, Tp).reshape(R, Tp) \
-            .clone()
-        mask = stack(4, torch.bool).reshape(R, Tp + 1).clone()
-        est = stack(5)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
-        lst = stack(6)[:, None, None, :].expand(I, P, V, Np).reshape(R, Np)
-        orders = stack(7, torch.int64)[:, None].expand(I, P, V, Np) \
-            .reshape(R, Np)
-        self.inst_of = torch.arange(I, device=dev).repeat_interleave(P * V)
-        # per-step inputs gathered once: order, duration and work by step
-        self.steps = orders.t().contiguous()                # [Np, R]
-        self.durs = dur[self.inst_of[:, None], orders].t().contiguous()
-        self.works = work[self.inst_of[:, None], orders].t().contiguous()
-        self.state = _Rows(rem, mask, est.clone(), lst.clone())
 
-    def step(self, t: int) -> None:
-        v, inst_of = self.steps[t], self.inst_of
-        self.state.step(v, self.lp[inst_of, v], self.lp_t[inst_of, v],
-                        self.durs[t], self.works[t])
+        def per_row(x):                                     # [I, n] -> [R, n]
+            return x[:, None, None, :].expand(I, P, V, x.shape[1]) \
+                .reshape(R, x.shape[1]).clone()
+
+        self.rem = stack(3)[:, :, None, :].expand(I, P, V, Tp) \
+            .reshape(R, Tp).clone()
+        self.mask = stack(4, torch.bool).reshape(R, Tp + 1).clone()
+        self.est, self.lst = per_row(stack(5)), per_row(stack(6))
+        self.order = stack(7)[:, None].expand(I, P, V, Np).reshape(R, Np) \
+            .contiguous()
+        self.inst_of = torch.arange(I, dtype=i32, device=dev) \
+            .repeat_interleave(P * V)
+        self.start = torch.zeros_like(self.est)
+
+    def run(self, mode: str | None = None) -> None:
+        greedy_scan(self.rem, self.mask, self.est, self.lst, self.start,
+                    self.order, self.dur, self.work, self.inst_of, self.lp,
+                    self.lp_t, mode=mode)
 
     def starts(self) -> torch.Tensor:
-        return self.state.start.reshape(self.shape)
+        return self.start.reshape(self.shape)
 
 
 def _dense_grid(rows, devs) -> torch.Tensor:
@@ -392,26 +350,27 @@ def _dense_grid(rows, devs) -> torch.Tensor:
 
     ``rows`` as for :class:`_DenseShard`. The instances split into
     ``len(devs)`` contiguous shards, uneven where they do not divide; an
-    empty shard is skipped. Every shard advances in one lockstep host loop
-    over the placement steps, each issuing its launches on its own device
-    (a step synchronizes nothing, so shards on separate cards run
-    concurrently). Rows are independent int32 arithmetic, so the starts
-    are bitwise those of one unsplit loop. Returns int32 [I, P, V, Np]
-    start times on ``devs[0]``.
+    empty shard is skipped. Each shard runs its whole scan in one call on
+    its own device (on a card, one launch that synchronizes nothing, so
+    shards on separate cards run concurrently). Rows are independent int32
+    arithmetic, so the starts are bitwise those of one unsplit run.
+    Returns int32 [I, P, V, Np] start times on ``devs[0]``.
     """
     parts = torch.tensor_split(torch.arange(len(rows)), len(devs))
     shards = [_DenseShard([rows[i] for i in idx.tolist()], d)
               for idx, d in zip(parts, devs) if len(idx)]
-    for t in range(shards[0].shape[3]):
-        for s in shards:
-            s.step(t)
+    for s in shards:
+        s.run()
     return torch.cat([s.starts().to(devs[0]) for s in shards])
 
 
 def _blocked_fanout_padded(dur, work, blp: BlockedLP, budgets, masks,
                            est, lst, orders, device=None) -> torch.Tensor:
     """All (profile, variant) greedy schedules of one blocked-lp instance,
-    chunk-streamed; every input already bucket-padded.
+    chunk-streamed; every input already bucket-padded. Each chunk of B
+    steps is one :func:`greedy_scan` call (one kernel launch on a card)
+    fed the chunk's lp rows and columns; the state stays on the device
+    between chunks.
 
     Args:
       budgets: int [P, Tp]; masks: bool [P, V, Tp+1]; orders: int [V, Np];
@@ -421,40 +380,39 @@ def _blocked_fanout_padded(dur, work, blp: BlockedLP, budgets, masks,
     """
     dev = resolve_device(device)
     budgets = np.asarray(budgets, dtype=np.int32)
-    orders = np.asarray(orders, dtype=np.int64)
+    orders = np.asarray(orders, dtype=np.int32)
     P, Tp = budgets.shape
     V, Np = orders.shape
     R = P * V
     B = blp.chunk_width(V, Np)
+    i32 = torch.int32
 
     def vec(x):
-        return torch.as_tensor(x).to(device=dev, dtype=torch.int32)
+        return torch.as_tensor(x).to(device=dev, dtype=i32)
 
-    dur, work = vec(dur), vec(work)
     rem = torch.from_numpy(np.repeat(budgets, V, axis=0)).to(dev)
     mask = torch.from_numpy(np.asarray(masks, bool).reshape(R, Tp + 1)) \
         .to(dev)
-    state = _Rows(rem, mask, vec(est)[None].repeat(R, 1),
-                  vec(lst)[None].repeat(R, 1))
-    col_of = torch.arange(V, device=dev).repeat(P)          # row -> variant
-    orders_t = torch.from_numpy(orders).to(dev)
+    est = vec(est)[None].repeat(R, 1)
+    lst = vec(lst)[None].repeat(R, 1)
+    start = torch.zeros_like(est)
+    order = torch.from_numpy(np.tile(orders, (P, 1))).to(dev)  # row (p, v)
+    inst_of = torch.zeros(R, dtype=i32, device=dev)            # one instance
+    col_of = torch.arange(V, dtype=i32, device=dev).repeat(P)  # row -> v
+    dur, work = vec(dur)[None], vec(work)[None]
     n_chunks = -(-Np // B)
     with obs.span("blocked_chunk_sweep", N=int(Np), chunk_width=int(B),
                   chunks=n_chunks, rows=int(P * V)):
         for c in range(0, Np, B):
-            vs = orders[:, c:c + B]
-            rows, cols = blp.chunk_tensors(vs, Np)
-            rows = torch.from_numpy(rows).to(dev)
-            cols = torch.from_numpy(cols).to(dev)
-            for j in range(vs.shape[1]):
-                v = orders_t[col_of, c + j]
-                state.step(v, rows[col_of, j], cols[col_of, j], dur[v],
-                           work[v])
+            rows, cols = blp.chunk_tensors(orders[:, c:c + B], Np)
+            greedy_scan(rem, mask, est, lst, start, order, dur, work,
+                        inst_of, torch.from_numpy(rows).to(dev),
+                        torch.from_numpy(cols).to(dev), lp_of=col_of, t0=c)
     obs.registry().counter(
         "blocked_lp_chunks_total",
         "device chunk launches of the blocked longest-path sweep"
     ).inc(n_chunks)
-    return state.start.reshape(P, V, Np)
+    return start.reshape(P, V, Np)
 
 
 def greedy_schedule_torch(inst: Instance, profile: PowerProfile,

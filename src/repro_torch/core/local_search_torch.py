@@ -19,8 +19,10 @@ instance) advance together:
   row's own rounds.
 
 The reference runs the round loop as one ``lax.while_loop``; here it is a
-Python loop with one host sync per round (is any row still climbing, and
-how many commit steps can still commit anything).
+Python loop with one host sync per round (is any row still climbing). A
+round's commits are one call of
+:func:`repro_torch.kernels.commit_scan.commit_scan`: one launch of the CUDA
+kernel on the card, one batched torch step per commit slot on the CPU.
 
 After the device climb converges, every row is *polished* with the exact
 sequential reference (:func:`repro_torch.core.local_search.reference_round`)
@@ -44,12 +46,11 @@ from repro_torch.core.local_search import apply_move, dyn_bounds, \
     ls_graph_context, move_gain, reference_round
 from repro_torch.core.local_search import dyn_bounds_all as _dyn_windows
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.commit_scan import DenseAdjacency, \
+    PaddedAdjacency, commit_scan
 from repro_torch.kernels.gain_scan import gain_sweep
 
 _COMMIT_K = 32       # default device commits per row per round
-
-# elements of the [rows, N, N] temporary of one dense round-bound chunk
-_DENSE_CHUNK = 1 << 26
 
 
 def auto_commit_k(n_candidates: int,
@@ -125,58 +126,6 @@ def local_search_batched(inst: Instance, profile: PowerProfile,
     return start
 
 
-class _DenseAdjacency:
-    """Direct G_c edges as bool [Np, Np] (pred, succ) masks on device."""
-
-    def __init__(self, pred, succ):
-        self.pred, self.succ = pred, succ
-
-    def bounds(self, start, dur, t_real):
-        """Round-start (pred_lo, succ_hi) int32 [R, Np] of every task,
-        chunked over rows so the [rows, Np, Np] temporary stays bounded."""
-        R, Np = start.shape
-        fin = start + dur
-        step = max(1, _DENSE_CHUNK // (Np * Np))
-        lo, hi = [], []
-        for a in range(0, R, step):
-            f, s = fin[a:a + step, None, :], start[a:a + step, None, :]
-            lo.append(torch.where(self.pred, f, 0).amax(dim=2))
-            hi.append(torch.where(self.succ, s, t_real).amin(dim=2))
-        return torch.cat(lo), torch.cat(hi)
-
-    def bounds_of(self, start, dur, t_real, v):
-        """(pred_lo, succ_hi) int32 [R] of task ``v[r]`` in row r."""
-        lo = torch.where(self.pred[v], start + dur, 0).amax(dim=1)
-        hi = torch.where(self.succ[v], start, t_real).amin(dim=1)
-        return lo, hi
-
-
-class _PaddedAdjacency:
-    """Direct G_c edges as padded-CSR gather tables int32/bool [Np, D]."""
-
-    def __init__(self, pidx, pok, sidx, sok):
-        self.pidx, self.pok = pidx.to(torch.int64), pok
-        self.sidx, self.sok = sidx.to(torch.int64), sok
-
-    def bounds(self, start, dur, t_real):
-        R, Np = start.shape
-        fin = start + dur
-        D = self.pidx.shape[1]
-        pf = fin.gather(1, self.pidx.reshape(1, -1).expand(R, -1))
-        ss = start.gather(1, self.sidx.reshape(1, -1).expand(R, -1))
-        lo = torch.where(self.pok, pf.reshape(R, Np, D), 0).amax(dim=2)
-        hi = torch.where(self.sok, ss.reshape(R, Np, D), t_real).amin(dim=2)
-        return lo, hi
-
-    def bounds_of(self, start, dur, t_real, v):
-        fin = start + dur
-        lo = torch.where(self.pok[v], fin.gather(1, self.pidx[v]),
-                         0).amax(dim=1)
-        hi = torch.where(self.sok[v], start.gather(1, self.sidx[v]),
-                         t_real).amin(dim=1)
-        return lo, hi
-
-
 def climb(rem, start, t_real: int, dur, work, adj, *, mu: int,
           max_rounds: int, commit_k: int = _COMMIT_K, cancel=None):
     """The device hill climb of R rows (``_climb_impl`` of the reference,
@@ -188,21 +137,18 @@ def climb(rem, start, t_real: int, dur, work, adj, *, mu: int,
       start: int32 [R, Np] per-row start times (updated in place).
       t_real: the real horizon (Tp may be padded).
       dur, work: int32 [Np].
-      adj:   :class:`_DenseAdjacency` or :class:`_PaddedAdjacency`.
+      adj:   :class:`~repro_torch.kernels.commit_scan.DenseAdjacency` or
+        :class:`~repro_torch.kernels.commit_scan.PaddedAdjacency`.
     Returns:
       ``(start, rounds)``: int32 [R, Np] climbed starts and int32 [R]
       device rounds per row.
     """
     R, Np = start.shape
-    Tp = rem.shape[1]
     dev = rem.device
-    tgrid = torch.arange(Tp, dtype=torch.int32, device=dev)
     workf = work.to(torch.float32)
-    rows = torch.arange(R, device=dev)
     rounds = torch.zeros(R, dtype=torch.int32, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
     k = min(int(commit_k), Np)
-    zero = torch.zeros((), dtype=rem.dtype, device=dev)
     while True:
         live = active & (rounds < max_rounds)
         if not bool(live.any()):
@@ -217,45 +163,8 @@ def climb(rem, start, t_real: int, dur, work, adj, *, mu: int,
         best_gain, best_idx = g.max(dim=2)      # first max, as jnp.argmax
         best_delta = best_idx.to(torch.int32) - mu
         order = torch.argsort(-best_gain, dim=1, stable=True)
-        # commit steps past every live row's count of positive proposals
-        # cannot commit (their best gain is <= 0): skip them
-        npos = ((best_gain > 0) & live[:, None]).sum(dim=1)
-        k_eff = min(k, int(npos.max()))
-        any_commit = torch.zeros(R, dtype=torch.bool, device=dev)
-        for j in range(k_eff):
-            v = order[:, j]
-            s = start[rows, v]
-            d_v = dur[v]
-            w_v = work[v]
-            e = s + d_v
-            # current-state legal bounds (commits earlier in this round
-            # may have moved neighbours); jnp.clip semantics: hi wins
-            dlo, dhi = adj.bounds_of(start, dur, t_real, v)
-            dhi = dhi - d_v
-            new_s = torch.minimum(torch.maximum(s + best_delta[rows, v],
-                                                dlo), dhi)
-            dd = new_s - s
-            ln = torch.minimum(dd.abs(), d_v)
-            # symmetric difference of old/new windows (move_gain identities)
-            vac_lo = torch.where(dd > 0, s, e - ln)
-            occ_hi = torch.where(dd > 0, new_s + d_v, new_s + ln)
-            vac = (tgrid >= vac_lo[:, None]) & (tgrid < (vac_lo + ln)[:, None])
-            occ = (tgrid >= (occ_hi - ln)[:, None]) \
-                & (tgrid < occ_hi[:, None])
-            w2 = w_v[:, None]
-            released = torch.where(
-                vac, torch.minimum(torch.maximum(-rem, zero), w2), 0).sum(1)
-            incurred = torch.where(
-                occ, torch.minimum(torch.maximum(
-                    w2 - torch.maximum(rem, zero), zero), w2), 0).sum(1)
-            ok = (live & (best_gain[rows, v] > 0) & (dlo <= dhi) & (dd != 0)
-                  & (released - incurred > 0))
-            old = (tgrid >= s[:, None]) & (tgrid < e[:, None])
-            new = (tgrid >= new_s[:, None]) & (tgrid < (new_s + d_v)[:, None])
-            rem.add_(torch.where(ok[:, None], w2 * (old.to(rem.dtype)
-                                                    - new.to(rem.dtype)), 0))
-            start[rows, v] = torch.where(ok, new_s, s)
-            any_commit |= ok
+        any_commit = commit_scan(rem, start, order[:, :k], best_delta,
+                                 best_gain, live, dur, work, t_real, adj)
         rounds += live.to(torch.int32)
         active = torch.where(live, any_commit, active)
     return start, rounds
@@ -317,13 +226,13 @@ def _device_adjacency(inst: Instance, ctx: dict, Np: int, padded: bool,
             p = np.zeros((Np, a.shape[1]), dtype=a.dtype)
             p[:N] = a
             tables.append(torch.from_numpy(p).to(dev))
-        return _PaddedAdjacency(*tables)
+        return PaddedAdjacency(*tables)
     masks = []
     for a in _dense_adjacency(inst, ctx):
         p = np.zeros((Np, Np), dtype=bool)
         p[:N, :N] = a
         masks.append(torch.from_numpy(p).to(dev))
-    return _DenseAdjacency(*masks)
+    return DenseAdjacency(*masks)
 
 
 def local_search_portfolio_multi(inst: Instance, T: int,

@@ -84,8 +84,9 @@ def resolve_engine(engine: str | None, fanout: int = 1) -> str:
 
 
 # the scheduler's CUDA kernels: every heuristic plan launches gain_scan,
-# and the cost oracle launches carbon_cost
-SCHEDULER_KERNELS = ("gain_scan", "carbon_cost")
+# greedy_scan and commit_scan, and the cost oracle launches carbon_cost
+SCHEDULER_KERNELS = ("gain_scan", "greedy_scan", "commit_scan",
+                     "carbon_cost")
 
 
 def enable_compilation_cache(device=None) -> str:
@@ -98,7 +99,7 @@ def enable_compilation_cache(device=None) -> str:
     ``build/repro_torch/<name>-<hash>.so``
     (:mod:`repro_torch.kernels._build`), keyed by the source and the
     flags. On a CUDA device this builds (or finds built) and loads
-    ``gain_scan`` and ``carbon_cost``, so a service's first ticket pays no
+    :data:`SCHEDULER_KERNELS`, so a service's first ticket pays no
     ``nvcc`` and a second process builds nothing; on the CPU it builds
     nothing. ``device=None`` means the card, as for every entry point.
 
