@@ -11,20 +11,23 @@ against its plain version at the climb's shape (R=32, Np=4352, Tp=1024;
 mu = 10 and 42) and the deficit timeline at the plan's shape (N=4304,
 T=776) and the large one (N=30000, T=4096), each with the profiler's
 device time, a CUDA-graph replay, eager CUDA events and the plain
-version's time. It then times the cost oracle's call, ``ops.carbon_cost``
-on numpy arrays at the plan's shape, on the host clock, each call ending
-in the copy of its cost to the host. With ``--train`` it runs instead the
-train entry point as ``chip_smoke.py``'s ``[train]`` (a) calls it (its
-arch, steps, batch and sequence, the CarbonGate, checkpoints), with no
-mesh, and reads its step seconds: the cold first step and the median,
-least and most of the warm ones. With ``--plan`` it runs instead
-``chip_smoke.py``'s ``[plan]`` (the 4 x 4 x 17 matrix planned cold on the
-card, with its checks) and reads the cold plan's seconds and its phase
-split (``PlanResult.phase_seconds``). The runs go parent, change, change,
-parent, ``N`` times over (default 1), so both are measured in one call on
-one card. Prints one ``AB {...}`` JSON line per run, then the card's name
-and power limit and one JSON summary line: each metric's readings per
-side, in run order, and their median.
+version's time, and its ``phase_scan_kernels``: the greedy scan (R=32,
+Np=4352, Tp=1024) and the first climb round's commit scan (K=32, dense
+adjacency) at atacseq's bucket, each with the profiler's device time and
+eager CUDA events. It then times the cost oracle's call,
+``ops.carbon_cost`` on numpy arrays at the plan's shape, on the host
+clock, each call ending in the copy of its cost to the host. With
+``--train`` it runs instead the train entry point as ``chip_smoke.py``'s
+``[train]`` (a) calls it (its arch, steps, batch and sequence, the
+CarbonGate, checkpoints), with no mesh, and reads its step seconds: the
+cold first step and the median, least and most of the warm ones. With
+``--plan`` it runs instead ``chip_smoke.py``'s ``[plan]`` (the 4 x 4 x 17
+matrix planned cold on the card, with its checks) and reads the cold
+plan's seconds and its phase split (``PlanResult.phase_seconds``). The
+runs go parent, change, change, parent, ``N`` times over (default 1), so
+both are measured in one call on one card. Prints one ``AB {...}`` JSON
+line per run, then the card's name and power limit and one JSON summary
+line: each metric's readings per side, in run order, and their median.
 """
 from __future__ import annotations
 
@@ -48,6 +51,10 @@ dev = torch.device("cuda")
 cs.build_kernels()
 gain = cs.phase_kernels(dev)
 deficit = cs.phase_deficit(dev)
+# the two loop kernels at atacseq's bucket (R=32, Np=4352, Tp=1024, K=32),
+# from the checkout's own [kernels] phase, which times them alike in both
+plat, insts, grid = cs.build_matrix(("atacseq",))
+scan = cs.phase_scan_kernels(dev, plat, insts, grid)
 rng = np.random.default_rng(1)
 N, T = cs.DEFICIT_PLAN
 start = rng.integers(0, T - 20, N)
@@ -61,7 +68,7 @@ t0 = time.perf_counter()
 for _ in range(reps):
     float(ops.carbon_cost(start, dur, work, g))
 oracle_ms = 1e3 * (time.perf_counter() - t0) / reps
-print("AB " + json.dumps({"gain": gain, "deficit": deficit,
+print("AB " + json.dumps({"gain": gain, "deficit": deficit, "scan": scan,
                           "oracle_ms": oracle_ms}), flush=True)
 """
 
@@ -124,6 +131,10 @@ METRICS = {                     # summary name -> how to read it from a run
     "carbon_cost_plan_ms": lambda r: r["deficit"][0]["ms"],
     "carbon_cost_large_ms": lambda r: r["deficit"][1]["ms"],
     "oracle_ms_per_call": lambda r: r["oracle_ms"],
+    **{f"{name}_{key}": (lambda r, name=name, key=key:
+                         r["scan"][name][key])
+       for name in ("greedy_scan", "commit_scan")
+       for key in ("profiler_ms", "event_ms")},
 }
 
 

@@ -636,11 +636,14 @@ def warm_trace(run, warmup: int = 1):
     return prof, wall
 
 
-def profiled_ms(fn, reps: int, kernel: str, out_path: str):
-    """Mean device milliseconds of the CUDA kernel whose name contains
-    ``kernel``, from one :func:`warm_trace` of ``reps`` warm calls of
-    ``fn``; None when the profiler records no device time for it."""
-    return profiled_kernels_ms(fn, reps, (kernel,), out_path)[kernel]
+def profiled_ms(fn, reps: int, kernel: str, out_path: str,
+                launches: int = 1):
+    """Mean device milliseconds a call of the CUDA kernel whose name
+    contains ``kernel`` (launched ``launches`` times a call of ``fn``), from
+    one :func:`warm_trace` of ``reps`` warm calls of ``fn``; None when the
+    profiler records no device time for it."""
+    return profiled_kernels_ms(fn, reps, (kernel,), out_path,
+                               launches)[kernel]
 
 
 # warm-up steps of the successive traces :func:`profiled_kernels_ms` takes:
@@ -648,12 +651,14 @@ def profiled_ms(fn, reps: int, kernel: str, out_path: str):
 TRACE_WARMUPS = (1, 4, 16)
 
 
-def profiled_kernels_ms(fn, reps: int, kernels, out_path: str) -> dict:
-    """Mean device milliseconds of each CUDA kernel whose name contains one
-    of ``kernels``, each launched once a call, from one :func:`warm_trace`
-    of ``reps`` warm calls of ``fn``; None for a kernel the profiler
-    records no device time for. A time comes only from a trace that holds
-    all ``reps`` launches: a trace that holds fewer is taken again behind
+def profiled_kernels_ms(fn, reps: int, kernels, out_path: str,
+                        launches: int = 1) -> dict:
+    """Mean device milliseconds a call of each CUDA kernel whose name
+    contains one of ``kernels``, each launched ``launches`` times a call,
+    from one :func:`warm_trace` of ``reps`` warm calls of ``fn``; None for a
+    kernel the profiler records no device time for. A time comes only from
+    a trace that holds all ``reps x launches`` launches: a trace that holds
+    fewer is taken again behind
     the next, longer warm-up of :data:`TRACE_WARMUPS`, and when the last
     one still holds fewer the run fails. The profilers' tables go to
     ``out_path``."""
@@ -676,18 +681,20 @@ def profiled_kernels_ms(fn, reps: int, kernels, out_path: str) -> dict:
                                       or getattr(ev, "cuda_time_total", 0.0))
                     count += ev.count
             log(f"[profiler] {kernel}: the trace behind {warmup} warm-up "
-                f"step(s) holds {count} of {reps} launches")
+                f"step(s) holds {count} of {reps * launches} launches")
             totals[kernel] = (total_us, count)
-        if all(count in (0, reps) for _, count in totals.values()):
+        if all(count in (0, reps * launches)
+               for _, count in totals.values()):
             break
     out = {}
     for kernel, (total_us, count) in totals.items():
         if count == 0 or total_us <= 0.0:
             out[kernel] = None
             continue
-        check(count == reps, f"the profiler's trace holds {count} launches "
-              f"of {kernel}, expected {reps}, behind {warmup} warm-up steps")
-        out[kernel] = total_us / count / 1e3
+        check(count == reps * launches, f"the profiler's trace holds "
+              f"{count} launches of {kernel}, expected {reps * launches}, "
+              f"behind {warmup} warm-up steps")
+        out[kernel] = total_us / reps / 1e3
     return out
 
 
@@ -892,6 +899,8 @@ def phase_kernels(dev):
 SCAN_KERNELS = ("greedy_scan", "commit_scan")
 SCAN_MU, SCAN_K = 10, 32         # the climb's mu and commit width
 SCAN_ROUNDS = 3                  # climb rounds compared at the bucket
+SCAN_BLOCK = 256                 # the blocked form's chunk at the bucket
+SCAN_LARGE = (2, 30720, 1024, 256)   # R, Np, Tp, steps: state past smem
 
 
 def scan_launches() -> dict:
@@ -914,20 +923,27 @@ def check_scan_launches(launches: dict, where: str) -> None:
               f"kernel: {launches}")
 
 
-def greedy_bound_ms(I, R, Np, Tp) -> tuple[float, str]:
-    """Least time for one dense greedy scan of R rows over I instances:
-    bytes moved (each instance's lp read once: row v and column v over
-    every v make up lp once, and the contiguous transpose ``lp_t`` the
-    port reads columns from is its layout choice, not data the function
-    needs; the rows' rem, mask, est and lst read and written once, starts
-    written once, orders, durations and works read once) over the memory
-    rate, against R Np (Tp + 2 Np) int32 operations (an argmax candidate a
-    unit, a relaxation of est and of lst a task, each placement step) over
-    the f32 CUDA-core rate."""
-    nbytes = (4 * I * Np * Np + 2 * (4 * R * Tp + R * (Tp + 1))
+def greedy_bound_ms(I, R, Np, Tp, lp_ints=None,
+                    steps=None) -> tuple[float, str]:
+    """Least time for a greedy scan of R rows over I instances, ``steps``
+    placement steps a row (default Np, the whole order): bytes moved (the
+    ``lp_ints`` int32 of lp rows and columns the function reads, by
+    default each instance's lp once: row v and column v over every v make
+    up lp once; the contiguous transpose ``lp_t`` the port reads columns
+    from, and the blocked form's per-variant streamed rows and columns,
+    are layout choices, not data the function needs; where rows and
+    columns are data of their own, with no lp behind them, the caller
+    counts them; the rows' rem, mask, est and lst read and written once,
+    starts written once, orders, durations and works read once) over the
+    memory rate, against R steps (Tp + 2 Np) int32 operations (an argmax
+    candidate a unit, a relaxation of est and of lst a task, each
+    placement step) over the f32 CUDA-core rate."""
+    lp_ints = I * Np * Np if lp_ints is None else lp_ints
+    steps = Np if steps is None else steps
+    nbytes = (4 * lp_ints + 2 * (4 * R * Tp + R * (Tp + 1))
               + 2 * 2 * 4 * R * Np + 4 * R * Np + 4 * R * Np
               + 2 * 4 * I * Np + 4 * R)
-    ops = R * Np * (Tp + 2 * Np)
+    ops = R * steps * (Tp + 2 * Np)
     hbm, f32, _ = h100_rates()
     t_bytes, t_ops = nbytes / hbm, ops / f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1081,10 +1097,11 @@ def synthetic_greedy(R, Np, Tp, steps, seed, dev):
     return [x.to(dev) for x in state], [x.to(dev) for x in rest]
 
 
-def same_scans(state, rest, t0, what):
+def same_scans(state, rest, t0, what, t1=None):
     """``greedy_scan`` on the blocked layout's inputs (``synthetic_greedy``)
-    from step ``t0``, through the kernel and the plain version from the
-    same state, bitwise equal: the largest difference."""
+    over steps ``[t0, t1)`` (``t1`` None: as many as ``rest`` holds lp
+    rows), through the kernel and the plain version from the same state,
+    bitwise equal: the largest difference."""
     import torch
 
     from repro_torch.kernels import greedy_scan
@@ -1092,7 +1109,7 @@ def same_scans(state, rest, t0, what):
     outs = []
     for mode in ("kernel", "plain"):
         s = [x.clone() for x in state]
-        greedy_scan.greedy_scan(*s, *rest[:6], lp_of=rest[6], t0=t0,
+        greedy_scan.greedy_scan(*s, *rest[:6], lp_of=rest[6], t0=t0, t1=t1,
                                 mode=mode)
         outs.append(s)
     torch.cuda.synchronize()
@@ -1197,6 +1214,54 @@ def synthetic_commit(R, Np, Tp, D, dev):
             PaddedAdjacency(*(x.to(dev) for x in tables)))
 
 
+def synthetic_dense_commit(R, Np, Tp, dev):
+    """Random sparse dense-form adjacency and proposals, row 1 dead: task
+    0 has three quarters of the tasks as predecessors, task 1 every task
+    (no zero byte in its pred row), task 2 every task as successor, and
+    the three lead every live row's proposals. ``(state, rnd, live, dur,
+    work, t_real, adj)`` for ``same_commits``."""
+    import torch
+
+    from repro_torch.kernels.commit_scan import DenseAdjacency
+
+    g = torch.Generator().manual_seed(Np + Tp + 1)
+    ri = torch.randint
+    i32 = torch.int32
+    pred = torch.rand(Np, Np, generator=g) < 4 / Np
+    succ = torch.rand(Np, Np, generator=g) < 4 / Np
+    pred[0] = torch.rand(Np, generator=g) < 0.75
+    pred[1] = True
+    succ[2] = True
+    state = (ri(-60, 60, (R, Tp), generator=g, dtype=i32),
+             ri(0, Tp - 40, (R, Np), generator=g, dtype=i32))
+    dur = ri(0, 30, (Np,), generator=g, dtype=i32)
+    work = ri(0, 50, (Np,), generator=g, dtype=i32)
+    delta = ri(-10, 11, (R, Np), generator=g, dtype=i32)
+    gain = ri(-5, 40, (R, Np), generator=g).float()
+    gain[:, :3] = 100.0
+    order = torch.argsort(-gain, dim=1, stable=True)[:, :64]
+    live = torch.ones(R, dtype=torch.bool)
+    live[1] = False
+    return ([x.to(dev) for x in state],
+            [x.to(dev) for x in (order, delta, gain)], live.to(dev),
+            dur.to(dev), work.to(dev), Tp - 10,
+            DenseAdjacency(pred.to(dev), succ.to(dev)))
+
+
+def few_positives(rnd, k):
+    """``rnd`` (order, delta, gain) cut to ``k`` proposals a row, row r
+    keeping only its first r positive gains (rows with fewer positive
+    proposals than the commit ring is deep, and one with none)."""
+    import torch
+
+    order, delta, gain = rnd
+    keep = torch.zeros_like(gain, dtype=torch.bool)
+    for r in range(gain.shape[0]):
+        keep[r, order[r, :r]] = True
+    gain = torch.where(keep, gain, gain.clamp(max=0))
+    return (torch.argsort(-gain, dim=1, stable=True)[:, :k], delta, gain)
+
+
 def phase_scan_kernels(dev, plat, insts, grid):
     """[kernels] greedy_scan and commit_scan against their plain versions
     on the card, bitwise: at the plan's largest bucket (atacseq, Np=4352,
@@ -1208,7 +1273,8 @@ def phase_scan_kernels(dev, plat, insts, grid):
     import numpy as np
     import torch
 
-    from repro_torch.core.greedy_torch import _DenseShard
+    from repro_torch.core.greedy_torch import (BlockedLP, _DenseShard,
+                                               lp_block_bytes)
     from repro_torch.core.local_search_torch import _device_adjacency
     from repro_torch.kernels import commit_scan, greedy_scan
 
@@ -1251,8 +1317,123 @@ def phase_scan_kernels(dev, plat, insts, grid):
         f"(start, rem, mask, est, lst); kernel {ms:.4f} ms ({ms_from}; "
         f"eager events {event_ms:.4f}, state reset included), plain "
         f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
-        f"{100 * bound / ms:.2f}% of bound; {Np} serial steps a row, {R} "
-        f"CTAs on 132 SMs")
+        f"{100 * bound / ms:.2f}% of bound; {Np} serial steps a row "
+        f"({1e3 * ms / Np:.3f} us a step), {R} CTAs on 132 SMs; ring "
+        f"{greedy_scan.ring_plan(Np, Tp, dev)}")
+
+    # the blocked form at the bucket: Np / SCAN_BLOCK launches of
+    # SCAN_BLOCK steps, against its plain version and the dense scan; the
+    # chunks' lp rows and columns are built on the host once, beforehand
+    # (the plan builds them between launches: [blocked] times that)
+    blp = BlockedLP(inst, budget_bytes=lp_block_bytes(SCAN_BLOCK, V, Np))
+    check(blp.chunk_width(V, Np) == SCAN_BLOCK, "the blocked form's chunk "
+          f"is {blp.chunk_width(V, Np)} steps, not {SCAN_BLOCK}")
+    n_blocks = Np // SCAN_BLOCK
+    orders = np.asarray(row[7], dtype=np.int32)
+    t0 = time.perf_counter()
+    chunks = [tuple(torch.from_numpy(x).to(dev) for x in blp.chunk_tensors(
+        orders[:, c:c + SCAN_BLOCK], Np)) for c in range(0, Np, SCAN_BLOCK)]
+    chunks_s = time.perf_counter() - t0
+
+    # the dense shard's rows in (profile, variant) order, each reading its
+    # variant's streamed rows and columns, one launch a chunk
+    col_of = torch.arange(V, dtype=torch.int32, device=dev).repeat(P)
+    state_b = [x.clone() for x in init]
+
+    def blocked(mode):
+        for x, y in zip(state_b, init):
+            x.copy_(y)
+        for c, (rows, cols) in zip(range(0, Np, SCAN_BLOCK), chunks):
+            greedy_scan.greedy_scan(*state_b, shard.order, shard.dur,
+                                    shard.work, shard.inst_of, rows, cols,
+                                    lp_of=col_of, t0=c, mode=mode)
+
+    before = greedy_scan.LAUNCHES
+    blocked("kernel")
+    torch.cuda.synchronize()
+    check(greedy_scan.LAUNCHES == before + n_blocks, "the blocked scan was "
+          f"not {n_blocks} launches")
+    got_b = [x.clone() for x in state_b]
+    t0 = time.perf_counter()
+    blocked("plain")
+    torch.cuda.synchronize()
+    plain_b_ms = 1e3 * (time.perf_counter() - t0)
+    for a, x, y in zip(GREEDY_STATE, state_b, got_b):
+        check(torch.equal(x, y), "greedy_scan kernel != plain, the blocked "
+              f"form at the bucket: {a}")
+    check(torch.equal(got_b[4], got[4]), "the blocked scan's starts != the "
+          "dense scan's at the bucket")
+    blocked_err = max_diff(zip(state_b, got_b))
+    greedy_err = max(greedy_err, blocked_err)
+    kernel = functools.partial(blocked, "kernel")
+    event_b = cuda_ms(kernel, reps=10, warm=1)
+    device_b = profiled_ms(kernel, 10, "greedy_scan_kernel", PROFILE_OUT,
+                           launches=n_blocks)
+    # the same function over the same instance as the dense row: the same
+    # bound (lp once); the variants' streamed copies are the blocked
+    # layout's, and are shown apart
+    bound_b, by_b = greedy_bound_ms(I, R, Np, Tp)
+    streamed_b = 4 * 2 * V * Np * Np
+    ms_b, from_b = ((device_b, "profiler") if device_b is not None
+                    else (event_b, "events"))
+    blocked_row = {"ms": ms_b, "ms_from": from_b, "profiler_ms": device_b,
+                   "event_ms": event_b, "plain_ms": plain_b_ms,
+                   "bound_ms": bound_b, "bound_by": by_b,
+                   "streamed_bytes": streamed_b,
+                   "launches_a_call": n_blocks, "max_abs_err": blocked_err,
+                   "chunks_built_s": chunks_s,
+                   "shape": f"R={R} Np={Np} Tp={Tp}, {n_blocks} launches "
+                            f"of {SCAN_BLOCK} steps (blocked)"}
+    log(f"[kernels] greedy_scan blocked, {n_blocks} launches of "
+        f"{SCAN_BLOCK} steps at the bucket: bitwise equal to its plain "
+        f"version (rem, mask, est, lst, start) and to the dense scan; "
+        f"kernel {ms_b:.4f} ms a fan-out ({from_b}; eager events "
+        f"{event_b:.4f}; the chunks' lp rows and columns built on the host "
+        f"beforehand in {chunks_s:.3f} s), plain {plain_b_ms:.3f} ms, bound "
+        f"{bound_b:.4f} ms ({by_b}, lp once as for the dense row), "
+        f"{100 * bound_b / ms_b:.2f}% of bound; the variants' streamed rows "
+        f"and columns {streamed_b / 1e6:.1f} MB")
+
+    # R=2 rows at the paper's scale, est and lst past shared memory: one
+    # launch of SCAN_LARGE steps in the blocked form's layout
+    R2, N2, T2, S2 = SCAN_LARGE
+    state_l, rest_l = synthetic_greedy(R2, N2, T2, S2, N2 + T2, dev)
+    init_l = [x.clone() for x in state_l]
+
+    def large(mode):
+        for x, y in zip(state_l, init_l):
+            x.copy_(y)
+        greedy_scan.greedy_scan(*state_l, *rest_l[:6], lp_of=rest_l[6],
+                                mode=mode)
+
+    large("kernel")
+    torch.cuda.synchronize()
+    got_l = [x.clone() for x in state_l]
+    plain_l = cuda_ms(functools.partial(large, "plain"), reps=1, warm=0)
+    check(all(torch.equal(a, b) for a, b in zip(state_l, got_l)),
+          f"greedy_scan kernel != plain at R={R2} Np={N2} Tp={T2}")
+    large_err = max_diff(zip(state_l, got_l))
+    greedy_err = max(greedy_err, large_err)
+    kernel = functools.partial(large, "kernel")
+    event_l = cuda_ms(kernel, reps=5, warm=1)
+    device_l = profiled_ms(kernel, 5, "greedy_scan_kernel", PROFILE_OUT)
+    bound_l, by_l = greedy_bound_ms(1, R2, N2, T2, lp_ints=2 * R2 * S2 * N2,
+                                    steps=S2)
+    ms_l, from_l = ((device_l, "profiler") if device_l is not None
+                    else (event_l, "events"))
+    plan_l = greedy_scan.ring_plan(N2, T2, dev)
+    large_row = {"ms": ms_l, "ms_from": from_l, "profiler_ms": device_l,
+                 "event_ms": event_l, "plain_ms": plain_l,
+                 "bound_ms": bound_l, "bound_by": by_l,
+                 "max_abs_err": large_err,
+                 "serial_steps": S2, "ring": plan_l,
+                 "shape": f"R={R2} Np={N2} Tp={T2}, {S2} steps (blocked "
+                          f"layout, est/lst in device memory)"}
+    log(f"[kernels] greedy_scan R={R2} Np={N2} Tp={T2}, {S2} steps: bitwise "
+        f"equal; kernel {ms_l:.4f} ms ({from_l}; eager events "
+        f"{event_l:.4f}), {1e3 * ms_l / S2:.3f} us a step, plain "
+        f"{plain_l:.3f} ms, bound {bound_l:.4f} ms ({by_l}), "
+        f"{100 * bound_l / ms_l:.2f}% of bound; ring {plan_l}")
 
     # edge cases: the crafted small instance (dense form), then random
     # inputs in the blocked form's layout with the row's state in shared
@@ -1287,27 +1468,43 @@ def phase_scan_kernels(dev, plat, insts, grid):
     state0 = climb_rows(inst, T, budgets, starts, R, Tp, Np, dev)
     dur, work = shard.dur[0], shard.work[0]
     live = torch.ones(R, dtype=torch.bool, device=dev)
-    adj = _device_adjacency(inst, g.ls_graph, Np, False, dev)
-    rnd = commit_round(*state0, dur, work, adj, T)
     rem1, st1 = (x.clone() for x in state0)
 
-    def commits(mode):
-        rem1.copy_(state0[0])
-        st1.copy_(state0[1])
-        commit_scan.commit_scan(rem1, st1, *rnd, live, dur, work, T, adj,
-                                mode=mode)
+    def time_commits(padded):
+        """The first climb round's commit scan at the bucket: kernel
+        (profiler, events), plain and bound."""
+        adj = _device_adjacency(inst, g.ls_graph, Np, padded, dev)
+        rnd = commit_round(*state0, dur, work, adj, T)
 
-    before = commit_scan.LAUNCHES
-    plain_c = cuda_ms(functools.partial(commits, "plain"), reps=3, warm=1)
-    kernel = functools.partial(commits, "kernel")
-    event_c = cuda_ms(kernel, reps=50)
-    dev_c = profiled_ms(kernel, 50, "commit_scan_kernel", PROFILE_OUT)
-    check(commit_scan.LAUNCHES > before, "commit_scan did not launch")
-    bound_c, by_c = commit_bound_ms(rnd[2], live, rnd[0], Np, Tp, Np,
-                                    2 * Np)
-    ms_c, from_c = ((dev_c, "profiler") if dev_c is not None
-                    else (event_c, "events"))
-    npos = (rnd[2] > 0).sum(dim=1).clamp(max=SCAN_K)
+        def commits(mode):
+            rem1.copy_(state0[0])
+            st1.copy_(state0[1])
+            commit_scan.commit_scan(rem1, st1, *rnd, live, dur, work, T, adj,
+                                    mode=mode)
+
+        before = commit_scan.LAUNCHES
+        plain = cuda_ms(functools.partial(commits, "plain"), reps=3, warm=1)
+        kernel = functools.partial(commits, "kernel")
+        event = cuda_ms(kernel, reps=50)
+        device = profiled_ms(kernel, 50, "commit_scan_kernel", PROFILE_OUT)
+        check(commit_scan.LAUNCHES > before, "commit_scan did not launch")
+        D = adj.pidx.shape[1] if padded else 0
+        bound, by = commit_bound_ms(rnd[2], live, rnd[0], Np, Tp,
+                                    D if padded else Np,
+                                    10 * D if padded else 2 * Np)
+        ms, ms_from = ((device, "profiler") if device is not None
+                       else (event, "events"))
+        npos = (rnd[2] > 0).sum(dim=1).clamp(max=SCAN_K)
+        return {"ms": ms, "ms_from": ms_from, "profiler_ms": device,
+                "event_ms": event, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "visited": int(npos.sum()),
+                "serial_steps": int(npos.max()), "ctas": R,
+                "shape": f"R={R} Np={Np} Tp={Tp} K={SCAN_K} "
+                         f"({'padded, D=' + str(D) if padded else 'dense'} "
+                         f"adjacency, the first climb round)"}
+
+    commit_row = time_commits(False)
+    padded_row = time_commits(True)
     commit_err = 0.0
     for padded in (False, True):
         adj = _device_adjacency(inst, g.ls_graph, Np, padded, dev)
@@ -1321,13 +1518,17 @@ def phase_scan_kernels(dev, plat, insts, grid):
             n_commit += int(any_c.sum())
             state = (rem_n, st_n)
         check(n_commit > 0, "the bucket's climb rounds committed nothing")
-    log(f"[kernels] commit_scan R={R} Np={Np} Tp={Tp} K={SCAN_K}, "
-        f"{SCAN_ROUNDS} climb rounds, dense and padded adjacency: bitwise "
-        f"equal (rem, start, any); kernel {ms_c:.4f} ms ({from_c}; eager "
-        f"events {event_c:.4f}, state reset included), plain "
-        f"{plain_c:.3f} ms, bound {bound_c:.6f} ms ({by_c}); "
-        f"{int(npos.sum())} proposals visited, at most {int(npos.max())} "
-        f"serial commits a row")
+    for c in (commit_row, padded_row):
+        log(f"[kernels] commit_scan {c['shape']}: kernel {c['ms']:.4f} ms "
+            f"({c['ms_from']}; eager events {c['event_ms']:.4f}, state reset "
+            f"included), plain {c['plain_ms']:.3f} ms, bound "
+            f"{c['bound_ms']:.6f} ms ({c['bound_by']}), "
+            f"{100 * c['bound_ms'] / c['ms']:.2f}% of bound; {c['visited']} "
+            f"proposals visited, at most {c['serial_steps']} serial commits "
+            f"a row ({1e3 * c['ms'] / max(c['serial_steps'], 1):.3f} us a "
+            f"commit)")
+    log(f"[kernels] commit_scan {SCAN_ROUNDS} climb rounds at the bucket, "
+        f"dense and padded adjacency: bitwise equal (rem, start, any)")
 
     # edge cases at the bucket: rows moved off their greedy places
     # (inverted windows), a dead row, a commit width below the rows'
@@ -1353,18 +1554,26 @@ def phase_scan_kernels(dev, plat, insts, grid):
                                f"random padded-CSR R={R2} Np={N2} Tp={T2} "
                                f"D={D2}")
         commit_err = max(commit_err, err)
-    commit_row = {"max_abs_err": commit_err, "ms": ms_c, "ms_from": from_c,
-                  "profiler_ms": dev_c, "event_ms": event_c,
-                  "plain_ms": plain_c, "bound_ms": bound_c,
-                  "bound_by": by_c, "visited": int(npos.sum()),
-                  "serial_steps": int(npos.max()), "ctas": R,
-                  "shape": f"R={R} Np={Np} Tp={Tp} K={SCAN_K} (dense "
-                           f"adjacency, the first climb round)"}
+    *_, err = same_commits(*synthetic_dense_commit(6, Np, Tp, dev),
+                           "dense hub tasks")
+    commit_err = max(commit_err, err)
+    for dense in (True, False):
+        state, rnd, *rest = (synthetic_dense_commit(10, 512, 1024, dev)
+                             if dense else
+                             synthetic_commit(10, 512, 1024, 8, dev))
+        for k in (1, 16):
+            *_, err = same_commits(state, few_positives(rnd, k), *rest,
+                                   f"0-9 positives, dense={dense}, K={k}")
+            commit_err = max(commit_err, err)
+    commit_row["max_abs_err"] = padded_row["max_abs_err"] = commit_err
     log(f"[kernels] commit_scan edge cases (inverted windows, a dead row, "
         f"K=3 below the rows' positives, dense and padded adjacency; random "
         f"padded-CSR inputs with the state in shared and in device "
-        f"memory): bitwise equal; max |kernel - plain| over every case "
+        f"memory; dense hub tasks; K=1 and rows with 0-9 positive "
+        f"proposals): bitwise equal; max |kernel - plain| over every case "
         f"{commit_err}; the phase {time.perf_counter() - t_phase:.3f} s")
+    greedy_row["cases"] = {"blocked": blocked_row, "large": large_row}
+    commit_row["cases"] = {"padded": padded_row}
     return {"greedy_scan": greedy_row, "commit_scan": commit_row}
 
 
@@ -5187,7 +5396,7 @@ def main() -> int:
         **{k: scan_rows[name][k] for k in (
             "max_abs_err", "ms", "ms_from", "profiler_ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "serial_steps", "ctas",
-            "shape")},
+            "shape", "cases")},
         "library_ms": None,
         "bitwise_vs_plain": True,
     } for name, replaces in scan_replaces.items()), {

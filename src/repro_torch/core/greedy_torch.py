@@ -391,7 +391,9 @@ def _blocked_fanout_padded(dur, work, blp: BlockedLP, budgets, masks,
         return torch.as_tensor(x).to(device=dev, dtype=i32)
 
     rem = torch.from_numpy(np.repeat(budgets, V, axis=0)).to(dev)
-    mask = torch.from_numpy(np.asarray(masks, bool).reshape(R, Tp + 1)) \
+    # a copy: the scan updates the mask in place, and on the CPU .to(dev)
+    # would hand it the caller's array
+    mask = torch.from_numpy(np.array(masks, bool).reshape(R, Tp + 1)) \
         .to(dev)
     est = vec(est)[None].repeat(R, 1)
     lst = vec(lst)[None].repeat(R, 1)

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/<name>-<hash>.so``
-at the root of the checkout, then loaded with :mod:`ctypes`. The file name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing is compiled when a module is
-imported: the first kernel call builds.
+at the root of the checkout, then loaded with :mod:`ctypes`. The sources
+share the headers ``csrc/*.cuh`` (the TMA and mbarrier helpers, the cached
+launch set-up). The file name carries a hash of the source, the headers
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused. Nothing is compiled when a module is imported: the first kernel
+call builds.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, the shared
+    headers and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

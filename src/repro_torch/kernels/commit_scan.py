@@ -17,12 +17,18 @@ or :class:`PaddedAdjacency`, the padded CSR tables
 ``(pidx, pok, sidx, sok)`` [Np, D] of the blocked-lp instances.
 
 Two executors (:func:`repro_torch.kernels.backend.resolve_mode` picks one
-per call): the CUDA kernel ``csrc/commit_scan.cu`` (one CTA per row, which
-stops at the row's first non-positive proposal: no host sync) on CUDA
-tensors, and :func:`_commit_plain`, one batched torch step per commit
-slot up to the largest live row's count of positive proposals, on CPU
-tensors. Every value is int32 (the two sums int64), so the two agree
-bitwise (tested on the card).
+per call): the CUDA kernel ``csrc/commit_scan.cu`` on CUDA tensors, and
+:func:`_commit_plain`, one batched torch step per commit slot up to the
+largest live row's count of positive proposals, on CPU tensors. The kernel
+runs one CTA per row, which stops at the row's first non-positive proposal
+(no host sync): its warps stage the row in shared memory; then one warp
+commits each proposal while seven gather the next one's bounds, one block
+barrier a proposal, the dense rows arriving through a ring of
+shared-memory stages (Tensor Memory Accelerator bulk copies; they need
+``Np % 16 == 0`` and 16-byte aligned ``pred``/``succ``, else the kernel
+path raises a ``ValueError``), the padded rows read from device memory.
+Every value is int32 (the two sums int64), so the two agree bitwise
+(tested on the card).
 """
 from __future__ import annotations
 
@@ -69,7 +75,15 @@ class DenseAdjacency:
 
     def kernel_args(self, Np):
         """The kernel's expected (tensor, dtype, shape)s, and its
-        ``(pred, succ, pidx, pok, sidx, sok, D)`` arguments."""
+        ``(pred, succ, pidx, pok, sidx, sok, D)`` arguments. Raises a
+        ``ValueError`` where the kernel's bulk copies cannot take the rows
+        (Np % 16 != 0, or a table not 16-byte aligned)."""
+        if Np % 16 or self.pred.data_ptr() % 16 \
+                or self.succ.data_ptr() % 16:
+            raise ValueError(
+                f"commit_scan kernel bulk-copies dense adjacency rows 16 "
+                f"bytes at a time: it needs Np % 16 == 0 (got Np={Np}) and "
+                f"16-byte aligned pred/succ")
         want = [(a, torch.bool, (Np, Np)) for a in (self.pred, self.succ)]
         return want, [self.pred.data_ptr(), self.succ.data_ptr(), None,
                       None, None, None, 0]
@@ -168,7 +182,7 @@ def _launcher():
         fn = _build.load("commit_scan").commit_scan_launch
         # pointers and the stream as c_void_p: left undeclared, ctypes
         # would pass them as 32-bit ints and cut them
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCH = fn
@@ -206,7 +220,7 @@ def _commit_kernel(rem, start, order, best_delta, best_gain, live, dur,
                      order.data_ptr(), best_delta.data_ptr(),
                      best_gain.data_ptr(), live.data_ptr(), dur.data_ptr(),
                      work.data_ptr(), *adj_ptrs, R, Np, Tp, order.shape[1],
-                     int(t_real), stream)
+                     int(t_real), dev.index, stream)
     if err != 0:
         raise RuntimeError(
             f"commit_scan kernel launch failed: CUDA error {err}")

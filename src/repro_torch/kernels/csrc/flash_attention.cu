@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -101,36 +103,6 @@ struct Layout {                       // shared memory, in bytes from a
   static constexpr int kBar = kV + kStages * kTile; // full[], empty[], q
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
 
 // one box of the 4-D map at (hd, h, s, b) into shared memory, completing
 // its bytes on `bar`; rows past S arrive as zeros
@@ -818,16 +790,6 @@ constexpr int kBwdStages = 3;     // depth of both passes' rings
 constexpr int kBwdKeys = 128;     // keys per CTA of the dK/dV pass
 constexpr int kBwdQ = 64;         // queries per tile of its ring
 constexpr int kRowsPad = 128;     // lse and D rows padded to a multiple
-
-// one contiguous run of `bytes` from global memory into shared memory,
-// completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
 
 // keeps the registers of a wgmma A operand live, and in place, until the
 // products that read them are waited for

@@ -24,11 +24,19 @@ Two forms feed the row and column of lp, one step body for both:
   looked up at (``lp_of[r]``, t - t0) for the chunk's steps ``[t0, t0 + B)``.
 
 Two executors (:func:`repro_torch.kernels.backend.resolve_mode` picks one
-per call): the CUDA kernel ``csrc/greedy_scan.cu`` (one CTA per row, the
-step loop inside the block, the row's state in shared memory) on CUDA
-tensors, and :func:`_scan_plain`, one batched torch step per placement
-step, on CPU tensors. Every value is int32 and the argmax takes the first
-max in both, so the two agree bitwise (tested on the card).
+per call): the CUDA kernel ``csrc/greedy_scan.cu`` on CUDA tensors, and
+:func:`_scan_plain`, one batched torch step per placement step, on CPU
+tensors. The kernel runs one CTA per row, the step loop inside the block:
+a producer warp keeps the next steps' lp rows and columns in flight into a
+ring of shared-memory stages (Tensor Memory Accelerator bulk copies), and
+8 consumer warps run each step with one block barrier, a 32-bit warp
+argmax, 16-byte relaxations of est and lst, and the row's state in shared
+memory where it fits (:func:`ring_plan` says what the kernel keeps where).
+The bulk copies and 16-byte accesses need ``Np % 4 == 0`` and 16-byte
+aligned ``lp``, ``lp_t``, ``est`` and ``lst``: the kernel path raises a
+``ValueError`` otherwise (the plan's buckets are multiples of 128).
+Every value is int32 and the argmax takes the first max in both
+executors, so the two agree bitwise (tested on the card).
 """
 from __future__ import annotations
 
@@ -98,11 +106,32 @@ def _launcher():
         fn = _build.load("greedy_scan").greedy_scan_launch
         # pointers and the stream as c_void_p: left undeclared, ctypes
         # would pass them as 32-bit ints and cut them
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
+
+
+def ring_plan(Np: int, Tp: int, device=None) -> dict:
+    """Where the kernel keeps a row's data at (Np, Tp) on a CUDA device
+    (default: the current one): ``stage_tasks`` (est and lst in shared
+    memory), ``stage_time`` (rem and mask), ``chunk`` (int32 of lp's row,
+    and of its column, a ring stage holds; a step walks ``ceil(Np /
+    chunk)`` stages), ``stages`` (the ring's depth) and ``smem_bytes``."""
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    fn = _build.load("greedy_scan").greedy_scan_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(Np, Tp, index, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"greedy_scan_plan failed: CUDA error {err}")
+    return {"stage_tasks": bool(out[0]), "stage_time": bool(out[1]),
+            "chunk": out[2], "smem_bytes": out[3], "stages": out[4]}
 
 
 def _check(tensors, dev) -> None:
@@ -138,6 +167,11 @@ def _scan_kernel(rem, mask, est, lst, start, order, dur, work, inst_of, lp,
             f"mask {tuple(mask.shape)}, est {tuple(est.shape)}, order "
             f"{tuple(order.shape)}, dur {tuple(dur.shape)}, lp "
             f"{tuple(lp.shape)}/{tuple(lp_t.shape)}, steps [{t0}, {t1})")
+    if Np % 4 or any(t.data_ptr() % 16 for t in (lp, lp_t, est, lst)):
+        raise ValueError(
+            f"greedy_scan kernel moves lp rows, est and lst 16 bytes at a "
+            f"time: it needs Np % 4 == 0 (got Np={Np}) and 16-byte aligned "
+            f"lp, lp_t, est and lst")
     if R == 0 or t1 == t0:              # nothing to launch
         return
     launch = _launcher()
@@ -147,7 +181,8 @@ def _scan_kernel(rem, mask, est, lst, start, order, dur, work, inst_of, lp,
                      lst.data_ptr(), start.data_ptr(), order.data_ptr(),
                      dur.data_ptr(), work.data_ptr(), inst_of.data_ptr(),
                      lp.data_ptr(), lp_t.data_ptr(), lp_of.data_ptr(),
-                     lp.shape[1], int(by_task), R, Np, Tp, t0, t1, stream)
+                     lp.shape[1], int(by_task), R, Np, Tp, t0, t1, dev.index,
+                     stream)
     if err != 0:
         raise RuntimeError(
             f"greedy_scan kernel launch failed: CUDA error {err}")

@@ -203,6 +203,19 @@ def test_build_key_tracks_source_and_flags(monkeypatch):
     assert _build.library_path("gain_scan") != path
 
 
+def test_build_key_tracks_the_shared_header(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert (tmp_path / "tma.cuh").exists()
+    path = _build.library_path("greedy_scan")
+    with open(tmp_path / "tma.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path("greedy_scan") != path
+
+
 def _card_case(R, N, T, mu, seed):
     """The climb's dtypes at any shape: starts over the whole row, some at
     t = 0 and overrunning the horizon, zero works, rows with no legal

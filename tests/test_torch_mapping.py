@@ -12,8 +12,6 @@ the parity: jax counts compiled signatures and the port counts padded
 ``(Npad, Tp)`` buckets; the port's own steady-state and pad-row properties
 are tested on their own below.
 """
-import json
-
 import numpy as np
 import pytest
 import torch
@@ -22,7 +20,7 @@ from repro.api import Planner as RPlanner
 from repro.api import PlanRequest as RRequest
 from repro.cluster import make_cluster
 from repro.core import (build_instance, deadline_from_asap, generate_profile,
-                        heft_mapping, trivial_mapping)
+                        heft_mapping)
 from repro.mapping import MappingOptions as RMappingOptions
 from repro.mapping import critical_path as r_critical_path
 from repro.mapping import heft_generic as r_heft_generic
@@ -34,9 +32,8 @@ from repro.mapping import upward_ranks as r_upward_ranks
 from repro.workflows import Workflow, make_workflow
 from repro.workflows import dot_io as r_dot_io
 from repro_torch import interop, obs
-from repro_torch.api import MAPPING_MODES, Planner, PlanRequest, PlanResult
+from repro_torch.api import MAPPING_MODES, Planner, PlanRequest
 from repro_torch.core import build_instance as t_build_instance
-from repro_torch.core import schedule_cost as t_schedule_cost
 from repro_torch.core.cancel import Cancelled, CancelToken
 from repro_torch.core.estlst import makespan as t_makespan
 from repro_torch.mapping import (MappingOptions, critical_path, heft_generic,
@@ -230,66 +227,6 @@ def test_request_validation_on_the_mapping_axis(platform, medium_instance):
 # the search, HEFT mode and deadline_scale against repro
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def quality_setup(platform):
-    """tests/test_mapping.py's TestSearchQuality case: a horizon roomy for
-    HEFT (3x its ASAP) yet tight for the round-robin mapping."""
-    wf = make_workflow("bacass", 2, seed=1)
-    inst_h = build_instance(wf, heft_mapping(wf, platform), platform)
-    fixed = build_instance(wf, trivial_mapping(wf, platform), platform)
-    T = max(deadline_from_asap(inst_h, 3.0),
-            int(deadline_from_asap(fixed, 1.0) * 1.1))
-    return wf, _scarce_profile(platform, T), fixed
-
-
-def test_search_and_heft_match_reference(platform, quality_setup):
-    wf, prof, fixed = quality_setup
-    opts = {"seeds": 6, "rounds": 3, "neighbors": 9, "seed": 0}
-    want_s, got_s = _plan_both(platform, wf, prof, mapping="search",
-                               mapping_options=opts)
-    _assert_same_plan(want_s, got_s)
-    want_h, got_h = _plan_both(platform, wf, prof, mapping="heft")
-    _assert_same_plan(want_h, got_h)
-    got_f = Planner(interop.port(platform), engine="torch",
-                    device="cpu").plan(PlanRequest(
-                        instances=interop.port(fixed),
-                        profiles=interop.port(prof)))
-    # the reference's quality chain holds on the port's plans
-    assert got_s.best().cost <= got_h.best().cost <= got_f.best().cost
-    info = got_s.mapping_info[0]
-    assert info.mode == "search" and info.candidates >= 6
-    assert info.trace == tuple(sorted(info.trace, reverse=True))
-    assert got_s.best().cost == info.trace[-1] == min(info.candidate_costs)
-    assert len(info.candidate_costs) == len(info.candidate_labels) \
-        == info.candidates
-    inst_w = t_build_instance(interop.port(wf), got_s.mappings[0],
-                              interop.port(platform))
-    best = got_s.best()
-    assert t_schedule_cost(inst_w, interop.port(prof), best.start) \
-        == best.cost
-    assert np.array_equal(got_h.mappings[0].proc,
-                          heft_mapping(wf, platform).proc)
-
-
-def test_search_over_two_profiles_robust_matches_reference(platform):
-    wf = make_workflow("eager", 2, seed=0)
-    profs = [_scarce_profile(platform, 300, seed=s) for s in (2, 5)]
-    want, got = _plan_both(platform, wf, profs, mapping="search",
-                           robust=True,
-                           mapping_options={"seeds": 4, "rounds": 2,
-                                            "neighbors": 6, "seed": 42})
-    assert got.mapping_info[0].objective == "robust"
-    _assert_same_plan(want, got)
-    again = Planner(interop.port(platform), engine="torch",
-                    device="cpu").plan(PlanRequest(
-                        instances=interop.port(wf),
-                        profiles=_port_profiles(profs), mapping="search",
-                        robust=True,
-                        mapping_options={"seeds": 4, "rounds": 2,
-                                         "neighbors": 6, "seed": 42}))
-    _assert_same_plan(got, again)          # bit-reproducible per seed
-
-
 @pytest.mark.parametrize("mode", ["heft", "search"])
 def test_deadline_scale_crops_via_reference_heft(platform, mode):
     wf = make_workflow("eager", 2, seed=0)
@@ -309,31 +246,6 @@ def test_deadline_scale_crops_via_reference_heft(platform, mode):
         assert t_makespan(inst, r.start) <= want_T
 
 
-def test_heft_mode_info_and_wire_round_trip(platform, quality_setup):
-    wf, prof, _ = quality_setup
-    planner = Planner(interop.port(platform), engine="torch", device="cpu")
-    for mode, opts in (("heft", None),
-                       ("search", {"seeds": 3, "rounds": 1,
-                                   "neighbors": 3})):
-        res = planner.plan(PlanRequest(instances=interop.port(wf),
-                                       profiles=interop.port(prof),
-                                       mapping=mode, mapping_options=opts))
-        d = res.summary_dict()
-        back = PlanResult.summary_from_dict(json.loads(json.dumps(d)))
-        assert back.summary_dict() == d
-        assert back.mapping_mode == mode
-        assert back.mapping_info == res.mapping_info
-        assert back.mapping_info[0].mode == mode
-    fixed = planner.plan(PlanRequest(
-        instances=t_build_instance(interop.port(wf), res.mappings[0],
-                                   interop.port(platform)),
-        profiles=interop.port(prof)))
-    assert fixed.mapping_mode == "fixed"
-    assert fixed.mappings is None and fixed.mapping_info is None
-    # the winner re-planned under mapping="fixed" reproduces the search
-    assert np.array_equal(fixed.costs, res.costs)
-
-
 def test_cancel_token_stops_search(platform):
     token = CancelToken()
     token.cancel("test")
@@ -349,27 +261,6 @@ def test_cancel_token_stops_search(platform):
 # ---------------------------------------------------------------------------
 # the port's own bucket properties (cache_misses and pad rows)
 # ---------------------------------------------------------------------------
-
-def test_candidate_batches_add_no_bucket_misses(platform):
-    """Steady state, growing the candidate count adds no new (Npad, Tp)
-    bucket: every later batch's ``cache_misses`` entry is 0."""
-    wf = make_workflow("bacass", 2, seed=1)
-    inst_h = build_instance(wf, heft_mapping(wf, platform), platform)
-    T = min(deadline_from_asap(inst_h, 3.0), 250)   # stay in one T bucket
-    prof = interop.port(_scarce_profile(platform, T))
-    planner = Planner(interop.port(platform), engine="torch", device="cpu")
-    planner.plan(PlanRequest(
-        instances=interop.port(wf), profiles=[prof, prof], mapping="search",
-        mapping_options={"seeds": 3, "rounds": 1, "neighbors": 3}))
-    res = planner.plan(PlanRequest(
-        instances=interop.port(wf), profiles=[prof, prof], mapping="search",
-        mapping_options={"seeds": 6, "rounds": 2, "neighbors": 8,
-                         "seed": 1}))
-    info = res.mapping_info[0]
-    assert info.candidates > 8
-    assert len(info.cache_misses) == 1 + info.rounds
-    assert sum(info.cache_misses) == 0, info.cache_misses
-
 
 def test_padded_candidate_batch_counts_real_candidates_only(platform):
     """Each candidate batch is padded to the 8-wide bucket by repeating the

@@ -12,7 +12,10 @@ inverted (dlo > dhi), a row that stops climbing while the others go on, and
 rows that hit ``max_rounds``. On the card (``-m cuda``) each kernel is held
 bitwise to its plain version at the matrix's bucket (R=32, Np=4352,
 Tp=1024), on the edge cases, with its state in device memory where it does
-not fit shared memory, and the blocked greedy against the dense one.
+not fit shared memory, and the blocked greedy against the dense one; and on
+the edges of the kernels' shared-memory rings: rows shorter than a stage or
+carried in chunks, launches shorter than the ring, ragged rows the bulk
+copies refuse, rows with fewer proposals than the ring is deep.
 """
 import importlib.util
 import os
@@ -379,5 +382,104 @@ def test_cuda_commit_scan_matches_plain_off_the_plan(R, Np, Tp, D):
     dev = _cuda()
     *_, any_c, err = smoke.same_commits(
         *smoke.synthetic_commit(R, Np, Tp, D, dev), f"R={R} Np={Np}")
+    assert err == 0.0
+    assert bool(any_c.any()) and not bool(any_c[1])
+
+
+# --- the ring's edges, on the card -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,Np,Tp", [(2, 64, 96), (2, 30720, 1024)],
+                         ids=["below_one_stage", "ragged_chunks"])
+def test_cuda_greedy_scan_ring_chunks_match_plain(R, Np, Tp):
+    """A row shorter than a stage and than the block (most threads own no
+    unit), and a row the ring carries in chunks whose last one is short."""
+    dev = _cuda()
+    plan = tgs.ring_plan(Np, Tp, dev)
+    if Np == 64:
+        assert plan["chunk"] == Np and plan["stage_tasks"]
+    else:
+        assert plan["chunk"] < Np and Np % plan["chunk"] != 0
+        assert not plan["stage_tasks"] and plan["stage_time"]
+    state, rest = smoke.synthetic_greedy(R, Np, Tp, 24, Np + Tp, dev)
+    for t0 in (0, Np - 24):
+        assert smoke.same_scans(state, rest, t0, f"t0={t0}") == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_scan_launches_shorter_than_the_ring():
+    """Blocked chunks of 1 and 2 steps, fewer than the ring's stages, alone
+    and chained (each launch from the state the last one left)."""
+    dev = _cuda()
+    Np, Tp = 256, 1024
+    assert tgs.ring_plan(Np, Tp, dev)["stages"] > 2
+    state, rest = smoke.synthetic_greedy(3, Np, Tp, 24, 7, dev)
+    for n in (1, 2):
+        for t0 in (0, Np - 24):
+            assert smoke.same_scans(state, rest, t0, f"{n} steps",
+                                    t1=t0 + n) == 0.0
+    outs = []
+    for mode in ("kernel", "plain"):
+        s, t = [x.clone() for x in state], 0
+        for n in (1, 2, 1, 2, 2, 1):
+            tgs.greedy_scan(*s, *rest[:4], rest[4][:, t:t + n].contiguous(),
+                            rest[5][:, t:t + n].contiguous(), lp_of=rest[6],
+                            t0=t, mode=mode)
+            t += n
+        outs.append(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kernels_refuse_ragged_rows():
+    """Np % 4 != 0 (greedy) and a dense Np % 16 != 0 (commit): the kernels'
+    bulk copies cannot take the rows, so the kernel path raises a
+    ValueError; the plain versions take them."""
+    dev = _cuda()
+    state, rest = smoke.synthetic_greedy(2, 250, 128, 4, 3, dev)
+    with pytest.raises(ValueError, match="Np % 4 == 0"):
+        tgs.greedy_scan(*[x.clone() for x in state], *rest[:6],
+                        lp_of=rest[6], mode="kernel")
+    tgs.greedy_scan(*[x.clone() for x in state], *rest[:6], lp_of=rest[6],
+                    mode="plain")
+    state, rnd, live, dur, work, t_real, adj = smoke.synthetic_dense_commit(
+        3, 300, 512, dev)
+    with pytest.raises(ValueError, match="Np % 16 == 0"):
+        tcs.commit_scan(*[x.clone() for x in state], *rnd, live, dur, work,
+                        t_real, adj, mode="kernel")
+    tcs.commit_scan(*[x.clone() for x in state], *rnd, live, dur, work,
+                    t_real, adj, mode="plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjacency", ["dense", "padded"])
+@pytest.mark.parametrize("k", [1, 16])
+def test_cuda_commit_scan_few_proposals_match_plain(adjacency, k):
+    """K=1, and rows with 0 to 9 positive proposals (fewer than the dense
+    ring is deep: it must not wait on a stage it never fills), a dead
+    row."""
+    dev = _cuda()
+    R, Np, Tp = 10, 512, 1024
+    if adjacency == "dense":
+        case = smoke.synthetic_dense_commit(R, Np, Tp, dev)
+    else:
+        case = smoke.synthetic_commit(R, Np, Tp, 8, dev)
+    state, rnd, live, dur, work, t_real, adj = case
+    cut = smoke.few_positives(rnd, k)
+    assert int((cut[2] > 0).sum(dim=1).max()) == R - 1
+    *_, any_c, err = smoke.same_commits(state, cut, live, dur, work, t_real,
+                                        adj, f"{adjacency} K={k}")
+    assert err == 0.0
+    assert not bool(any_c[0]) and not bool(any_c[1])
+
+
+@pytest.mark.cuda
+def test_cuda_commit_scan_dense_hub_tasks_match_plain():
+    """Dense rows with many predecessors and successors (three quarters,
+    all, all) at the bucket's Np, visited first by every live row."""
+    dev = _cuda()
+    *_, any_c, err = smoke.same_commits(
+        *smoke.synthetic_dense_commit(6, 4352, 1024, dev), "hub tasks")
     assert err == 0.0
     assert bool(any_c.any()) and not bool(any_c[1])
